@@ -4,7 +4,7 @@
 
 Phases; any failure exits non-zero before the result line:
   1. device   — require CUDA, print ``nvidia-smi`` name and power limit;
-  2. build    — build every kernel of the serving path from
+  2. build    — build every kernel of the served paths from
                 ``dmfusion_torch/csrc`` (nvcc, sm_90a), print the seconds;
   3. kernels  — hold each kernel against its plain PyTorch version at the
                 main path's shapes (image6 synthetic scene, patch 16): the
@@ -20,9 +20,26 @@ Phases; any failure exits non-zero before the result line:
                 norms must hand bf16 on, as flax's GroupNorm(dtype=bf16)
                 does; the bf16 logits on the card must lie within
                 BF16_ATOL of the f32 logits of the same weights on the CPU,
-                and f32 logits on the card (TF32 off) within 1e-3.
+                and f32 logits on the card (TF32 off) within 1e-3;
+  5. pool     — the phase window-pool must be bit-equal to its plain
+                version at the image6 w32 shape (bf16 and f32), at an
+                odd-output geometry and at a wide one (4C = 256, patch
+                32); time the kernel, the plain version and one
+                ``avg_pool2d`` call on the full-resolution map, and
+                compute the bytes bound;
+  6. dense    — dense_fusion at width 32, patch 16, bf16 compute, f32
+                scene, seeded weights, saved and loaded as an artifact,
+                rendering the whole image6 class map through
+                ``ScenePredictor.class_map()``: 2 warm-up and 10 timed
+                maps, one pool launch per map; the map with the plain pool
+                on the card must be equal; ``evaluate()``; a map in 4 row
+                bands (4 launches, argmax agreement >= 0.999 with the
+                whole map); on a 96x96 crop, bf16 card logits within
+                DENSE_BF16_ATOL of f32 CPU logits and f32 card logits
+                (TF32 off) within 1e-3; a profile of 2 maps.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
+``nvcc`` per source.
 """
 
 from __future__ import annotations
@@ -33,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,10 +61,13 @@ from dmfusion_torch.data.scene import split_labels, synthetic_scene
 from dmfusion_torch.export import load_artifact, save_artifact
 from dmfusion_torch.infer import ScenePredictor
 from dmfusion_torch.models import build_model
+from dmfusion_torch.models import dense_fusion
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.ops import gather as gather_ops
+from dmfusion_torch.ops import pool as pool_ops
 from dmfusion_torch.ops._build import load_library
 from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
+from dmfusion_torch.train.steps import DensePrograms
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BUCKET = 4096
@@ -60,11 +81,29 @@ BF16_ATOL = 0.04
 CFG = {"data_city": "image6", "patch_size": 16, "seed": 3407,
        "model_width": 64, "device": "cuda",
        "precision": {"compute_dtype": "bfloat16", "scene_dtype": "float32"}}
-# One entry per CUDA source of the serving path.
-KERNELS = {"gather_windows": {
-    "route": "cuda", "source": "dmfusion_torch/csrc/gather_windows.cu",
-    "replaces": "dmfusion/ops/pallas_gather.py:90",
-    "counter": gather_ops.gather_windows_cuda}}
+# The dense flagship: image6, width 32 (128 trunk channels), patch 16.
+DENSE_CFG = {**CFG, "model_name": "dense_fusion", "model_width": 32}
+DENSE_WARMUP, DENSE_MAPS, DENSE_BANDS = 2, 10, 4
+# bf16 card logits vs f32 CPU logits of the dense model on a 96x96 crop:
+# on the CPU the port's bf16 lands 0.00046-0.00059 (max abs over the
+# 81x81x12 logits of four crops) from its f32 logits, at a logit scale of
+# 0.024-0.029 for these seeded weights; a skipped or wrong layer moves
+# them by that scale.
+DENSE_BF16_ATOL = 0.002
+# One entry per CUDA source of the served paths.
+KERNELS = {
+    "gather_windows": {
+        "route": "cuda", "source": "dmfusion_torch/csrc/gather_windows.cu",
+        "replaces": "dmfusion/ops/pallas_gather.py:90",
+        "counter": gather_ops.gather_windows_cuda,
+        "unit": f"one dual bucket: MS + PAN launch, B={BUCKET}, f32 scene"},
+    "phase_pool": {
+        "route": "cuda", "source": "dmfusion_torch/csrc/phase_pool.cu",
+        "replaces": "dmfusion/ops/pallas_pool.py:124",
+        "counter": pool_ops.phase_pool_cuda,
+        "unit": "one image6 w32 map pool: (1008, 1058, 128) -> "
+                "(1001, 1051, 128) bf16, patch 16"},
+}
 
 
 def log(msg: str) -> None:
@@ -107,10 +146,16 @@ def phase_device() -> tuple[torch.device, str]:
 
 
 def phase_build() -> None:
-    for name in KERNELS:
+    """One nvcc per source, all started together."""
+    def build(name):
         t0 = time.perf_counter()
         load_library(name)
-        log(f"build: {name} {time.perf_counter() - t0:.2f} s")
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as ex:
+        secs = dict(zip(KERNELS, ex.map(build, KERNELS)))
+    log(f"build: {json.dumps(secs)}, {time.perf_counter() - t0:.2f} s in all")
 
 
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -341,6 +386,200 @@ def phase_serving(scene, device) -> dict:
     return launches
 
 
+def _pool_out(hm: int, wm: int, patch: int) -> tuple[int, int]:
+    return -(-(hm - patch + 1) // 2), -(-(wm - patch + 1) // 2)
+
+
+def phase_pool(scene, device) -> dict:
+    """phase_pool_cuda vs phase_pool_ref: bit-equal at the image6 w32
+    shape (bf16 and f32), an odd-output and a wide geometry; timings."""
+    hm, wm = int(scene.ms.shape[0]), int(scene.ms.shape[1])  # 2016 x 2116
+    ps = scene.patch
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def feats(h2, w2, c4, dtype):
+        return torch.randn((h2, w2, c4), generator=gen, device=device,
+                           dtype=torch.float32).to(dtype)
+
+    cases = [("image6 w32 bf16", -(-hm // 2), -(-wm // 2), 128, ps,
+              torch.bfloat16, _pool_out(hm, wm, ps)),
+             ("image6 w32 f32", -(-hm // 2), -(-wm // 2), 128, ps,
+              torch.float32, _pool_out(hm, wm, ps)),
+             ("odd 37x45 4C=64 p8 bf16", 37, 45, 64, 8, torch.bfloat16,
+              _pool_out(73, 89, 8)),
+             ("wide 4C=256 p32 f32", 60, 84, 256, 32, torch.float32,
+              _pool_out(119, 167, 32))]
+    worst = 0.0
+    for tag, h2, w2, c4, patch, dtype, (ni, nj) in cases:
+        f = feats(h2, w2, c4, dtype)
+        got = pool_ops.phase_pool_cuda(f, patch, ni, nj)
+        want = pool_ops.phase_pool_ref(f, patch, ni, nj)
+        torch.cuda.synchronize()
+        worst = max(worst, _max_err(got, want))
+        check(got.shape == want.shape == (ni, nj, c4) and got.dtype == dtype,
+              f"phase_pool {tag}: shape or dtype")
+        check(torch.equal(got, want), f"phase_pool {tag}: kernel != plain "
+              f"(max {_max_err(got, want)})")
+        log(f"kernels: phase_pool {tag}: bit-equal {tuple(f.shape)} -> "
+            f"{tuple(got.shape)}")
+
+    # Timing at the main path's shape, bf16: kernel, plain version, and one
+    # avg_pool2d over the full-resolution (1, C, 2*H2, 2*W2) map (same
+    # window means; no s2d packing and another rounding).
+    h2, w2 = -(-hm // 2), -(-wm // 2)
+    ni, nj = _pool_out(hm, wm, ps)
+    f = feats(h2, w2, 128, torch.bfloat16)
+    full = dense_fusion.depth_to_space(f, 2).permute(2, 0, 1)[None]
+    full = full.contiguous()
+    runs = {
+        "kernel": lambda i: pool_ops.phase_pool_cuda(f, ps, ni, nj),
+        "plain": lambda i: pool_ops.phase_pool_ref(f, ps, ni, nj),
+        "library": lambda i: torch.nn.functional.avg_pool2d(full, ps, 1),
+    }
+    times = {k: [] for k in runs}
+    for order in (("plain", "kernel", "library"),
+                  ("library", "kernel", "plain")) * 3:
+        for k in order:
+            times[k].append(cuda_ms(runs[k], iters=10))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    moved = (h2 * w2 + ni * nj) * 128 * f.element_size()
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    log(f"kernels: phase_pool image6 w32 bf16 ms median of 6: kernel "
+        f"{med['kernel']:.4f} plain {med['plain']:.4f} library "
+        f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "
+        f"all: {json.dumps(times)}")
+    return {"max_abs_err": worst, "ms": med["kernel"], "plain_ms": med["plain"],
+            "library_ms": med["library"], "bound_ms": bound,
+            "bound_by": "bytes"}
+
+
+def phase_dense(scene, device) -> dict:
+    """Serve the image6 dense class map from an artifact; returns the
+    launch counts of the timed maps."""
+    cfg = load_config(overrides=DENSE_CFG)
+    model = init_params(build_model(cfg),
+                        torch.Generator().manual_seed(cfg["seed"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/dense_image6.zip"
+        save_artifact(path, cfg, model)
+        clf = load_artifact(path, device)
+    check(clf.is_map and clf.manifest["dense_bands"] == 0,
+          "dense artifact: not a whole-scene map artifact")
+    for _ in range(DENSE_WARMUP):
+        ScenePredictor(clf, scene).class_map()
+
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    map_ms = []
+    for _ in range(DENSE_MAPS):
+        pred = ScenePredictor(clf, scene)  # a fresh cache: renders anew
+        t0 = time.perf_counter()
+        cmap = pred.class_map()  # host labels: synchronized
+        map_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {name: spec["counter"].launches
+                for name, spec in KERNELS.items()}
+    check(launches["phase_pool"] == DENSE_MAPS,
+          f"phase_pool launches {launches['phase_pool']} != {DENSE_MAPS} "
+          f"maps")
+    ncls = int(cfg["Categories_Number"])
+    check(cmap.shape == (scene.height, scene.width) and cmap.min() >= 0
+          and cmap.max() < ncls, "dense class map: shape or class range")
+    metrics = pred.evaluate()
+    check(metrics["pixels"] == int(np.count_nonzero(scene.label))
+          and int(metrics["confusion"].sum()) == metrics["pixels"],
+          "dense evaluate(): pixel count")
+
+    # The same map with the plain pool on the card.
+    dense_fusion.phase_pool = pool_ops.phase_pool_ref
+    try:
+        plain = ScenePredictor(clf, scene).class_map()
+    finally:
+        dense_fusion.phase_pool = pool_ops.phase_pool
+    check(np.array_equal(plain, cmap), "kernel-pool and plain-pool maps "
+          f"differ at {int((plain != cmap).sum())} pixels")
+
+    # Four row bands: one pool launch per band.
+    prog = DensePrograms(clf.model, scene.patch)
+    before = pool_ops.phase_pool_cuda.launches
+    banded = prog.class_map_streamed(scene.ms, scene.pan, DENSE_BANDS)
+    band_launches = pool_ops.phase_pool_cuda.launches - before
+    banded = banded.cpu().numpy()
+    check(band_launches == DENSE_BANDS, f"streamed map: {band_launches} "
+          f"pool launches for {DENSE_BANDS} bands")
+    band_agree = float((banded == cmap).mean())
+    check(band_agree >= 0.999, f"streamed map agrees {band_agree} < 0.999")
+
+    # Where the time goes: a profile of two maps.
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            ScenePredictor(clf, scene).class_map()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    pool_us = sum(e.self_device_time_total for e in on_device
+                  if "phase_pool_kernel" in e.key)
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:14]
+    log("profile dense: " + json.dumps({
+        "maps": 2, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / wall_us, "pool_kernel_ms": pool_us / 1e3,
+        "pool_share_of_busy": pool_us / busy_us,
+        "top_kernels_ms_calls": [[e.key[:90], e.self_device_time_total / 1e3,
+                                  e.count] for e in top]}))
+
+    # Precision on a 96x96 MS crop and its PAN: the served bf16 model and
+    # f32 on the card (TF32 off), against f32 on the CPU, same weights.
+    r0 = c0 = min(1000, scene.height - 96) // 2 * 2
+    ms = scene.ms[r0:r0 + 96, c0:c0 + 96]
+    pan = scene.pan[4 * r0:4 * (r0 + 96), 4 * c0:4 * (c0 + 96)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = load_config(overrides={**DENSE_CFG, "precision": {
+        "compute_dtype": "float32", "scene_dtype": "float32"}})
+    state = clf.model.state_dict()
+    card32 = build_model(cfg32).to(device)
+    card32.load_state_dict(state)
+    cpu32 = build_model(cfg32)
+    cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
+    with torch.inference_mode():
+        on_card = card32.eval()(ms, pan, scene.patch).cpu()
+        on_cpu = cpu32.eval()(ms.cpu(), pan.cpu(), scene.patch)
+        served16 = clf.logits(ms, pan).cpu()
+    for t in (on_card, served16):
+        check(bool(torch.isfinite(t).all()) and t.dtype == torch.float32
+              and t.shape == on_cpu.shape
+              == (97 - scene.patch, 97 - scene.patch, ncls),
+              "dense logits: dtype, shape or non-finite values")
+    err32 = float((on_card - on_cpu).abs().max())
+    check(err32 <= 1e-3, f"dense f32 card vs CPU logits differ by {err32}")
+    err16 = float((served16 - on_cpu).abs().max())
+    check(err16 <= DENSE_BF16_ATOL, f"dense bf16 card vs f32 CPU logits "
+          f"differ by {err16} > {DENSE_BF16_ATOL}")
+    agree16 = float((served16.argmax(-1) == on_cpu.argmax(-1)).float().mean())
+
+    pixels = scene.height * scene.width
+    med = statistics.median(map_ms)
+    result = {"maps": DENSE_MAPS, "map_ms_median": med,
+              "map_ms_max": max(map_ms), "pixels": pixels,
+              "pixels_per_s": pixels / med * 1e3,
+              "oa": metrics["oa"], "aa": metrics["aa"],
+              "kappa": metrics["kappa"], "launches": launches,
+              "bands": DENSE_BANDS, "band_launches": band_launches,
+              "band_vs_whole_agree": band_agree,
+              "f32_card_vs_cpu_max_abs": err32,
+              "bf16_card_vs_f32_cpu_max_abs": err16,
+              "bf16_card_vs_f32_cpu_argmax_agree": agree16,
+              "logit_scale": float(on_cpu.abs().max()),
+              "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+              "map_ms": map_ms}
+    log(f"dense: {json.dumps(result)}")
+    return launches
+
+
 def main() -> None:
     device, card = phase_device()
     phase_build()
@@ -351,7 +590,12 @@ def main() -> None:
         f"{tuple(scene.pan.shape)} {scene.ms.dtype}, "
         f"{time.perf_counter() - t0:.2f} s")
     timings = phase_kernels(scene, device)
-    launches = phase_serving(scene, device)
+    # Each path is driven with every count set to 0 just before it and read
+    # just after; a kernel's launches are those of its own path.
+    launches = {"gather_windows":
+                phase_serving(scene, device)["gather_windows"]}
+    timings["phase_pool"] = phase_pool(scene, device)
+    launches["phase_pool"] = phase_dense(scene, device)["phase_pool"]
     rows = []
     for name, spec in KERNELS.items():
         t = timings[name]
@@ -362,9 +606,7 @@ def main() -> None:
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"],
-                     "unit": f"one dual bucket: MS + PAN launch, "
-                             f"B={BUCKET}, f32 scene"})
+                     "library_ms": t["library_ms"], "unit": spec["unit"]})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@ of ``dmfusion`` — and keeps its own copies of the framework-neutral code
 
 Ported so far: the serving path of the default model, gmfnet — config,
 scene, window gathers (a hand-written CUDA kernel on the card), models,
-artifact export/load, scene inference and metrics.
+artifact export/load, scene inference and metrics — and the whole-scene
+class map of the dense flagship, dense_fusion, with its phase window-pool
+as a second hand-written CUDA kernel.
 """
 
 __version__ = "0.1.0"

@@ -5,8 +5,9 @@ than importing the JAX package (whose ``__init__`` imports jax).  The
 values of :data:`DATA_DICT` and :data:`DEFAULTS` are identical to the JAX
 package's, key for key, so one config renders to the same dict in both
 packages (``tests/test_torch_config.py``).  Knobs that only the JAX
-package reads (mesh, Pallas pool, dense streaming, ...) are kept so that
-configs stay interchangeable; the port ignores them.  ``device`` is read
+package reads (mesh, Pallas pool, ...) are kept so that configs stay
+interchangeable; the port ignores them.  It reads ``dense_streams`` and
+``dense_streams_infer`` (the dense map's band count).  ``device`` is read
 by :func:`dmfusion_torch.config.resolve_device`.
 """
 

@@ -4,8 +4,10 @@
   * ``manifest.json`` — the keys of ``dmfusion/export.py``'s manifest
     (model, arity, patch size, classes, city, palette, dtypes, seed),
     with ``torch_version`` in place of ``platforms``/``jax_version``, plus
-    ``gmfnet_pan`` and ``activate``, which a ``.dmx`` bakes into its
-    program instead;
+    ``activate`` (and ``gmfnet_pan`` for gmfnet), which a ``.dmx`` bakes
+    into its program instead; a dense artifact's unit is the whole padded
+    scene, and it carries ``scene_shape`` and ``dense_bands`` as a dense
+    ``.dmx`` does;
   * ``params.npz`` — the parameters under their flax tree paths
     (``ResBlock_2/Conv_0/kernel``) in flax layout, so the file is the
     same whichever framework reads it.
@@ -29,6 +31,8 @@ import torch
 from dmfusion_torch.config import _deep_merge, load_config, resolve_device
 from dmfusion_torch.models import build_model, model_arity
 from dmfusion_torch.models.convert import load_flax_params, params_to_flax
+from dmfusion_torch.train.steps import (DensePrograms, resolve_dense_streams,
+                                        resolve_dense_streams_infer)
 
 ARTIFACT_FORMAT = 1
 
@@ -36,14 +40,28 @@ ARTIFACT_FORMAT = 1
 _EXT_NDARRAY = 1
 
 
+def _dense_manifest_extras(cfg: Mapping[str, Any]) -> dict[str, Any]:
+    """A dense artifact classifies one scene geometry: stamp it, and the
+    band count of its class map (``dense_streams``/``_infer``)."""
+    h, w, c = cfg["DATA_DICT"][cfg["data_city"]]["size"]
+    ps = int(cfg["patch_size"])
+    n_train = resolve_dense_streams(cfg.get("dense_streams", "auto"),
+                                    h + ps - 1, w + ps - 1)
+    bands = resolve_dense_streams_infer(
+        cfg.get("dense_streams_infer", "auto"), n_train)
+    return {"scene_shape": [int(h), int(w), int(c)],
+            "dense_bands": int(bands)}
+
+
 def _manifest(cfg: Mapping[str, Any]) -> dict[str, Any]:
     ps = int(cfg["patch_size"])
-    chans = int(cfg["DATA_DICT"][cfg["data_city"]]["size"][2])
+    h, w, chans = (int(v) for v in cfg["DATA_DICT"][cfg["data_city"]]["size"])
     prec = cfg.get("precision", {})
-    return {
+    arity = model_arity(cfg["model_name"])
+    manifest = {
         "format": ARTIFACT_FORMAT,
         "model_name": cfg["model_name"],
-        "arity": model_arity(cfg["model_name"]),
+        "arity": arity,
         "patch_size": ps,
         "model_width": int(cfg.get("model_width", 0)),
         "categories": int(cfg["Categories_Number"]),
@@ -56,9 +74,18 @@ def _manifest(cfg: Mapping[str, Any]) -> dict[str, Any]:
         "input_shapes": [["b", str(ps), str(ps), str(chans)],
                          ["b", str(4 * ps), str(4 * ps), "1"]],
         "torch_version": torch.__version__,
-        "gmfnet_pan": str(cfg.get("gmfnet_pan", "s2d")),
         "activate": str(cfg["schedule"]["activate"]),
     }
+    if arity == "dense":
+        # The unit is the whole padded scene, as in dmfusion's export.
+        manifest["batch"] = "scene"
+        manifest["input_shapes"] = [
+            [str(h + ps - 1), str(w + ps - 1), str(chans)],
+            [str(4 * h + 4 * ps - 1), str(4 * w + 4 * ps - 1)]]
+        manifest.update(_dense_manifest_extras(cfg))
+    else:
+        manifest["gmfnet_pan"] = str(cfg.get("gmfnet_pan", "s2d"))
+    return manifest
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -117,21 +144,47 @@ def read_manifest(path: str | os.PathLike) -> dict[str, Any]:
 
 
 class TorchClassifier:
-    """A loaded artifact: ``manifest``, the model on ``device``,
-    ``logits(ms, pan)`` and ``predict(ms, pan)`` on NHWC window batches."""
+    """A loaded artifact: ``manifest``, the config ``cfg`` it was rebuilt
+    from, and the model on ``device``.  Per-anchor artifacts (arity
+    ``dual``) take NHWC window batches in ``logits(ms, pan)`` and
+    ``predict(ms, pan)``; map artifacts (arity ``dense``) take the padded
+    scene in ``logits(ms, pan)`` (the (H, W, ncls) map) and
+    ``class_map(ms, pan)``."""
 
     def __init__(self, model: torch.nn.Module, manifest: dict[str, Any],
-                 device: torch.device):
+                 device: torch.device, cfg: Mapping[str, Any]):
         self.model = model
         self.manifest = manifest
         self.device = device
+        self.cfg = cfg
+
+    @property
+    def is_map(self) -> bool:
+        """True when the serving unit is the whole-scene class map."""
+        return self.manifest["arity"] == "dense"
 
     @torch.inference_mode()
     def logits(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+        if self.is_map:
+            return self.model(ms, pan, int(self.manifest["patch_size"]))
         return self.model(ms, pan)
 
     def predict(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+        if self.is_map:
+            raise ValueError("map artifacts classify whole scenes: call "
+                             "class_map(ms, pan) with the padded scene")
         return self.logits(ms, pan).argmax(dim=-1).to(torch.int32)
+
+    def class_map(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+        """Map artifacts only: the (H, W) int32 class map of the padded
+        scene, in the manifest's ``dense_bands`` row bands (0: one pass)."""
+        if not self.is_map:
+            raise ValueError(f"class_map serves whole-scene artifacts; this "
+                             f"one has arity {self.manifest['arity']!r}: use "
+                             f"predict()")
+        prog = DensePrograms(self.model, int(self.manifest["patch_size"]))
+        return prog.predict_map(ms, pan,
+                                int(self.manifest.get("dense_bands", 0)))
 
 
 def load_artifact(path: str | os.PathLike,
@@ -142,8 +195,9 @@ def load_artifact(path: str | os.PathLike,
     ``overrides`` say ``device: cpu``; raises when there is no card).
 
     A ``.dmx`` does not record ``gmfnet_pan`` (read here from the param
-    tree) nor the activation (``Relu`` unless ``overrides`` names one,
-    e.g. ``{"schedule": {"activate": "Gelu"}}``).
+    tree) nor the activation its program bakes in: that comes only from
+    ``overrides`` (e.g. ``{"schedule": {"activate": "Gelu"}}``), and
+    without it the load raises.
     """
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read("manifest.json"))
@@ -160,23 +214,37 @@ def load_artifact(path: str | os.PathLike,
             tree = payload["tree"] if "tree" in payload else payload
         else:
             raise ValueError(f"{path}: no params.npz or params.msgpack")
-    if manifest["arity"] != "dual":
-        raise ValueError(f"{path}: arity {manifest['arity']!r} is not ported "
-                         f"to dmfusion_torch yet (ported: 'dual')")
-    pan = manifest.get("gmfnet_pan") or (
-        "pyramid" if "PanPyramid_0" in tree else "s2d")
-    width = 2 * int(np.shape(tree["ConvBlock_0"]["Conv_0"]["kernel"])[-1])
+    arity = manifest["arity"]
+    if arity not in ("dual", "dense"):
+        raise ValueError(f"{path}: arity {arity!r} is not ported to "
+                         f"dmfusion_torch yet (ported: 'dual', 'dense')")
+    act = manifest.get("activate") or (overrides or {}).get(
+        "schedule", {}).get("activate")
+    if act is None:
+        raise ValueError(
+            f"{path}: the artifact does not record its activation "
+            f"(schedule.activate); pass it, e.g. overrides={{'schedule': "
+            f"{{'activate': 'Relu'}}}} or --set schedule.activate=Relu")
     cfg_over: dict[str, Any] = {
         "model_name": manifest["model_name"],
         "data_city": manifest["data_city"],
         "patch_size": int(manifest["patch_size"]),
-        "model_width": width,
-        "gmfnet_pan": pan,
         "seed": int(manifest.get("seed", 0)),
-        "schedule": {"activate": manifest.get("activate", "Relu")},
+        "schedule": {"activate": act},
         "precision": {"compute_dtype": manifest["compute_dtype"],
                       "scene_dtype": manifest.get("scene_dtype", "float32")},
     }
+    if arity == "dense":
+        cfg_over["model_width"] = int(
+            np.shape(tree["ms_stem"]["WSConv_0"]["kernel"])[-1])
+        # A city outside DATA_DICT is described by the manifest itself.
+        cfg_over["DATA_DICT"] = {manifest["data_city"]: {
+            "size": manifest["scene_shape"], "color": manifest["palette"]}}
+    else:
+        cfg_over["model_width"] = 2 * int(
+            np.shape(tree["ConvBlock_0"]["Conv_0"]["kernel"])[-1])
+        cfg_over["gmfnet_pan"] = manifest.get("gmfnet_pan") or (
+            "pyramid" if "PanPyramid_0" in tree else "s2d")
     if overrides:
         cfg_over = _deep_merge(cfg_over, overrides)
     cfg = load_config(overrides=cfg_over)
@@ -184,4 +252,4 @@ def load_artifact(path: str | os.PathLike,
     device = resolve_device(cfg) if device is None else torch.device(device)
     if device.type == "cuda":
         model = model.to(device, memory_format=torch.channels_last)
-    return TorchClassifier(model, manifest, device)
+    return TorchClassifier(model, manifest, device, cfg)

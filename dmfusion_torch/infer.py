@@ -1,15 +1,19 @@
 """Serving-side scene inference from an artifact.
 
-Port of ``dmfusion/infer.py`` for the ``dual`` arity.  ``ScenePredictor``
-runs a loaded classifier over a device-resident scene: window gathers
-(the CUDA kernel on the card, the plain gather on the CPU), fixed-size
-``bucket`` batches, argmax, OA/AA/kappa against the scene labels and
-class maps.
+Port of ``dmfusion/infer.py`` for the ``dual`` and ``dense`` arities.
+``ScenePredictor`` runs a loaded classifier over a device-resident scene.
+Per-anchor (``dual``) artifacts gather windows (the CUDA kernel on the
+card, the plain gather on the CPU) into fixed-size ``bucket`` batches;
+map (``dense``) artifacts render the whole-scene class map once and
+index it.  Both give argmax labels, OA/AA/kappa against the scene labels
+and class maps.
 
     python -m dmfusion_torch.infer --artifact m.dmx [--set device=cpu] [--no-maps]
 
 reads the port's artifact or a ``dmfusion`` ``.dmx`` and prints one JSON
-line with metrics and wall times.
+line with metrics and wall times.  A ``.dmx`` does not record its
+activation: the config's ``schedule.activate`` is used (``Relu`` unless
+``--set schedule.activate=...`` says otherwise).
 """
 
 from __future__ import annotations
@@ -29,16 +33,18 @@ from dmfusion_torch.ops.gather import gather_dual_fast
 class ScenePredictor:
     """Per-anchor scene classification through a loaded classifier.
 
-    The MS anchor (x, y) owns a ``ps`` window, the PAN anchor (4x, 4y) a
-    ``4*ps`` window, as in training.  Every chunk of anchors is padded to
-    the one ``bucket`` size, so the model always sees one batch shape.
+    ``dual``: the MS anchor (x, y) owns a ``ps`` window, the PAN anchor
+    (4x, 4y) a ``4*ps`` window, as in training; every chunk of anchors is
+    padded to the one ``bucket`` size, so the model always sees one batch
+    shape.  ``dense``: the first query renders the whole-scene class map
+    (one ``clf.class_map`` call, cached), and every query indexes it.
     """
 
     def __init__(self, clf, scene, *, bucket: int = 4096):
         arity = clf.manifest["arity"]
-        if arity != "dual":
+        if arity not in ("dual", "dense"):
             raise ValueError(f"arity {arity!r} is not ported to "
-                             f"dmfusion_torch yet (ported: 'dual')")
+                             f"dmfusion_torch yet (ported: 'dual', 'dense')")
         if int(clf.manifest["patch_size"]) != int(scene.patch):
             raise ValueError(
                 f"scene was padded for patch_size={scene.patch} but the "
@@ -46,9 +52,30 @@ class ScenePredictor:
         if scene.ms.device != clf.device:
             raise ValueError(f"scene is on {scene.ms.device} but the "
                              f"classifier on {clf.device}")
+        if clf.is_map:
+            # A map artifact is made for one scene geometry.
+            want = clf.manifest.get("scene_shape")
+            have = [scene.height, scene.width, int(scene.ms.shape[-1])]
+            if want is not None and list(map(int, want)) != have:
+                raise ValueError(
+                    f"dense artifact was exported for scene geometry "
+                    f"{want} but this scene is {have} — wrong city?")
         self.clf = clf
         self.scene = scene
         self.bucket = int(bucket)
+        self._map_cache: np.ndarray | None = None
+
+    def _dense_map(self) -> np.ndarray:
+        """Map artifacts: the whole-scene (H, W) class map from one
+        ``class_map`` call, rendered once and cached; anchor queries index
+        it."""
+        if self._map_cache is None:
+            dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+                str(self.clf.manifest.get("scene_dtype", "float32"))]
+            s = self.scene
+            out = self.clf.class_map(s.ms.to(dt), s.pan.to(dt))
+            self._map_cache = out.cpu().numpy()[:s.height, :s.width]
+        return self._map_cache
 
     def _gather(self, ids_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         s = self.scene
@@ -59,6 +86,8 @@ class ScenePredictor:
     def predict_ids(self, ids: np.ndarray) -> np.ndarray:
         """Flat anchor ids -> predicted class id per anchor."""
         ids = np.asarray(ids, np.int32)
+        if self.clf.is_map:
+            return np.asarray(self._dense_map(), np.int32).reshape(-1)[ids]
         n = ids.shape[0]
         out = np.empty((n,), np.int32)
         b = self.bucket
@@ -76,6 +105,8 @@ class ScenePredictor:
         """(H, W) int32 class map over ``ids`` (default: every pixel);
         anchors not in ``ids`` stay class 0."""
         s = self.scene
+        if ids is None and self.clf.is_map:
+            return self._dense_map().copy()
         if ids is None:
             ids = np.arange(s.num_pixels, dtype=np.int32)
         label = np.zeros((s.height, s.width), np.int32)
@@ -155,6 +186,7 @@ def main(argv: list[str] | None = None) -> None:
         "city": cfg["data_city"],
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "activate": clf.cfg["schedule"]["activate"],
         "pixels": int(scene.num_pixels),
     }
     metrics = pred.evaluate(labeled)

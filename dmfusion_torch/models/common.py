@@ -186,10 +186,14 @@ class PanSpaceToDepth(nn.Module):
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization like flax's defaults: conv and dense kernels
-    LeCun-normal (variance 1/fan_in), biases zero, norm scales one."""
+    LeCun-normal (variance 1/fan_in), biases zero, norm scales one; a
+    module with a ``flax_init(generator)`` method initializes its own
+    parameters (the dense family's WSConv, alpha and raw head params)."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear)):
+            if hasattr(m, "flax_init"):
+                m.flax_init(generator)
+            elif isinstance(m, (nn.Conv2d, nn.Linear)):
                 fan_in = m.weight[0].numel()
                 w = torch.randn(m.weight.shape, generator=generator,
                                 dtype=torch.float32)

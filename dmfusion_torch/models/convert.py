@@ -2,59 +2,92 @@
 
 The flax tree (``flax.serialization.to_state_dict`` of the params, numpy
 leaves) names modules by class and call order, e.g.
-``ResBlock_2/ConvBlock_0/Conv_0/kernel``.  The tables below map each flax
-name to the torch attribute that holds the same layer.  Layouts differ:
-conv kernels are HWIO in flax and OIHW in torch, dense kernels
-``(in, out)`` against ``(out, in)``, and GroupNorm's ``scale`` is torch's
-``weight``.  Conversion in either direction raises on anything left
-unmatched, so a tree of another model or width never loads in part.
+``ResBlock_2/ConvBlock_0/Conv_0/kernel``, or by an explicit name
+(``trunk1/LocalConvBlock_0/WSConv_0/gain``).  The tables below map each
+flax name to the torch attribute that holds the same layer, and say what
+it is: a module of a scope with its own table, a leaf module (its params
+are ``kernel``, ``bias``, ``scale``, ``gain``), or a raw parameter (the
+dense heads' ``head1_kernel``, a residual ``alpha``), copied as it is.
+Layouts differ for leaf modules: conv kernels are HWIO in flax and OIHW
+in torch, dense kernels ``(in, out)`` against ``(out, in)``, and
+GroupNorm's ``scale`` is torch's ``weight``.  Conversion in either
+direction raises on anything left unmatched, so a tree of another model
+or width never loads in part.  The root scope is the model class's
+``flax_root`` (``Net`` for gmfnet, ``DenseNet`` for dense_fusion).
 """
 
 from __future__ import annotations
 
-import re
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 from torch import nn
 
-# Per module class: flax child name -> torch attribute path.
-_CHILDREN: dict[str, dict[str, str]] = {
-    "Net": {"ConvBlock_0": "ms_stem", "ResBlock_0": "ms_res",
-            "PanSpaceToDepth_0": "pan", "PanPyramid_0": "pan",
-            "ResBlock_1": "pan_res", "fusion_gate": "fusion_gate",
-            "ResBlock_2": "trunk.0", "ResBlock_3": "trunk.1",
-            "ResBlock_4": "trunk.2", "MLPHead_0": "head"},
-    "ConvBlock": {"Conv_0": "conv", "GroupNorm_0": "norm"},
-    "ResBlock": {"ConvBlock_0": "block", "Conv_0": "conv",
-                 "GroupNorm_0": "norm", "Conv_1": "shortcut"},
-    "PanSpaceToDepth": {"ConvBlock_0": "blocks.0", "ConvBlock_1": "blocks.1"},
-    "PanPyramid": {"ConvBlock_0": "blocks.0", "ConvBlock_1": "blocks.1"},
-    "MLPHead": {"Dense_0": "hidden", "Dense_1": "out"},
+LEAF = "leaf"    # a module whose params are kernel/bias/scale/gain leaves
+PARAM = "param"  # a raw parameter, same array in both frameworks
+
+
+def _conv_block(n: int, path: str) -> dict[str, tuple[str, str]]:
+    return {f"ConvBlock_{i}": (f"{path}.{i}", "ConvBlock") for i in range(n)}
+
+
+# Per scope: flax child name -> (torch attribute path, child scope or kind).
+_CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
+    "Net": {"ConvBlock_0": ("ms_stem", "ConvBlock"),
+            "ResBlock_0": ("ms_res", "ResBlock"),
+            "PanSpaceToDepth_0": ("pan", "PanSpaceToDepth"),
+            "PanPyramid_0": ("pan", "PanPyramid"),
+            "ResBlock_1": ("pan_res", "ResBlock"),
+            "fusion_gate": ("fusion_gate", LEAF),
+            "ResBlock_2": ("trunk.0", "ResBlock"),
+            "ResBlock_3": ("trunk.1", "ResBlock"),
+            "ResBlock_4": ("trunk.2", "ResBlock"),
+            "MLPHead_0": ("head", "MLPHead")},
+    "ConvBlock": {"Conv_0": ("conv", LEAF), "GroupNorm_0": ("norm", LEAF)},
+    "ResBlock": {"ConvBlock_0": ("block", "ConvBlock"),
+                 "Conv_0": ("conv", LEAF), "GroupNorm_0": ("norm", LEAF),
+                 "Conv_1": ("shortcut", LEAF)},
+    "PanSpaceToDepth": _conv_block(2, "blocks"),
+    "PanPyramid": _conv_block(2, "blocks"),
+    "MLPHead": {"Dense_0": ("hidden", LEAF), "Dense_1": ("out", LEAF)},
+    "DenseNet": {
+        **{n: (n, "LocalConvBlock") for n in ("ms_stem", "pan_stem",
+                                              "refine")},
+        **{n: (n, "LocalResBlock") for n in ("ms_block", "pan_block",
+                                             "trunk1", "trunk2")},
+        "fusion_gate": ("fusion_gate", LEAF),
+        **{n: (n, PARAM) for n in ("head1_kernel", "head1_bias",
+                                   "head2_kernel", "head2_bias")}},
+    "LocalConvBlock": {"WSConv_0": ("conv", LEAF)},
+    "LocalResBlock": {"LocalConvBlock_0": ("block", "LocalConvBlock"),
+                      "WSConv_0": ("conv", LEAF),
+                      "WSConv_1": ("shortcut", LEAF),
+                      "alpha": ("alpha", PARAM)},
 }
 
 
-def _scope(flax_name: str) -> str:
-    return re.sub(r"_\d+$", "", flax_name)
+def _f32(arr: Any) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
 
 
 def _leaf_to_torch(name: str, arr: np.ndarray, where: str
                    ) -> tuple[str, torch.Tensor]:
-    t = torch.from_numpy(np.array(arr, dtype=np.float32))
+    t = _f32(arr)
     if name == "kernel" and t.ndim == 4:
         return "weight", t.permute(3, 2, 0, 1).contiguous()
     if name == "kernel" and t.ndim == 2:
         return "weight", t.t().contiguous()
     if name == "scale":
         return "weight", t
-    if name == "bias":
-        return "bias", t
+    if name in ("bias", "gain"):
+        return name, t
     raise ValueError(f"flax leaf {where}/{name} has no torch counterpart")
 
 
-def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """gmfnet flax param tree (numpy leaves) -> torch ``state_dict``."""
+def params_from_flax(tree: Mapping[str, Any], root: str = "Net"
+                     ) -> dict[str, torch.Tensor]:
+    """flax param tree (numpy leaves) -> torch ``state_dict``."""
     out: dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping[str, Any], scope: str, fpath: str, tpath: str):
@@ -64,22 +97,25 @@ def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             if key not in table:
                 raise ValueError(f"flax entry {where} is left unused: no "
                                  f"torch counterpart in {scope}")
-            tname = f"{tpath}.{table[key]}" if tpath else table[key]
-            if _scope(key) in _CHILDREN:
-                walk(value, _scope(key), where, tname)
-                continue
-            for leaf, arr in value.items():
-                pname, tensor = _leaf_to_torch(leaf, arr, where)
-                out[f"{tname}.{pname}"] = tensor
+            attr, kind = table[key]
+            tname = f"{tpath}.{attr}" if tpath else attr
+            if kind == PARAM:
+                out[tname] = _f32(value)
+            elif kind == LEAF:
+                for leaf, arr in value.items():
+                    pname, tensor = _leaf_to_torch(leaf, arr, where)
+                    out[f"{tname}.{pname}"] = tensor
+            else:
+                walk(value, kind, where, tname)
 
-    walk(tree, "Net", "", "")
+    walk(tree, root, "", "")
     return out
 
 
 def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     """Load a flax tree into ``model``; raises on any flax leaf left unused
     and on any torch parameter left unset."""
-    state = params_from_flax(tree)
+    state = params_from_flax(tree, getattr(model, "flax_root", "Net"))
     want = model.state_dict()
     unused = sorted(set(state) - set(want))
     unset = sorted(set(want) - set(state))
@@ -94,33 +130,37 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 def _leaf_to_flax(module: nn.Module, name: str, p: torch.Tensor
                   ) -> tuple[str, np.ndarray]:
     a = p.detach().to("cpu", torch.float32).numpy()
-    if name == "bias":
-        return "bias", a
-    if isinstance(module, nn.Conv2d):
-        return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
-    if isinstance(module, nn.Linear):
-        return "kernel", np.ascontiguousarray(a.T)
+    if name in ("bias", "gain"):
+        return name, a
     if isinstance(module, nn.GroupNorm):
         return "scale", a
+    if name == "weight" and a.ndim == 4:
+        return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+    if name == "weight" and a.ndim == 2:
+        return "kernel", np.ascontiguousarray(a.T)
     raise ValueError(f"{type(module).__name__}.{name} has no flax counterpart")
 
 
 def params_to_flax(model: nn.Module) -> dict[str, Any]:
-    """Torch gmfnet -> flax param tree (nested dicts of numpy arrays)."""
+    """Torch model -> flax param tree (nested dicts of numpy arrays)."""
     tree: dict[str, Any] = {}
     seen = 0
 
     def walk(module: nn.Module, scope: str, node: dict[str, Any]):
         nonlocal seen
-        for fname, tname in _CHILDREN[scope].items():
+        for fname, (attr, kind) in _CHILDREN[scope].items():
+            if kind == PARAM:
+                node[fname] = getattr(module, attr).detach().to(
+                    "cpu", torch.float32).numpy()
+                seen += 1
+                continue
             try:
-                child = module.get_submodule(tname)
+                child = module.get_submodule(attr)
             except AttributeError:  # an absent optional layer (shortcut)
                 continue
-            sub = _scope(fname)
-            if sub in _CHILDREN:
-                if type(child).__name__ == sub:  # picks the PAN variant
-                    walk(child, sub, node.setdefault(fname, {}))
+            if kind != LEAF:
+                if type(child).__name__ == kind:  # picks the PAN variant
+                    walk(child, kind, node.setdefault(fname, {}))
                 continue
             leaves = node.setdefault(fname, {})
             for pname, p in child.named_parameters(recurse=False):
@@ -128,7 +168,7 @@ def params_to_flax(model: nn.Module) -> dict[str, Any]:
                 leaves[leaf] = arr
                 seen += 1
 
-    walk(model, "Net", tree)
+    walk(model, getattr(model, "flax_root", "Net"), tree)
     total = len(model.state_dict())
     if seen != total:
         raise ValueError(f"{total - seen} torch parameters have no flax name")

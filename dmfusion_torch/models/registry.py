@@ -13,11 +13,12 @@ from typing import Any, Callable, Mapping
 _EXPLICIT: dict[str, Callable] = {}
 
 # Ported model name -> module under dmfusion_torch.models.
-_PORTED = {"gmfnet": "gmfnet"}
+_PORTED = {"gmfnet": "gmfnet", "dense_fusion": "dense_fusion"}
 
 # Model input contract (``dmfusion/models/registry.py``): how windows are
 # gathered and fed.  Names absent here are "dual": model(ms, pan).
 _ARITY = {
+    "dense_fusion": "dense",
     "tri_net": "tri",
     "dqtl": "quad",
     "generator": "image",

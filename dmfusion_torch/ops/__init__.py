@@ -1,1 +1,2 @@
-"""Device ops of the port: the window-gather kernel and metrics."""
+"""Device ops of the port: the window-gather and phase window-pool
+kernels (each beside its plain version) and metrics."""

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from dmfusion_torch.data import patches
-from dmfusion_torch.ops import gather
+from dmfusion_torch.models import dense_fusion
+from dmfusion_torch.ops import gather, pool
 
 H, W, C, PS = 40, 44, 4, 8
 
@@ -95,3 +96,68 @@ def test_gather_kernel_empty_batch_launches_nothing(cuda):
     out = gather.gather_windows_cuda(ms.reshape(ms.shape[0], -1), xs, xs, PS, C)
     assert out.shape == (0, PS, PS * C)
     assert gather.gather_windows_cuda.launches == before
+
+
+# -- phase window-pool (dmfusion_torch/ops/pool.py) --------------------------
+
+def _s2d_feats(hm, wm, c4, dtype=torch.float32, device="cpu", seed=0):
+    """s2d-2 features of an (hm, wm) full-res map and the pool's output
+    size (ni, nj) for ``patch``-wide windows over it."""
+    rng = np.random.default_rng(seed)
+    f = rng.standard_normal((-(-hm // 2), -(-wm // 2), c4)).astype(np.float32)
+    return torch.from_numpy(f).to(device, dtype)
+
+
+def _out(hm, wm, patch):
+    return -(-(hm - patch + 1) // 2), -(-(wm - patch + 1) // 2)
+
+
+def test_pool_cpu_dispatch_takes_plain_version():
+    f = _s2d_feats(37, 45, 16)
+    ni, nj = _out(37, 45, 8)
+    before = pool.phase_pool_cuda.launches
+    out = dense_fusion.phase_pooled_s2d(f, 8, 37 - 7, 45 - 7)
+    assert pool.phase_pool_cuda.launches == before
+    assert out.shape == (ni, nj, 16)
+    assert torch.equal(out, pool.phase_pool_ref(f, 8, ni, nj))
+
+
+def test_pool_wrapper_refuses_cpu_tensor():
+    with pytest.raises(ValueError, match="CUDA"):
+        pool.phase_pool_cuda(_s2d_feats(20, 20, 16), 8, 7, 7)
+
+
+def test_pool_refuses_odd_patch():
+    """Odd windows do not split into phases: dense_fusion routes them to
+    the full-res window mean instead."""
+    with pytest.raises(ValueError, match="even patch"):
+        pool.phase_pool_ref(_s2d_feats(20, 20, 16), 7, 7, 7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hm,wm,c4,patch", [
+    (73, 89, 64, 8),      # odd output rows and columns
+    (80, 120, 128, 16),   # two row tiles, two column tiles
+    (66, 41, 256, 32),    # wide channels, ph = 16
+    (41, 57, 12, 6),      # C = 3, 1/36 not a power of two
+    (35, 35, 8, 2)])      # ph = 1
+def test_phase_pool_kernel_bit_equal(cuda, dtype, hm, wm, c4, patch):
+    f = _s2d_feats(hm, wm, c4, dtype, cuda, seed=hm + wm + c4)
+    ni, nj = _out(hm, wm, patch)
+    before = pool.phase_pool_cuda.launches
+    got = pool.phase_pool_cuda(f, patch, ni, nj)
+    assert pool.phase_pool_cuda.launches == before + 1
+    want = pool.phase_pool_ref(f, patch, ni, nj)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (ni, nj, c4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_phase_pooled_s2d_launches_kernel_once(cuda):
+    f = _s2d_feats(80, 120, 128, torch.bfloat16, cuda)
+    before = pool.phase_pool_cuda.launches
+    got = dense_fusion.phase_pooled_s2d(f, 16, 80 - 15, 120 - 15)
+    assert pool.phase_pool_cuda.launches == before + 1
+    assert torch.equal(got, pool.phase_pool_ref(f, 16, *_out(80, 120, 16)))

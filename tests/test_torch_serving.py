@@ -34,18 +34,55 @@ from dmfusion_torch.models.common import init_params
 OVER = {"data_city": "synth64", "patch_size": 8, "model_width": 16,
         "seed": 0, "precision": {"compute_dtype": "float32"}}
 GAP = 1e-3
+# A .dmx does not record its activation: the caller names it.
+RELU = {"schedule": {"activate": "Relu"}}
 
 
-@pytest.fixture(scope="module")
-def dmx(tmp_path_factory):
-    cfg = jax_load_config(overrides=OVER)
+def _save_dmx(path, over):
+    cfg = jax_load_config(overrides=over)
     model = jax_build_model(cfg)
     ins = [jax.random.normal(jax.random.PRNGKey(i), s)
            for i, s in enumerate([(1, 8, 8, 4), (1, 32, 32, 1)])]
     params = model.init(jax.random.PRNGKey(0), *ins)["params"]
-    path = tmp_path_factory.mktemp("dmx") / "m.dmx"
     jax_save_artifact(path, cfg, params, platforms=("cpu",))
     return path
+
+
+@pytest.fixture(scope="module")
+def dmx(tmp_path_factory):
+    return _save_dmx(tmp_path_factory.mktemp("dmx") / "m.dmx", OVER)
+
+
+def test_gelu_dmx_served_with_its_activation(tmp_path):
+    """A Gelu-trained .dmx, loaded with the activation it was trained
+    with, gives dmfusion's logits and predictions; loaded as Relu it
+    would not."""
+    path = _save_dmx(tmp_path / "gelu.dmx",
+                     {**OVER, "schedule": {"activate": "Gelu"}})
+    jclf = jax_load_artifact(path)
+    rng = np.random.default_rng(8)
+    ms = rng.random((64, 8, 8, 4), dtype=np.float32)
+    pan = rng.random((64, 32, 32, 1), dtype=np.float32)
+    want = np.asarray(jclf.logits(jnp.asarray(ms), jnp.asarray(pan)))
+    clf = load_artifact(path, "cpu", overrides={"schedule": {"activate":
+                                                             "Gelu"}})
+    assert clf.cfg["schedule"]["activate"] == "Gelu"
+    got = clf.logits(torch.from_numpy(ms), torch.from_numpy(pan)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+    top = np.sort(want, axis=-1)
+    clear = (top[:, -1] - top[:, -2]) >= GAP
+    preds = clf.predict(torch.from_numpy(ms), torch.from_numpy(pan)).numpy()
+    np.testing.assert_array_equal(preds[clear], want.argmax(-1)[clear])
+    as_relu = load_artifact(path, "cpu", overrides=RELU).logits(
+        torch.from_numpy(ms), torch.from_numpy(pan)).numpy()
+    assert not np.allclose(as_relu, want, atol=1e-4, rtol=1e-4)
+
+
+def test_dmx_without_activation_raises(dmx):
+    """A .dmx records no activation, so the loader asks for it instead of
+    assuming Relu."""
+    with pytest.raises(ValueError, match="schedule.activate"):
+        load_artifact(dmx, "cpu")
 
 
 def _ragged_ids(scene):
@@ -58,7 +95,7 @@ def test_served_predictions_match_jax(dmx):
     ids = _ragged_ids(jscene)
     want = JaxScenePredictor(jclf, jscene, bucket=64).predict_ids(ids)
 
-    clf = load_artifact(dmx, "cpu")
+    clf = load_artifact(dmx, "cpu", overrides=RELU)
     assert clf.manifest["model_name"] == "gmfnet"
     scene = synthetic_scene(load_config(overrides=OVER), device="cpu")
     got = ScenePredictor(clf, scene, bucket=64).predict_ids(ids)
@@ -81,14 +118,15 @@ def test_dmx_logits_match_jax_program(dmx):
     ms = rng.random((5, 8, 8, 4), dtype=np.float32)
     pan = rng.random((5, 32, 32, 1), dtype=np.float32)
     want = np.asarray(jclf.logits(jnp.asarray(ms), jnp.asarray(pan)))
-    got = load_artifact(dmx, "cpu").logits(torch.from_numpy(ms),
-                                    torch.from_numpy(pan)).numpy()
+    clf = load_artifact(dmx, "cpu", overrides=RELU)
+    got = clf.logits(torch.from_numpy(ms), torch.from_numpy(pan)).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
 
 
 def test_evaluate_and_class_map(dmx):
     scene = synthetic_scene(load_config(overrides=OVER), device="cpu")
-    pred = ScenePredictor(load_artifact(dmx, "cpu"), scene, bucket=512)
+    pred = ScenePredictor(load_artifact(dmx, "cpu", overrides=RELU), scene,
+                          bucket=512)
     full = pred.class_map()
     assert full.shape == (scene.height, scene.width)
     m = pred.evaluate()
@@ -124,6 +162,7 @@ def test_infer_cli_prints_json_line(dmx):
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["model"] == "gmfnet" and result["city"] == "synth64"
     assert result["device"] == "cpu" and 0.0 <= result["oa"] <= 1.0
+    assert result["activate"] == "Relu"
 
 
 def test_infer_cli_writes_maps(dmx, tmp_path, capsys):
@@ -148,10 +187,11 @@ def test_no_silent_cpu_library(dmx, monkeypatch, entry):
     only an explicit ``cpu`` (argument or config) runs on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config(overrides=OVER)
-    call = {"load_artifact": lambda: load_artifact(dmx),
+    call = {"load_artifact": lambda: load_artifact(dmx, overrides=RELU),
             "synthetic_scene": lambda: synthetic_scene(cfg)}[entry]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         call()
-    assert load_artifact(dmx, overrides={"device": "cpu"}).device.type == "cpu"
+    assert load_artifact(dmx, overrides={**RELU, "device": "cpu"}
+                         ).device.type == "cpu"
     cpu_cfg = load_config(overrides={**OVER, "device": "cpu"})
     assert synthetic_scene(cpu_cfg).ms.device.type == "cpu"
