@@ -36,7 +36,23 @@ Phases; any failure exits non-zero before the result line:
                 bands (4 launches, argmax agreement >= 0.999 with the
                 whole map); on a 96x96 crop, bf16 card logits within
                 DENSE_BF16_ATOL of f32 CPU logits and f32 card logits
-                (TF32 off) within 1e-3; a profile of 2 maps.
+                (TF32 off) within 1e-3; a profile of 2 maps;
+  7. strip    — the strip gather must be bit-equal to its plain version
+                at the strip bench's shape (98,304 image6 raster anchors,
+                strips of 128, patch 16) in f32 and bf16, and at edge
+                strips past the right and the bottom edge of the view
+                (zeros) with starts off any alignment; two launches per
+                dual strip call; then ``strip_gather_bench.run()`` on the
+                card (bit-equal to the per-anchor gather, timed against
+                it); time the kernel, the plain version and one indexing
+                call per view, and compute the bytes bound;
+  8. conv     — the 3x3 128->128 bf16 conv must be equal or one bf16 ulp
+                apart (``ulp_report``) from its plain version and from
+                ``F.conv2d`` at an odd shape, one launch per pass; then
+                ``conv_kernel_probe.run()`` at the dense trunk's
+                (1008, 1058, 128), which checks the same way and times the
+                kernel, the plain version and ``F.conv2d``; the bound is
+                the operations' at dense bf16 peak.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
 ``nvcc`` per source.
@@ -46,7 +62,6 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -64,12 +79,16 @@ from dmfusion_torch.models import build_model
 from dmfusion_torch.models import dense_fusion
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.ops import gather as gather_ops
+from dmfusion_torch.ops import conv3x3 as conv_ops
 from dmfusion_torch.ops import pool as pool_ops
+from dmfusion_torch.ops import strip_gather as strip_ops
 from dmfusion_torch.ops._build import load_library
 from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
+from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
+                                  conv_kernel_probe, strip_gather_bench,
+                                  time_in_turns)
 from dmfusion_torch.train.steps import DensePrograms
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 BUCKET = 4096
 REQUESTS = 32
 WARMUP = 3
@@ -90,7 +109,9 @@ DENSE_WARMUP, DENSE_MAPS, DENSE_BANDS = 2, 10, 4
 # 0.024-0.029 for these seeded weights; a skipped or wrong layer moves
 # them by that scale.
 DENSE_BF16_ATOL = 0.002
-# One entry per CUDA source of the served paths.
+# The strip bench's workload: 98,304 raster anchors in strips of 128.
+STRIP_ANCHORS, STRIP = 98_304, 128
+# One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
         "route": "cuda", "source": "dmfusion_torch/csrc/gather_windows.cu",
@@ -103,6 +124,17 @@ KERNELS = {
         "counter": pool_ops.phase_pool_cuda,
         "unit": "one image6 w32 map pool: (1008, 1058, 128) -> "
                 "(1001, 1051, 128) bf16, patch 16"},
+    "strip_gather": {
+        "route": "cuda", "source": "dmfusion_torch/csrc/strip_gather.cu",
+        "replaces": "dmfusion/ops/pallas_strip_gather.py:80",
+        "counter": strip_ops.gather_strips_cuda,
+        "unit": f"one dual strip call: MS + PAN launch, {STRIP_ANCHORS} "
+                f"image6 raster anchors in strips of {STRIP}, f32 scene"},
+    "conv3x3": {
+        "route": "cuda", "source": "dmfusion_torch/csrc/conv3x3.cu",
+        "replaces": "tools/conv_kernel_probe.py:133",
+        "counter": conv_ops.conv3x3_cuda,
+        "unit": "one 3x3 128->128 SAME conv pass, (1008, 1058, 128) bf16"},
 }
 
 
@@ -115,30 +147,11 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, iters: int = 50) -> float:
-    """Mean device milliseconds per call of ``fn(i)`` over ``iters`` calls."""
-    for i in range(WARMUP):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def phase_device() -> tuple[torch.device, str]:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on "
                          "the card only")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_line()
     device = resolve_device(load_config(overrides=CFG))
     log(f"device: {torch.cuda.get_device_name(device)} | nvidia-smi: {card} "
         f"| torch {torch.__version__} cuda {torch.version.cuda}")
@@ -229,17 +242,12 @@ def phase_kernels(scene, device) -> dict:
                 )[:, None, :])
               for v, p, ch, xx, yy in views(ids)] for ids in sets]
     runs = {
+        "plain": lambda i: gather_dual(scene.ms, scene.pan, sets[i % 8], w, ps),
         "kernel": lambda i: [gather_ops.gather_windows_cuda(v, xx, yy, p, ch)
                              for v, p, ch, xx, yy in starts[i % 8]],
-        "plain": lambda i: gather_dual(scene.ms, scene.pan, sets[i % 8], w, ps),
         "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]],
     }
-    times = {k: [] for k in runs}
-    for order in (("plain", "kernel", "library"),
-                  ("library", "kernel", "plain")) * 3:
-        for k in order:
-            times[k].append(cuda_ms(runs[k]))
-    med = {k: statistics.median(v) for k, v in times.items()}
+    med, times = time_in_turns(runs, iters=50)
     itemsize = scene.ms.element_size()
     moved = (2 * BUCKET * (ps * ps * c + (4 * ps) ** 2) * itemsize
              + 4 * BUCKET)  # windows read + written, anchor ids read
@@ -432,16 +440,11 @@ def phase_pool(scene, device) -> dict:
     full = dense_fusion.depth_to_space(f, 2).permute(2, 0, 1)[None]
     full = full.contiguous()
     runs = {
-        "kernel": lambda i: pool_ops.phase_pool_cuda(f, ps, ni, nj),
         "plain": lambda i: pool_ops.phase_pool_ref(f, ps, ni, nj),
+        "kernel": lambda i: pool_ops.phase_pool_cuda(f, ps, ni, nj),
         "library": lambda i: torch.nn.functional.avg_pool2d(full, ps, 1),
     }
-    times = {k: [] for k in runs}
-    for order in (("plain", "kernel", "library"),
-                  ("library", "kernel", "plain")) * 3:
-        for k in order:
-            times[k].append(cuda_ms(runs[k], iters=10))
-    med = {k: statistics.median(v) for k, v in times.items()}
+    med, times = time_in_turns(runs, iters=10)
     moved = (h2 * w2 + ni * nj) * 128 * f.element_size()
     bound = moved / HBM_BYTES_PER_S * 1e3
     log(f"kernels: phase_pool image6 w32 bf16 ms median of 6: kernel "
@@ -580,6 +583,126 @@ def phase_dense(scene, device) -> dict:
     return launches
 
 
+def phase_strip(scene, device) -> tuple[int, dict]:
+    """B3: bit-equality with the plain version, the strip bench on the
+    card, timings; returns the bench's launches and the kernel's row."""
+    ps, w = scene.patch, scene.width
+    c = int(scene.ms.shape[-1])
+    xs_np, y0s_np = strip_gather_bench.strip_grid(scene.height, w, ps,
+                                                  STRIP_ANCHORS, STRIP)
+    xs = torch.from_numpy(xs_np).to(device)
+    y0s = torch.from_numpy(y0s_np).to(device)
+    # Edge strips (MS starts; PAN at 4x): past the bottom, past the right
+    # edge, wholly below the view, and one at the origin; odd columns.
+    hv, wv = int(scene.ms.shape[0]), int(scene.ms.shape[1])
+    ex = torch.tensor([hv - 5, 3, hv + 2, 0], dtype=torch.int32,
+                      device=device)
+    ey = torch.tensor([wv - 61, wv - 7, 5, 1], dtype=torch.int32,
+                      device=device)
+    ms16, pan16 = scene.ms.bfloat16(), scene.pan.bfloat16()
+    cases = [("f32 bench", scene.ms, scene.pan, xs, y0s),
+             ("bf16 bench", ms16, pan16, xs, y0s),
+             ("f32 edge", scene.ms, scene.pan, ex, ey),
+             ("bf16 edge", ms16, pan16, ex, ey)]
+    counter = strip_ops.gather_strips_cuda
+    worst = 0.0
+    for tag, ms, pan, sx, sy in cases:
+        before = counter.launches
+        got = strip_ops.gather_dual_strips(ms, pan, sx, sy, w, ps, STRIP)
+        check(counter.launches == before + 2,
+              f"strip {tag}: {counter.launches - before} launches, not 2")
+        want = strip_ops.gather_dual_strips_ref(ms, pan, sx, sy, w, ps, STRIP)
+        torch.cuda.synchronize()
+        for g, r in zip(got, want):
+            worst = max(worst, _max_err(g, r))
+            check(g.dtype == ms.dtype and g.shape == r.shape
+                  and torch.equal(g, r), f"strip {tag}: kernel != plain")
+        if "edge" in tag:
+            check(not got[0][2 * STRIP:3 * STRIP].any()
+                  and not got[1][2 * STRIP:3 * STRIP].any(),
+                  "strip below the view: windows not all zero")
+        log(f"kernels: strip_gather {tag}: bit-equal, {sx.shape[0]} strips "
+            f"-> ms {tuple(got[0].shape)} pan {tuple(got[1].shape)}")
+        del got, want
+    del ms16, pan16
+
+    # The main path: the strip bench on the card.
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+    torch.cuda.synchronize()
+    bench = strip_gather_bench.run(device, STRIP_ANCHORS, STRIP, ps)
+    launches = counter.launches
+    check(launches == 2 * bench["strip_calls"],
+          f"strip bench: {launches} launches for {bench['strip_calls']} "
+          f"dual strip calls")
+    log(f"strip bench: {json.dumps(bench)}")
+
+    # Timing: the kernel on precomputed int32 starts (its wrapper reads
+    # them back once per launch for the negative-start check), the plain
+    # version whole, and one indexing call per view on precomputed grids.
+    views = ((scene.ms.reshape(hv, -1), xs, y0s, ps, wv, 1, c),
+             (scene.pan, 4 * xs, 4 * y0s, 4 * ps, scene.pan.shape[1], 4, 1))
+    grids = [strip_ops.strip_grids(v, sx, sy, p, ch, STRIP, st)
+             for v, sx, sy, p, _, st, ch in views]
+    runs = {
+        "plain": lambda i: strip_ops.gather_dual_strips_ref(
+            scene.ms, scene.pan, xs, y0s, w, ps, STRIP),
+        "kernel": lambda i: [strip_ops.gather_strips_cuda(v, sx, sy, p, vw,
+                                                          STRIP, st)
+                             for v, sx, sy, p, vw, st, _ in views],
+        "library": lambda i: [pv[r, k] for pv, r, k in grids],
+    }
+    med, times = time_in_turns(runs, iters=10)
+    moved = strip_gather_bench.moved_bytes(scene.ms, scene.pan, xs, y0s, ps,
+                                           STRIP)
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    log(f"kernels: strip_gather {STRIP_ANCHORS} anchors f32 ms median of 6: "
+        f"kernel {med['kernel']:.4f} plain {med['plain']:.4f} library "
+        f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "
+        f"all: {json.dumps(times)}")
+    return launches, {"max_abs_err": worst, "ms": med["kernel"],
+                      "plain_ms": med["plain"], "library_ms": med["library"],
+                      "bound_ms": bound, "bound_by": "bytes"}
+
+
+def phase_conv(device) -> tuple[int, dict]:
+    """B4: one ulp of the plain version and of cuDNN at small odd shapes,
+    then the conv probe at the trunk's shape; returns the probe's
+    launches and the kernel's row."""
+    counter = conv_ops.conv3x3_cuda
+    for h, w in ((37, 45), (5, 70), (1, 1)):
+        x, wgt = conv_kernel_probe.inputs(h, w, device, seed=h)
+        before = counter.launches
+        got = conv_ops.conv3x3_cuda(x, wgt)
+        check(counter.launches == before + 1, f"conv ({h}, {w}): launches")
+        abs_sum = conv_ops.conv3x3_f32(x.abs(), wgt.abs())
+        for name, want in (("plain", conv_ops.conv3x3_ref(x, wgt)),
+                           ("cuDNN", conv_ops.conv3x3_library(x, wgt))):
+            rep = conv_ops.ulp_report(got, want, abs_sum)
+            check(rep["ok"], f"conv ({h}, {w}) vs {name}: {rep}")
+            log(f"kernels: conv3x3 ({h}, {w}, 128) vs {name}: {rep}")
+
+    # The main path: the conv probe on the card.
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+    torch.cuda.synchronize()
+    probe = conv_kernel_probe.run(device)
+    launches = counter.launches
+    check(launches == probe["kernel_calls"],
+          f"conv probe: {launches} launches for {probe['kernel_calls']} "
+          f"passes")
+    log(f"conv probe: {json.dumps(probe)}")
+    by_ops = probe["flop"] / BF16_FLOP_PER_S * 1e3
+    by_bytes = probe["bytes"] / HBM_BYTES_PER_S * 1e3
+    return launches, {"max_abs_err": probe["vs_plain"]["max_abs"],
+                      "ms": probe["ms"]["kernel"],
+                      "plain_ms": probe["ms"]["plain"],
+                      "library_ms": probe["ms"]["library"],
+                      "bound_ms": max(by_ops, by_bytes),
+                      "bound_by": "operations" if by_ops >= by_bytes
+                      else "bytes"}
+
+
 def main() -> None:
     device, card = phase_device()
     phase_build()
@@ -596,6 +719,10 @@ def main() -> None:
                 phase_serving(scene, device)["gather_windows"]}
     timings["phase_pool"] = phase_pool(scene, device)
     launches["phase_pool"] = phase_dense(scene, device)["phase_pool"]
+    launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
+                                                                    device)
+    del scene
+    launches["conv3x3"], timings["conv3x3"] = phase_conv(device)
     rows = []
     for name, spec in KERNELS.items():
         t = timings[name]

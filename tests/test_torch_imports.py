@@ -47,3 +47,18 @@ def test_source_names_no_jax_or_dmfusion(path):
 
 def test_chip_smoke_names_no_jax_or_dmfusion():
     assert not _FORBIDDEN.findall((ROOT / "chip_smoke.py").read_text())
+
+
+@pytest.mark.parametrize("module", [
+    "dmfusion_torch", "dmfusion_torch.infer",
+    "dmfusion_torch.tools.strip_gather_bench",
+    "dmfusion_torch.tools.conv_kernel_probe"])
+def test_entry_point_alone_imports_without_jax(module):
+    """Each entry point, imported alone in a fresh interpreter."""
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'flax', 'optax', 'dmfusion')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"

@@ -16,7 +16,7 @@ import torch
 
 from dmfusion_torch.data import patches
 from dmfusion_torch.models import dense_fusion
-from dmfusion_torch.ops import gather, pool
+from dmfusion_torch.ops import conv3x3, gather, pool, strip_gather
 
 H, W, C, PS = 40, 44, 4, 8
 
@@ -161,3 +161,122 @@ def test_phase_pooled_s2d_launches_kernel_once(cuda):
     got = dense_fusion.phase_pooled_s2d(f, 16, 80 - 15, 120 - 15)
     assert pool.phase_pool_cuda.launches == before + 1
     assert torch.equal(got, pool.phase_pool_ref(f, 16, *_out(80, 120, 16)))
+
+
+# -- strip gather (dmfusion_torch/ops/strip_gather.py) -----------------------
+
+def _strip_starts(device="cpu"):
+    """Strips of 32: on the grid, off any alignment, past the right edge,
+    past the bottom, and wholly below the view (MS starts)."""
+    hv, wv = H + PS - 1, W + PS - 1
+    xs = torch.tensor([0, 5, hv - 3, 2, hv + 1], dtype=torch.int32)
+    y0s = torch.tensor([0, 7, 1, wv - 9, 3], dtype=torch.int32)
+    return xs.to(device), y0s.to(device)
+
+
+def test_strip_cpu_dispatch_takes_plain_version():
+    ms, pan = _scene()
+    xs, y0s = _strip_starts()
+    before = strip_gather.gather_strips_cuda.launches
+    got = strip_gather.gather_dual_strips(ms, pan, xs, y0s, W, PS, 32)
+    assert strip_gather.gather_strips_cuda.launches == before
+    want = strip_gather.gather_dual_strips_ref(ms, pan, xs, y0s, W, PS, 32)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_strip_wrapper_refuses_cpu_tensor():
+    ms, _ = _scene()
+    xs, y0s = _strip_starts()
+    with pytest.raises(ValueError, match="CUDA"):
+        strip_gather.gather_strips_cuda(ms.reshape(ms.shape[0], -1), xs, y0s,
+                                        PS, W + PS - 1, 32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dual_strips_kernel_bit_equal(cuda, dtype):
+    """MS at stride 1 and PAN at stride 4 with a 32-pixel window, edge
+    strips included: two launches, the plain version's windows."""
+    ms, pan = _scene(dtype, cuda)
+    xs, y0s = _strip_starts(cuda)
+    before = strip_gather.gather_strips_cuda.launches
+    got = strip_gather.gather_dual_strips(ms, pan, xs, y0s, W, PS, 32)
+    assert strip_gather.gather_strips_cuda.launches == before + 2
+    want = strip_gather.gather_dual_strips_ref(ms, pan, xs, y0s, W, PS, 32)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+    assert not got[0][4 * 32:].any() and not got[1][4 * 32:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chans,patch,strip,stride", [
+    (128, 16, 128, 1),   # a slab row over the budget: window groups
+    (1, 64, 128, 4),     # the image6 PAN geometry: row groups
+    (3, 5, 7, 2)])       # odd everything
+def test_strip_kernel_bit_equal_in_groups(cuda, dtype, chans, patch, strip,
+                                          stride):
+    rng = np.random.default_rng(chans + patch)
+    rows, width = 3 * patch, stride * strip + patch + 9
+    view = torch.from_numpy(rng.standard_normal((rows, width * chans))
+                            .astype(np.float32)).to(cuda, dtype)
+    xs = torch.tensor([0, rows - patch, rows - 2, 1], dtype=torch.int32,
+                      device=cuda)
+    y0s = torch.tensor([0, 9, 3, width - stride * 3], dtype=torch.int32,
+                       device=cuda)
+    got = strip_gather.gather_strips_cuda(view, xs, y0s, patch, width, strip,
+                                          stride)
+    want = strip_gather.gather_strips_ref(view, xs, y0s, patch, width, strip,
+                                          stride)
+    torch.cuda.synchronize()
+    assert got.shape == (4, strip, patch, patch * chans)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_strip_kernel_refuses_negative_start(cuda):
+    ms, _ = _scene(device=cuda)
+    xs = torch.tensor([0, -1], dtype=torch.int32, device=cuda)
+    before = strip_gather.gather_strips_cuda.launches
+    with pytest.raises(ValueError, match="negative strip start"):
+        strip_gather.gather_strips_cuda(ms.reshape(ms.shape[0], -1), xs,
+                                        xs.abs(), PS, W + PS - 1, 32)
+    assert strip_gather.gather_strips_cuda.launches == before
+
+
+# -- 3x3 conv (dmfusion_torch/ops/conv3x3.py) --------------------------------
+
+def _conv_inputs(h, w, device="cpu", seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((h, w, 128)).astype(np.float32)
+    wgt = (rng.standard_normal((3, 3, 128, 128)) / np.sqrt(9 * 128)).astype(
+        np.float32)
+    return (torch.from_numpy(x).to(device, torch.bfloat16),
+            torch.from_numpy(wgt).to(device, torch.bfloat16))
+
+
+def test_conv_cpu_dispatch_takes_plain_version():
+    x, wgt = _conv_inputs(6, 7)
+    before = conv3x3.conv3x3_cuda.launches
+    got = conv3x3.conv3x3(x, wgt)
+    assert conv3x3.conv3x3_cuda.launches == before
+    assert torch.equal(got, conv3x3.conv3x3_ref(x, wgt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(37, 45), (64, 70), (1, 1)])
+def test_conv_kernel_within_one_ulp(cuda, h, w):
+    """Equal or one bf16 ulp apart from the plain version and cuDNN (the
+    f32 sums' own error allowed near zero: ``ulp_report``); one launch."""
+    x, wgt = _conv_inputs(h, w, cuda, seed=h)
+    before = conv3x3.conv3x3_cuda.launches
+    got = conv3x3.conv3x3(x, wgt)
+    assert conv3x3.conv3x3_cuda.launches == before + 1
+    abs_sum = conv3x3.conv3x3_f32(x.abs(), wgt.abs())
+    for want in (conv3x3.conv3x3_ref(x, wgt),
+                 conv3x3.conv3x3_library(x, wgt)):
+        rep = conv3x3.ulp_report(got, want, abs_sum)
+        assert rep["ok"] and rep["share_differ"] < 1e-2, rep
