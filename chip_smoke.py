@@ -46,13 +46,17 @@ Phases; any failure exits non-zero before the result line:
                 card (bit-equal to the per-anchor gather, timed against
                 it); time the kernel, the plain version and one indexing
                 call per view, and compute the bytes bound;
-  8. conv     — the 3x3 128->128 bf16 conv must be equal or one bf16 ulp
-                apart (``ulp_report``) from its plain version and from
-                ``F.conv2d`` at an odd shape, one launch per pass; then
-                ``conv_kernel_probe.run()`` at the dense trunk's
-                (1008, 1058, 128), which checks the same way and times the
-                kernel, the plain version and ``F.conv2d``; the bound is
-                the operations' at dense bf16 peak.
+  8. conv     — the built kernel's SASS must hold wgmma (HGMMA) and
+                bulk copies (UBLKCP) and no mma.sync (HMMA); the 3x3
+                128->128 bf16 conv must be equal or one bf16 ulp apart
+                (``ulp_report``) from its plain version and from
+                ``F.conv2d`` at odd shapes and at shapes on and off the
+                8 x 32 tile, and equal the closed form of a constant-weight
+                case, one launch per pass; then ``conv_kernel_probe.run()``
+                at the dense trunk's (1008, 1058, 128), which checks the
+                same way and times the kernel, the plain version and
+                ``F.conv2d``; the bound is the operations' at dense bf16
+                peak.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
 ``nvcc`` per source.
@@ -111,6 +115,10 @@ DENSE_WARMUP, DENSE_MAPS, DENSE_BANDS = 2, 10, 4
 DENSE_BF16_ATOL = 0.002
 # The strip bench's workload: 98,304 raster anchors in strips of 128.
 STRIP_ANCHORS, STRIP = 98_304, 128
+# The conv's checks off the probe's shape: odd shapes, then shapes on and
+# off the kernel's 8 x 32 output tile.
+CONV_SHAPES = ((37, 45), (5, 70), (1, 1), (9, 33), (8, 32), (7, 31),
+               (1, 100), (100, 1))
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -666,21 +674,33 @@ def phase_strip(scene, device) -> tuple[int, dict]:
 
 
 def phase_conv(device) -> tuple[int, dict]:
-    """B4: one ulp of the plain version and of cuDNN at small odd shapes,
-    then the conv probe at the trunk's shape; returns the probe's
-    launches and the kernel's row."""
+    """B4: its SASS; one ulp of the plain version and of cuDNN at small
+    shapes, the closed form of the constant case; then the conv probe at
+    the trunk's shape; returns the probe's launches and the kernel's
+    row."""
     counter = conv_ops.conv3x3_cuda
-    for h, w in ((37, 45), (5, 70), (1, 1)):
-        x, wgt = conv_kernel_probe.inputs(h, w, device, seed=h)
+    sass = conv_kernel_probe.sass_report()
+    log(f"kernels: conv3x3 build: {json.dumps(sass)}")
+    ops = sass["sass"]
+    check(ops["HGMMA"] > 0 and ops["UBLKCP"] > 0 and ops["HMMA"] == 0,
+          f"conv3x3 SASS: {ops}")
+    cases = [(h, w, *conv_kernel_probe.inputs(h, w, device, seed=h), None)
+             for h, w in CONV_SHAPES]
+    cases += [(h, w, *conv_kernel_probe.constant_case(h, w, device))
+              for h, w in ((9, 33), (1, 100))]
+    for h, w, x, wgt, exact in cases:
+        tag = f"conv ({h}, {w}){' constant' if exact is not None else ''}"
         before = counter.launches
         got = conv_ops.conv3x3_cuda(x, wgt)
-        check(counter.launches == before + 1, f"conv ({h}, {w}): launches")
+        check(counter.launches == before + 1, f"{tag}: launches")
+        if exact is not None:
+            check(torch.equal(got, exact), f"{tag}: not the closed form")
         abs_sum = conv_ops.conv3x3_f32(x.abs(), wgt.abs())
         for name, want in (("plain", conv_ops.conv3x3_ref(x, wgt)),
                            ("cuDNN", conv_ops.conv3x3_library(x, wgt))):
             rep = conv_ops.ulp_report(got, want, abs_sum)
-            check(rep["ok"], f"conv ({h}, {w}) vs {name}: {rep}")
-            log(f"kernels: conv3x3 ({h}, {w}, 128) vs {name}: {rep}")
+            check(rep["ok"], f"{tag} vs {name}: {rep}")
+            log(f"kernels: {tag} vs {name}: {rep}")
 
     # The main path: the conv probe on the card.
     for spec in KERNELS.values():

@@ -8,9 +8,11 @@ over the valid region all three compute what the probe's XLA reference
 computes: ``lax.conv_general_dilated(x[None], w, (1, 1), "SAME", ("NHWC",
 "HWIO", "NHWC"))`` with f32 accumulation and a bf16 result.  The port
 has one kernel for that function (``dmfusion_torch/csrc/conv3x3.cu``,
-an implicit GEMM on the tensor cores) and the plain version
-:func:`conv3x3_ref`, nine shifted f32 matmuls summed in ``(dy, dx)``
-order and rounded once, as ``_body_shift9`` does.
+an implicit GEMM on Hopper's ``wgmma`` with a ring of weight stages that
+arrive by bulk copies) and the plain version :func:`conv3x3_ref`, nine
+shifted f32 matmuls summed in ``(dy, dx)`` order and rounded once, as
+``_body_shift9`` does.  :func:`pack_weights` reorders the HWIO weights
+into the 18 stage images that the kernel's ``wgmma`` reads as they are.
 
 The two sum the same products in another order, so they are not
 bit-equal.  :func:`ulp_report` holds them to "equal or one bf16 ulp
@@ -31,6 +33,10 @@ import torch
 import torch.nn.functional as F
 
 CHANNELS = 128
+# The kernel's weight stages: one tap x 64 input channels x 128 output
+# channels each, 18 in all (see pack_weights).
+STAGES = 18
+STAGE_ELEMS = 64 * CHANNELS
 # The f32 error allowance near zero, in units of 2**-24 * sum(|x * w|).
 # Where two f32 sums of the same exact bf16 products, in two orders, land
 # more than one bf16 ulp apart, they differ by at most 0.76 such units on
@@ -114,6 +120,25 @@ def ulp_report(got: torch.Tensor, want: torch.Tensor, abs_sum: torch.Tensor
             "ok": worst <= F32_SUM_SLACK}
 
 
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """HWIO (3, 3, 128, 128) weights -> (18, 8192): the kernel's weight
+    stages, each the exact shared-memory image that one ring stage holds.
+
+    Stage ``s = 2 * (3 * dy + dx) + c // 64`` holds tap (dy, dx) and input
+    channels ``64 * (c // 64)`` on, for all 128 outputs, in wgmma's K-major
+    no-swizzle layout of 8 x 8 core matrices: element ``w[dy, dx, c, o]``
+    lies at index ``2048 * (c % 64 // 16) + 128 * (o // 8)
+    + 64 * (c % 16 // 8) + 8 * (o % 8) + c % 8`` of its stage (twice that
+    in bytes), as ``csrc/conv3x3.cu`` states.  A permutation: no value
+    changes."""
+    if tuple(w.shape) != (3, 3, CHANNELS, CHANNELS):
+        raise ValueError(f"pack_weights takes HWIO (3, 3, {CHANNELS}, "
+                         f"{CHANNELS}) weights, got shape {tuple(w.shape)}")
+    # c = (half, k-step, k-half, k), o = (n-group, n)
+    parts = w.reshape(3, 3, 2, 4, 2, 8, 16, 8)
+    return parts.permute(0, 1, 2, 3, 6, 4, 7, 5).reshape(STAGES, STAGE_ELEMS)
+
+
 @functools.cache
 def _kernel():
     from dmfusion_torch.ops._build import load_library
@@ -126,8 +151,9 @@ def _kernel():
 
 def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The CUDA kernel: same contract as :func:`conv3x3_ref`, for
-    contiguous bf16 CUDA tensors with C = O = 128.  Each launch adds one
-    to ``conv3x3_cuda.launches``."""
+    contiguous bf16 CUDA tensors with C = O = 128.  Packs the weights
+    (:func:`pack_weights`) on every call.  Each launch adds one to
+    ``conv3x3_cuda.launches``."""
     _check_shapes(x, w)
     if x.shape[2] != CHANNELS or w.shape[3] != CHANNELS:
         raise ValueError(f"the kernel takes {CHANNELS} -> {CHANNELS} "
@@ -141,14 +167,15 @@ def conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise ValueError("x and w lie on different devices")
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("x and w must start on a 16-byte boundary")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
     h, wd, _ = x.shape
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
+    wpk = pack_weights(w)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _kernel()(x.data_ptr(), w.data_ptr(), out.data_ptr(), h, wd,
+    err = _kernel()(x.data_ptr(), wpk.data_ptr(), out.data_ptr(), h, wd,
                     stream, x.device.index)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: cudaError_t {err}")

@@ -12,7 +12,8 @@ card times the three with CUDA events, in turns.
     python -m dmfusion_torch.tools.conv_kernel_probe --device cpu --h 20 --w 27
 
 On the CPU it checks the plain version against ``F.conv2d`` and does not
-time.
+time.  :func:`constant_case` gives inputs whose output is known in closed
+form, and :func:`sass_report` what the built kernel compiled to.
 """
 
 from __future__ import annotations
@@ -20,6 +21,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import subprocess
+from pathlib import Path
 
 import torch
 
@@ -40,6 +44,51 @@ def inputs(h: int, w: int, device: torch.device, seed: int = 0
     wgt = torch.randn((3, 3, CHANNELS, CHANNELS), generator=gen,
                       device=device) / math.sqrt(9 * CHANNELS)
     return x.bfloat16(), wgt.bfloat16()
+
+
+def constant_case(h: int, w: int, device: str | torch.device
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``x = 1`` and every weight ``bf16(1/1152)``: output (y, x) is
+    ``n * 128 * w`` for the n taps of the pixel that lie in the image (9
+    inside, 6 on an edge, 4 in a corner, fewer in a one-pixel-wide image).
+    Every partial sum is a multiple of ``w`` below 2**11 times it, exact in
+    f32 in any order, so the kernel must give this closed form bit for bit.
+    Returns x, the weights and the closed form, bf16."""
+    x = torch.ones((h, w, CHANNELS), dtype=torch.bfloat16, device=device)
+    wgt = torch.full((3, 3, CHANNELS, CHANNELS), 1 / 1152,
+                     dtype=torch.bfloat16, device=device)
+
+    def taps(n):  # in-image neighbours of each index along one axis
+        i = torch.arange(n, device=device)
+        return (i + 1).clamp(max=n - 1) - (i - 1).clamp(min=0) + 1
+
+    n = taps(h)[:, None] * taps(w)[None, :]
+    want = (n.float() * (CHANNELS * wgt[0, 0, 0, 0].float())).bfloat16()
+    return x, wgt, want[..., None].expand(h, w, CHANNELS)
+
+
+def sass_report() -> dict:
+    """What the built ``conv3x3`` library compiled to, from the card's
+    toolkit: counts of the SASS instructions that show the design (HGMMA:
+    wgmma; HMMA: mma.sync, which it must not use; UBLKCP: bulk copies;
+    SYNCS: mbarrier operations) and ``cuobjdump -res-usage``'s registers,
+    stack and local bytes a thread."""
+    from dmfusion_torch.ops._build import _nvcc, library_path, load_library
+    load_library("conv3x3")
+    lib = str(library_path("conv3x3"))
+    cuobjdump = str(Path(_nvcc()).with_name("cuobjdump"))
+
+    def dump(flag):
+        return subprocess.run([cuobjdump, flag, lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+
+    sass = dump("-sass")
+    counts = {op: len(re.findall(rf"\b{op}[.\s]", sass))
+              for op in ("HGMMA", "HMMA", "UBLKCP", "SYNCS")}
+    use = re.search(r"REG:(\d+) STACK:(\d+) SHARED:(\d+) LOCAL:(\d+)",
+                    dump("-res-usage"))
+    return {"sass": counts, "registers": int(use[1]), "stack": int(use[2]),
+            "local": int(use[4])}
 
 
 def run(device: str | torch.device = "cuda", h: int = 1008,

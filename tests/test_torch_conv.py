@@ -10,7 +10,9 @@ bf16 outputs must be equal or one bf16 ulp apart, save the few near zero
 that ``ulp_report`` holds to the f32 sums' own error; f32 outputs agree
 to 1e-5.
 The CUDA kernel is held against the plain version and cuDNN on the card
-by ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.
+by ``tests/test_torch_kernels.py`` and ``chip_smoke.py``.  Here the CPU
+holds what the kernel's descriptors assume: ``pack_weights`` puts every
+weight where the layout formula of ``csrc/conv3x3.cu`` says.
 """
 
 import jax.numpy as jnp
@@ -122,3 +124,57 @@ def test_conv_probe_defaults_to_the_card():
         pytest.skip("checks the refusal on a machine without a card")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         conv_kernel_probe.run()
+
+
+def _packed_position(dy, dx, c, o):
+    """Stage and byte offset of w[dy, dx, c, o], the formula that
+    ``csrc/conv3x3.cu``'s note states."""
+    stage = 2 * (3 * dy + dx) + c // 64
+    byte = 2 * (2048 * (c % 64 // 16) + 128 * (o // 8) + 64 * (c % 16 // 8)
+                + 8 * (o % 8) + c % 8)
+    return stage, byte
+
+
+def test_pack_weights_is_the_documented_permutation():
+    _, wgt = _inputs(1, 1, 7)
+    w = torch.from_numpy(wgt).bfloat16()
+    packed = tconv.pack_weights(w)
+    assert packed.shape == (tconv.STAGES, tconv.STAGE_ELEMS)
+    assert packed.dtype == torch.bfloat16
+    bits = packed.view(torch.int16).reshape(-1)
+    assert torch.equal(bits.sort().values,
+                       w.view(torch.int16).reshape(-1).sort().values)
+    dy, dx, c, o = np.meshgrid(*(np.arange(n) for n in w.shape),
+                               indexing="ij")
+    stage, byte = _packed_position(dy, dx, c, o)
+    index = torch.from_numpy(stage * tconv.STAGE_ELEMS + byte // 2)
+    assert torch.equal(bits[index], w.view(torch.int16))
+
+
+@pytest.mark.parametrize("element,stage,byte", [
+    ((0, 0, 0, 0), 0, 0),
+    ((2, 1, 77, 100), 15, 3274),
+    ((2, 2, 127, 127), 17, 16382)])
+def test_pack_weights_places_hand_picked_elements(element, stage, byte):
+    assert _packed_position(*element) == (stage, byte)
+    w = torch.zeros((3, 3, 128, 128), dtype=torch.bfloat16)
+    w[element] = 1.0
+    flat = tconv.pack_weights(w).reshape(-1)
+    assert flat.nonzero().flatten().tolist() == [
+        stage * tconv.STAGE_ELEMS + byte // 2]
+
+
+@pytest.mark.parametrize("shape", [(3, 3, 128, 64), (3, 3, 64, 128),
+                                   (1, 3, 128, 128), (9, 128, 128)])
+def test_pack_weights_refuses_other_shapes(shape):
+    with pytest.raises(ValueError, match="pack_weights"):
+        tconv.pack_weights(torch.zeros(shape, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("h,w", [(9, 33), (1, 100), (100, 1), (1, 1)])
+def test_constant_case_is_the_plain_conv(h, w):
+    """The closed form the card tests hold the kernel to bit for bit is
+    what the plain version computes: 9, 6 and 4 taps inside, on an edge
+    and in a corner."""
+    x, wgt, want = conv_kernel_probe.constant_case(h, w, "cpu")
+    assert torch.equal(tconv.conv3x3_ref(x, wgt), want)

@@ -17,6 +17,7 @@ import torch
 from dmfusion_torch.data import patches
 from dmfusion_torch.models import dense_fusion
 from dmfusion_torch.ops import conv3x3, gather, pool, strip_gather
+from dmfusion_torch.tools import conv_kernel_probe
 
 H, W, C, PS = 40, 44, 4, 8
 
@@ -267,7 +268,10 @@ def test_conv_cpu_dispatch_takes_plain_version():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("h,w", [(37, 45), (64, 70), (1, 1)])
+@pytest.mark.parametrize("h,w", [(37, 45), (64, 70), (1, 1),
+                                 # on and off the kernel's 8 x 32 tile
+                                 (9, 33), (8, 32), (7, 31), (1, 100),
+                                 (100, 1)])
 def test_conv_kernel_within_one_ulp(cuda, h, w):
     """Equal or one bf16 ulp apart from the plain version and cuDNN (the
     f32 sums' own error allowed near zero: ``ulp_report``); one launch."""
@@ -280,3 +284,20 @@ def test_conv_kernel_within_one_ulp(cuda, h, w):
                  conv3x3.conv3x3_library(x, wgt)):
         rep = conv3x3.ulp_report(got, want, abs_sum)
         assert rep["ok"] and rep["share_differ"] < 1e-2, rep
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,w", [(9, 33), (8, 32), (7, 31), (1, 100),
+                                 (100, 1)])
+def test_conv_kernel_constant_case_closed_form(cuda, h, w):
+    """x = 1, w = bf16(1/1152): every sum is exact in f32, so the kernel
+    gives the closed form (9, 6, 4 taps inside, on edges, in corners) bit
+    for bit, and one ulp of the plain version and cuDNN; one launch."""
+    x, wgt, want = conv_kernel_probe.constant_case(h, w, cuda)
+    before = conv3x3.conv3x3_cuda.launches
+    got = conv3x3.conv3x3(x, wgt)
+    assert conv3x3.conv3x3_cuda.launches == before + 1
+    assert torch.equal(got, want)
+    abs_sum = conv3x3.conv3x3_f32(x.abs(), wgt.abs())
+    for ref in (conv3x3.conv3x3_ref(x, wgt), conv3x3.conv3x3_library(x, wgt)):
+        assert conv3x3.ulp_report(got, ref, abs_sum)["ok"]
