@@ -23,10 +23,11 @@ Phases; any failure exits non-zero before the result line:
                 and f32 logits on the card (TF32 off) within 1e-3;
   5. pool     — the phase window-pool must be bit-equal to its plain
                 version at the image6 w32 shape (bf16 and f32), at an
-                odd-output geometry and at a wide one (4C = 256, patch
-                32); time the kernel, the plain version and one
-                ``avg_pool2d`` call on the full-resolution map, and
-                compute the bytes bound;
+                odd-output geometry, at a wide one (4C = 256, patch 32),
+                at patch 34 (the shared body) and at 24-byte pixels
+                (4C = 12, bf16); print the launch plan; time the kernel,
+                the plain version and one ``avg_pool2d`` call on the
+                full-resolution map, and compute the bytes bound;
   6. dense    — dense_fusion at width 32, patch 16, bf16 compute, f32
                 scene, seeded weights, saved and loaded as an artifact,
                 rendering the whole image6 class map through
@@ -408,7 +409,8 @@ def _pool_out(hm: int, wm: int, patch: int) -> tuple[int, int]:
 
 def phase_pool(scene, device) -> dict:
     """phase_pool_cuda vs phase_pool_ref: bit-equal at the image6 w32
-    shape (bf16 and f32), an odd-output and a wide geometry; timings."""
+    shape (bf16 and f32), an odd-output, a wide, a large-patch and an
+    unaligned-pixel geometry; timings."""
     hm, wm = int(scene.ms.shape[0]), int(scene.ms.shape[1])  # 2016 x 2116
     ps = scene.patch
     gen = torch.Generator(device=device).manual_seed(11)
@@ -424,7 +426,11 @@ def phase_pool(scene, device) -> dict:
              ("odd 37x45 4C=64 p8 bf16", 37, 45, 64, 8, torch.bfloat16,
               _pool_out(73, 89, 8)),
              ("wide 4C=256 p32 f32", 60, 84, 256, 32, torch.float32,
-              _pool_out(119, 167, 32))]
+              _pool_out(119, 167, 32)),
+             ("large ph 4C=64 p34 f32 (shared body)", 45, 50, 64, 34,
+              torch.float32, _pool_out(89, 99, 34)),
+             ("unaligned 4C=12 p16 bf16 (24-byte pixels)", 100, 150, 12, 16,
+              torch.bfloat16, _pool_out(199, 299, 16))]
     worst = 0.0
     for tag, h2, w2, c4, patch, dtype, (ni, nj) in cases:
         f = feats(h2, w2, c4, dtype)
@@ -455,6 +461,10 @@ def phase_pool(scene, device) -> dict:
     med, times = time_in_turns(runs, iters=10)
     moved = (h2 * w2 + ni * nj) * 128 * f.element_size()
     bound = moved / HBM_BYTES_PER_S * 1e3
+    plan = pool_ops.launch_plan(
+        h2, w2, 128, ps, ni, nj, f.element_size(),
+        sms=torch.cuda.get_device_properties(device).multi_processor_count)
+    log(f"kernels: phase_pool image6 w32 bf16 plan: {plan}")
     log(f"kernels: phase_pool image6 w32 bf16 ms median of 6: kernel "
         f"{med['kernel']:.4f} plain {med['plain']:.4f} library "
         f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "

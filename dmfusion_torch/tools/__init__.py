@@ -3,9 +3,10 @@ with ``chip_smoke.py``.
 
     python -m dmfusion_torch.tools.strip_gather_bench   # kernel B3
     python -m dmfusion_torch.tools.conv_kernel_probe    # kernel B4
+    python -m dmfusion_torch.tools.pool_probe           # kernel B2
 
-Both run on ``cuda:0`` unless given ``--device cpu`` (a small run of the
-plain versions, untimed), and raise when no card is present.
+Each runs on ``cuda:0`` unless given ``--device cpu`` (a small run of the
+plain versions, untimed), and raises when no card is present.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ marked ``gpu`` skip without a CUDA device; the rest check the wrappers'
 dispatch and argument checks on the CPU.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -135,24 +137,61 @@ def test_pool_refuses_odd_patch():
         pool.phase_pool_ref(_s2d_feats(20, 20, 16), 7, 7, 7)
 
 
+# The registers body's seams: column tiles of 15 (launch_plan with 256
+# threads of 128 channels) and 5 blocks, whose row shares cross tiles.
+SEAM_PLAN = {"plan": dict(max_threads=256, blocks=5)}
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hm,wm,c4,patch", [
-    (73, 89, 64, 8),      # odd output rows and columns
-    (80, 120, 128, 16),   # two row tiles, two column tiles
-    (66, 41, 256, 32),    # wide channels, ph = 16
-    (41, 57, 12, 6),      # C = 3, 1/36 not a power of two
-    (35, 35, 8, 2)])      # ph = 1
-def test_phase_pool_kernel_bit_equal(cuda, dtype, hm, wm, c4, patch):
+@pytest.mark.parametrize("hm,wm,c4,patch,case", [
+    (73, 89, 64, 8, {}),      # odd output rows and columns
+    (80, 120, 128, 16, {}),   # two row tiles, two column tiles
+    (66, 41, 256, 32, {}),    # wide channels, ph = 16
+    (41, 57, 12, 6, {}),      # C = 3, 1/36 not a power of two
+    (35, 35, 8, 2, {}),       # ph = 1
+    # outputs one below, at and one above two column tiles
+    (77, 73, 128, 16, SEAM_PLAN), (79, 75, 128, 16, SEAM_PLAN),
+    (81, 77, 128, 16, SEAM_PLAN),
+    # the default plan's 31-column tiles: 61, 62 and 63 output columns
+    (60, 137, 128, 16, {}), (60, 139, 128, 16, {}), (60, 141, 128, 16, {}),
+    # a map narrower and shorter than ph + 1: windows past it read zeros
+    (5, 7, 16, 16, {"out": (6, 7)}),
+    # ph just above the registers body's 16: the shared body
+    (80, 90, 16, 34, {}), (70, 75, 8, 40, {}),
+    # pixels of 40 and 88 bytes in bf16: 8-byte copies, 1-channel stores
+    (50, 61, 20, 16, {}), (39, 70, 44, 10, {})])
+def test_phase_pool_kernel_bit_equal(cuda, dtype, hm, wm, c4, patch, case):
     f = _s2d_feats(hm, wm, c4, dtype, cuda, seed=hm + wm + c4)
-    ni, nj = _out(hm, wm, patch)
+    ni, nj = case.get("out", _out(hm, wm, patch))
+    plan = None
+    if "plan" in case:
+        plan = pool.launch_plan(*f.shape, patch, ni, nj, f.element_size(),
+                                **case["plan"])
+        assert plan.body == "registers" and plan.tj == 15
+        assert plan.grid == (5, 1)
     before = pool.phase_pool_cuda.launches
-    got = pool.phase_pool_cuda(f, patch, ni, nj)
+    got = pool.phase_pool_cuda(f, patch, ni, nj, plan)
     assert pool.phase_pool_cuda.launches == before + 1
     want = pool.phase_pool_ref(f, patch, ni, nj)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (ni, nj, c4)
     assert torch.equal(got, want)
+    if "out" in case:
+        assert not got[3:].any() and not got[:, 4:].any()
+
+
+@pytest.mark.gpu
+def test_phase_pool_kernel_refuses_bad_plan(cuda):
+    """A plan the kernel cannot run is refused by the C entry and raised;
+    nothing is launched and nothing falls back."""
+    f = _s2d_feats(40, 40, 16, torch.float32, cuda)
+    plan = pool.launch_plan(*f.shape, 8, 17, 17, 4)
+    before = pool.phase_pool_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pool.phase_pool_cuda(f, 8, 17, 17, dataclasses.replace(
+            plan, smem=plan.smem - 16))
+    assert pool.phase_pool_cuda.launches == before
 
 
 @pytest.mark.gpu
