@@ -38,7 +38,24 @@ Phases; any failure exits non-zero before the result line:
                 whole map); on a 96x96 crop, bf16 card logits within
                 DENSE_BF16_ATOL of f32 CPU logits and f32 card logits
                 (TF32 off) within 1e-3; a profile of 2 maps;
-  7. strip    — the strip gather must be bit-equal to its plain version
+  7. train    — the default training run through the CLI's ``main``:
+                gmfnet w64, patch 16, batch 256, Adam, bf16 compute, f32
+                image6 scene, 2 epochs, test and the labeled-pixel class
+                map; two finite epoch losses, the second below the first;
+                a test matrix that sums to the test split and OA >= 0.5;
+                every file written; B1 launched twice per gathered batch
+                (train, val, test and color), the count computed from the
+                split sizes; B1 bit-equal to the plain gather at B 256 on a
+                shuffled train batch and on the padded last one; the val
+                confusion through B1 equals the one through the plain
+                gather, and the best weights reloaded from their file by a
+                fresh solver give it again; three Adam steps from seeded
+                weights: f32 card losses (TF32 off) within 1e-3 of the
+                CPU's, bf16 within TRAIN_BF16_ATOL of f32; times of the
+                epochs, 20 train steps, val, test and color, a profile of
+                the 20 steps (device ops, busy and idle share), the host
+                ops of 5 more, and B1 at B 256;
+  8. strip    — the strip gather must be bit-equal to its plain version
                 at the strip bench's shape (98,304 image6 raster anchors,
                 strips of 128, patch 16) in f32 and bf16, and at edge
                 strips past the right and the bottom edge of the view
@@ -47,7 +64,7 @@ Phases; any failure exits non-zero before the result line:
                 card (bit-equal to the per-anchor gather, timed against
                 it); time the kernel, the plain version and one indexing
                 call per view, and compute the bytes bound;
-  8. conv     — the built kernel's SASS must hold wgmma (HGMMA) and
+  9. conv     — the built kernel's SASS must hold wgmma (HGMMA) and
                 bulk copies (UBLKCP) and no mma.sync (HMMA); the 3x3
                 128->128 bf16 conv must be equal or one bf16 ulp apart
                 (``ulp_report``) from its plain version and from
@@ -66,6 +83,8 @@ Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import statistics
 import sys
 import tempfile
@@ -120,6 +139,17 @@ STRIP_ANCHORS, STRIP = 98_304, 128
 # off the kernel's 8 x 32 output tile.
 CONV_SHAPES = ((37, 45), (5, 70), (1, 1), (9, 33), (8, 32), (7, 31),
                (1, 100), (100, 1))
+# The train phase: the default run (gmfnet w64, patch 16, batch 256, Adam,
+# bf16 compute, f32 scene) on image6 through the CLI, two epochs, test and
+# the labeled-pixel class map; eval batches are 4096 anchors on the card.
+TRAIN_SET = ["data_city=image6", "epoch=2", "time=1", "color.index=1",
+             "color.unsupervised=0", "nohup=1"]
+TRAIN_BATCH, EVAL_BATCH, PARITY_STEPS, PROFILE_STEPS = 256, 4096, 3, 20
+HOST_STEPS = 5
+# bf16 vs f32 per-step training losses on the card, three Adam steps from
+# the same seeded w64 weights; a wrong layer or a lost update moves the
+# loss (about 2.4 for 12 classes at init) by far more.
+TRAIN_BF16_ATOL = 0.05
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -184,6 +214,51 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+def time_gather(scene, device, batch: int, rng) -> tuple[dict, float]:
+    """Time one dual gather of ``batch`` anchors (the MS and the PAN launch),
+    f32 scene: the kernel, the plain version and one indexing call; print
+    them with the bytes bound; return the medians and the bound (ms)."""
+    ps, w = scene.patch, scene.width
+    c = int(scene.ms.shape[-1])
+    ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
+    n = scene.num_pixels
+    # Eight anchor sets in turn so consecutive calls do not reuse L2 lines.
+    # The kernel and the indexing call get their anchors precomputed (int32
+    # starts, int64 index grids), so each times its copy alone; the plain
+    # version is timed whole, from the flat ids.
+    sets = [torch.from_numpy(rng.integers(0, n, batch).astype(np.int32)
+                             ).to(device) for _ in range(8)]
+    pan2d = scene.pan
+
+    def views(ids):
+        x, y = ids // w, ids % w
+        return ((ms2d, ps, c, x, y), (pan2d, 4 * ps, 1, 4 * x, 4 * y))
+
+    starts = [[(v, p, ch, xx.int().contiguous(), yy.int().contiguous())
+               for v, p, ch, xx, yy in views(ids)] for ids in sets]
+    grids = [[(v, (xx.long()[:, None] + torch.arange(p, device=device)
+                   )[:, :, None],
+               (yy.long()[:, None] * ch + torch.arange(p * ch, device=device)
+                )[:, None, :])
+              for v, p, ch, xx, yy in views(ids)] for ids in sets]
+    runs = {
+        "plain": lambda i: gather_dual(scene.ms, scene.pan, sets[i % 8], w, ps),
+        "kernel": lambda i: [gather_ops.gather_windows_cuda(v, xx, yy, p, ch)
+                             for v, p, ch, xx, yy in starts[i % 8]],
+        "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]],
+    }
+    med, times = time_in_turns(runs, iters=50)
+    itemsize = scene.ms.element_size()
+    moved = (2 * batch * (ps * ps * c + (4 * ps) ** 2) * itemsize
+             + 4 * batch)  # windows read + written, anchor ids read
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    log(f"kernels: gather_dual B={batch} f32 ms median of 6: kernel "
+        f"{med['kernel']:.4f} plain {med['plain']:.4f} library "
+        f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "
+        f"all: {json.dumps(times)}")
+    return med, bound
+
+
 def phase_kernels(scene, device) -> dict:
     """gather_windows vs gather_windows_ref at image6 shapes."""
     ps, w = scene.patch, scene.width
@@ -230,41 +305,7 @@ def phase_kernels(scene, device) -> dict:
         check(torch.equal(got, want), f"clamped anchors, patch {patch}")
     log("kernels: clamped and negative starts: bit-equal")
 
-    # Timing: one dual bucket (the MS and the PAN launch), f32 scene; eight
-    # anchor sets in turn so consecutive calls do not reuse L2 lines.  The
-    # kernel and the indexing call get their anchors precomputed (int32
-    # starts, int64 index grids), so each times its copy alone; the plain
-    # version is timed whole, from the flat ids.
-    sets = [torch.from_numpy(rng.integers(0, n, BUCKET).astype(np.int32)
-                             ).to(device) for _ in range(8)]
-    pan2d = scene.pan
-
-    def views(ids):
-        x, y = ids // w, ids % w
-        return ((ms2d, ps, c, x, y), (pan2d, 4 * ps, 1, 4 * x, 4 * y))
-
-    starts = [[(v, p, ch, xx.int().contiguous(), yy.int().contiguous())
-               for v, p, ch, xx, yy in views(ids)] for ids in sets]
-    grids = [[(v, (xx.long()[:, None] + torch.arange(p, device=device)
-                   )[:, :, None],
-               (yy.long()[:, None] * ch + torch.arange(p * ch, device=device)
-                )[:, None, :])
-              for v, p, ch, xx, yy in views(ids)] for ids in sets]
-    runs = {
-        "plain": lambda i: gather_dual(scene.ms, scene.pan, sets[i % 8], w, ps),
-        "kernel": lambda i: [gather_ops.gather_windows_cuda(v, xx, yy, p, ch)
-                             for v, p, ch, xx, yy in starts[i % 8]],
-        "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]],
-    }
-    med, times = time_in_turns(runs, iters=50)
-    itemsize = scene.ms.element_size()
-    moved = (2 * BUCKET * (ps * ps * c + (4 * ps) ** 2) * itemsize
-             + 4 * BUCKET)  # windows read + written, anchor ids read
-    bound = moved / HBM_BYTES_PER_S * 1e3
-    log(f"kernels: gather_dual B={BUCKET} f32 ms median of 6: kernel "
-        f"{med['kernel']:.4f} plain {med['plain']:.4f} library "
-        f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "
-        f"all: {json.dumps(times)}")
+    med, bound = time_gather(scene, device, BUCKET, rng)
     return {"gather_windows": {"max_abs_err": worst, "ms": med["kernel"],
                                "plain_ms": med["plain"],
                                "library_ms": med["library"],
@@ -601,6 +642,250 @@ def phase_dense(scene, device) -> dict:
     return launches
 
 
+def _host_ops(fn, what: str, top_n: int) -> dict:
+    """One ``torch.profiler`` window with host tracing over ``fn()``: the
+    ``top_n`` host ops by their own CPU time (the tracing itself slows the
+    host, so this window's wall time is not the run's)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    ops = [e for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    host_us = sum(e.self_cpu_time_total for e in ops)
+    top = sorted(ops, key=lambda e: -e.self_cpu_time_total)[:top_n]
+    return {"window": what, "traced_wall_ms": wall_us / 1e3,
+            "host_ops_ms": host_us / 1e3,
+            "ops": sum(e.count for e in ops),
+            "top_host_ops_self_ms_calls": [[e.key[:60],
+                                            e.self_cpu_time_total / 1e3,
+                                            e.count] for e in top]}
+
+
+def _profile(fn, what: str, top_n: int) -> dict:
+    """One ``torch.profiler`` window over ``fn()``: wall and device-busy
+    time, the idle share and the ``top_n`` device ops."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    gather_us = sum(e.self_device_time_total for e in on_device
+                    if "gather_windows_kernel" in e.key)
+    top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:top_n]
+    return {"window": what, "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / wall_us,
+            "idle_share": 1 - busy_us / wall_us,
+            "gather_kernel_ms": gather_us / 1e3,
+            "top_device_ops_ms_calls": [[e.key[:90],
+                                         e.self_device_time_total / 1e3,
+                                         e.count] for e in top]}
+
+
+def _parity_losses(scene, device, rng) -> dict:
+    """Three Adam steps from seeded w64 weights on three image6 batches of
+    256: f32 on the card (TF32 off) and on the CPU, bf16 on the card."""
+    from dmfusion_torch.train.optim import make_optimizer
+    from dmfusion_torch.train.steps import DualPrograms
+    labeled, _ = split_labels(scene.label)
+    ids = torch.from_numpy(rng.choice(labeled, PARITY_STEPS * TRAIN_BATCH,
+                                      replace=False).astype(np.int32))
+    labels = torch.from_numpy(scene.label.reshape(-1)[ids.numpy()]
+                              .astype(np.int64))
+    windows = [gather_ops.gather_dual_fast(scene.ms, scene.pan,
+                                           b.to(device), scene.width,
+                                           scene.patch)
+               for b in ids.split(TRAIN_BATCH)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tag, dev, dtype in (("f32_cpu", torch.device("cpu"), "float32"),
+                            ("f32_card", device, "float32"),
+                            ("bf16_card", device, "bfloat16")):
+        cfg = load_config(overrides={**CFG, "device": "cpu", "precision": {
+            "compute_dtype": dtype, "scene_dtype": "float32"}})
+        model = build_model(cfg).to(dev)
+        if dev.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        prog = DualPrograms(model, make_optimizer(cfg, model.parameters(),
+                                                  PARITY_STEPS),
+                            cfg, scene.width, scene.patch)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        losses = [prog.train_step(ms_b.to(dev), pan_b.to(dev),
+                                  lab.to(dev))
+                  for (ms_b, pan_b), lab in zip(windows,
+                                                labels.split(TRAIN_BATCH))]
+        out[tag] = torch.stack(losses).cpu()
+    for t in out.values():
+        check(bool(torch.isfinite(t).all()), "parity: non-finite loss")
+    gap32 = float((out["f32_card"] - out["f32_cpu"]).abs().max())
+    gap16 = float((out["bf16_card"] - out["f32_card"]).abs().max())
+    check(gap32 <= 1e-3, f"f32 card vs CPU train losses differ by {gap32}")
+    check(gap16 <= TRAIN_BF16_ATOL, f"bf16 vs f32 train losses differ by "
+          f"{gap16} > {TRAIN_BF16_ATOL}")
+    return {"steps": PARITY_STEPS, "batch": TRAIN_BATCH,
+            "losses": {k: v.tolist() for k, v in out.items()},
+            "f32_card_vs_cpu_max_abs": gap32, "f32_tolerance": 1e-3,
+            "bf16_vs_f32_card_max_abs": gap16,
+            "bf16_tolerance": TRAIN_BF16_ATOL}
+
+
+def phase_train(scene, device) -> int:
+    """Train gmfnet w64 on image6 through ``python -m dmfusion_torch.cli``'s
+    ``main`` (2 epochs, test, color), check what it writes and computes,
+    reload its best weights, hold the gather route and the card's losses
+    against their plain versions, and time it; returns B1's launches over
+    the CLI run."""
+    from dmfusion_torch import cli
+    from dmfusion_torch.solvers import build_solver
+    from dmfusion_torch.train.steps import DualPrograms
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = cli.main(["--set", *TRAIN_SET, f"expo_result={tmp}/"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        solver_times = {"test": solver.test_time, "color": solver.color_time}
+
+        log(f"train: the CLI run took {run_s:.2f} s; epochs "
+            f"{rec['EpochTime']} s, losses {rec['Loss']}")
+        width = solver.model.ms_res.conv.out_channels
+        check(width == 64 and cfg["patch_size"] == 16
+              and cfg["batchsize"] == TRAIN_BATCH
+              and cfg["precision"]["compute_dtype"] == "bfloat16"
+              and solver.scene.ms.dtype == torch.float32
+              and solver.device.type == "cuda", "train: not the default run")
+        check(rec["Epoch"] == [0, 1], f"train: epochs {rec['Epoch']}")
+        check(all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+              f"train: non-finite losses {rec['Loss']} {rec['ValLoss']}")
+        check(rec["Loss"][1] < rec["Loss"][0],
+              f"train: epoch 1 loss {rec['Loss'][1]} not below epoch 0's "
+              f"{rec['Loss'][0]}")
+        check(int(solver.test_matrix.sum()) == len(split.test),
+              "train: test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        check(oa >= 0.5, f"train: test OA {oa} < 0.5")
+        out = cfg["RESULT_output"]
+        files = ["0_weights.pt", "0_curweights.pt", "0_matrix.npy",
+                 "0_records.json", "0_pic_1.png", "0_pic_2.png"]
+        for f in files:
+            check(os.path.isfile(os.path.join(out, f)), f"train: no {f}")
+        check(os.path.isfile(cfg["RESULT_excel"]), "train: no workbook")
+
+        def nb(n, b):
+            return -(-n // b)
+        ev = solver._eval_round_to()
+        check(ev == EVAL_BATCH, f"train: eval batches of {ev}")
+        batches = {"train": nb(len(split.train), TRAIN_BATCH) * 2,
+                   "val": nb(len(split.valid), ev) * 2,
+                   "test": nb(len(split.test), ev),
+                   "color": nb(len(split.labeled), ev)}
+        want = 2 * sum(batches.values())
+        check(launches["gather_windows"] == want,
+              f"train: {launches['gather_windows']} B1 launches, the split "
+              f"sizes give {want} ({batches})")
+
+        # B1 at the train path's shape: a shuffled train batch and the
+        # last one, padded with masked anchor 0, against the plain gather.
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        real_last = int(tb[2][-1].sum())
+        check(0 < real_last < TRAIN_BATCH,
+              f"train: the last train batch holds {real_last} anchors")
+        ms, pan = solver.scene_args
+        for tag, row in (("shuffled", 0), (f"last, {real_last} real", -1)):
+            got = gather_ops.gather_dual_fast(ms, pan, tb[0][row],
+                                              solver.scene.width,
+                                              solver.scene.patch)
+            want = gather_dual(ms, pan, tb[0][row], solver.scene.width,
+                               solver.scene.patch)
+            for g, r in zip(got, want):
+                check(g.shape == r.shape and torch.equal(g, r),
+                      f"train: B1 != plain on the {tag} train batch "
+                      f"(max {_max_err(g, r)})")
+            log(f"kernels: gather_dual B={TRAIN_BATCH} {tag} train batch: "
+                f"bit-equal ms {tuple(got[0].shape)} pan "
+                f"{tuple(got[1].shape)}")
+
+        # The gather route: val confusion through B1 and the plain gather.
+        vb = solver.batches(split.valid, cfg["color_batchsize"],
+                            round_to=ev)
+        vb = (vb[0], vb[1], vb[2].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss_k, conf_k = solver.programs.eval_epoch(solver.scene_args, *vb)
+        conf_k = conf_k.cpu()
+        val_s = time.perf_counter() - t0
+        plain = DualPrograms(solver.model, None, cfg, solver.scene.width,
+                             solver.scene.patch, plain_gather=True)
+        loss_p, conf_p = plain.eval_epoch(solver.scene_args, *vb)
+        check(torch.equal(conf_k, conf_p.cpu()),
+              "train: val confusion with B1 != with the plain gather")
+
+        # The best weights (which test and color left in the model),
+        # reloaded from their file by a fresh solver: the same confusion.
+        fresh = build_solver({**cfg, "train": {**cfg["train"], "index": 0}})
+        fresh.dataloader()
+        fresh._use_eval_params()
+        _, conf_f = fresh.programs.eval_epoch(fresh.scene_args, *vb)
+        check(torch.equal(conf_f.cpu(), conf_k),
+              "train: reloaded best weights give another val confusion")
+        del fresh
+
+        # Train-only time of 20 steps, then a profile of the same steps.
+        steps = (tb[0][:PROFILE_STEPS], tb[1][:PROFILE_STEPS],
+                 tb[2][:PROFILE_STEPS].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(solver.programs.train_epoch(solver.scene_args, *steps).mean())
+        train_steps_s = time.perf_counter() - t0
+        prof = _profile(lambda: solver.programs.train_epoch(
+            solver.scene_args, *steps),
+            f"{PROFILE_STEPS} train steps, B {TRAIN_BATCH}", 8)
+        log("profile train: " + json.dumps(prof))
+        host = _host_ops(lambda: solver.programs.train_epoch(
+            solver.scene_args, *(t[:HOST_STEPS] for t in steps)),
+            f"{HOST_STEPS} train steps, B {TRAIN_BATCH}, host ops", 10)
+        log("profile train host: " + json.dumps(host))
+        del solver, plain
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rng = np.random.default_rng(7)
+    med, bound = time_gather(scene, device, TRAIN_BATCH, rng)
+    parity = _parity_losses(scene, device, rng)
+    n_train = len(split.train)
+    result = {
+        "model": "gmfnet", "width": width, "patch": 16, "batch": TRAIN_BATCH,
+        "run_s": run_s, "epoch_s": rec["EpochTime"], "loss": rec["Loss"],
+        "val_loss": rec["ValLoss"], "val_oa": rec["ValOA"],
+        "train_anchors": n_train, "val_anchors": len(split.valid),
+        "test_anchors": len(split.test), "color_anchors": len(split.labeled),
+        "epoch1_samples_per_s": n_train / rec["EpochTime"][1],
+        "train_steps": PROFILE_STEPS, "train_steps_s": train_steps_s,
+        "train_samples_per_s": PROFILE_STEPS * TRAIN_BATCH / train_steps_s,
+        "val_s": val_s, "test_s": solver_times["test"],
+        "test_anchors_per_s": len(split.test) / solver_times["test"],
+        "color_s": solver_times["color"], "test_oa": oa, "test_aa": aa,
+        "test_kappa": kap, "gather_batches": batches,
+        "launches": launches, "b1_b256_ms": med, "b1_b256_bound_ms": bound,
+        "parity": parity}
+    log(f"train: {json.dumps(result)}")
+    return launches["gather_windows"]
+
+
 def phase_strip(scene, device) -> tuple[int, dict]:
     """B3: bit-equality with the plain version, the strip bench on the
     card, timings; returns the bench's launches and the kernel's row."""
@@ -745,10 +1030,11 @@ def main() -> None:
     timings = phase_kernels(scene, device)
     # Each path is driven with every count set to 0 just before it and read
     # just after; a kernel's launches are those of its own path.
-    launches = {"gather_windows":
-                phase_serving(scene, device)["gather_windows"]}
+    by_path = {"serving": phase_serving(scene, device)["gather_windows"]}
     timings["phase_pool"] = phase_pool(scene, device)
-    launches["phase_pool"] = phase_dense(scene, device)["phase_pool"]
+    launches = {"phase_pool": phase_dense(scene, device)["phase_pool"]}
+    by_path["train"] = phase_train(scene, device)
+    launches["gather_windows"] = sum(by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
                                                                     device)
     del scene
@@ -760,6 +1046,8 @@ def main() -> None:
         rows.append({"name": name, "route": spec["route"],
                      "source": spec["source"], "replaces": spec["replaces"],
                      "launches": launches[name], "ok": True,
+                     **({"launches_by_path": by_path}
+                        if name == "gather_windows" else {}),
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

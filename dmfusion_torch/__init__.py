@@ -8,9 +8,12 @@ of ``dmfusion`` — and keeps its own copies of the framework-neutral code
 
 Ported so far: the serving path of the default model, gmfnet — config,
 scene, window gathers (a hand-written CUDA kernel on the card), models,
-artifact export/load, scene inference and metrics — and the whole-scene
-class map of the dense flagship, dense_fusion, with its phase window-pool
-as a second hand-written CUDA kernel.
+artifact export/load, scene inference and metrics; its training end to
+end from ``python -m dmfusion_torch.cli`` — run slots, seeded splits,
+losses, optimizers and schedules, train/eval/predict programs,
+checkpoints, the train/test/color solver, xlsx reports and class-map
+PNGs; and the whole-scene class map of the dense flagship, dense_fusion,
+with its phase window-pool as a second hand-written CUDA kernel.
 """
 
 __version__ = "0.1.0"

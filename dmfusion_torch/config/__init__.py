@@ -1,10 +1,13 @@
-"""Config loading, ``{{...}}`` self-interpolation and device resolution.
+"""Config loading, ``{{...}}`` self-interpolation, run slots and device
+resolution.
 
-A copy of the rendering half of ``dmfusion/config/__init__.py``: the same
-placeholder vocabulary, the same two interpolation passes and the same
-validation, so one YAML file or override dict renders to the same dict in
-both packages.  Serving needs no run-slot allocation, so ``prepare_run``
-is not carried over.  ``yaml`` is imported only when a file is read.
+A copy of ``dmfusion/config/__init__.py``: the same placeholder
+vocabulary, the same two interpolation passes and the same validation, so
+one YAML file or override dict renders to the same dict in both packages;
+and the same run-slot allocation (:func:`prepare_run`), so both packages
+pick the same ``FILE_NUM`` slot in one result tree.  ``yaml`` is imported
+only when a file is read: without PyYAML, a run goes through the built-in
+schema and ``--set`` overrides.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 from pathlib import Path
 from typing import Any, Iterable, Mapping
 
@@ -69,8 +73,10 @@ def render_config(cfg: Mapping[str, Any]) -> dict[str, Any]:
 
 
 def load_config(path: str | os.PathLike | None = None,
-                overrides: Mapping[str, Any] | None = None) -> dict[str, Any]:
-    """Load a YAML config file (or pure defaults), apply overrides, render."""
+                overrides: Mapping[str, Any] | None = None,
+                prepare: bool = False) -> dict[str, Any]:
+    """Load a YAML config file (or pure defaults), apply overrides, render,
+    optionally allocate a run slot."""
     raw: dict[str, Any] = {}
     if path is not None:
         import yaml
@@ -78,7 +84,68 @@ def load_config(path: str | os.PathLike | None = None,
             raw = yaml.safe_load(f) or {}
     if overrides:
         raw = _deep_merge(raw, dict(overrides)) if raw else dict(overrides)
-    return render_config(raw)
+    cfg = render_config(raw)
+    if prepare:
+        cfg = prepare_run(cfg)
+    return cfg
+
+
+def prepare_run(cfg: dict[str, Any]) -> dict[str, Any]:
+    """Allocate result paths with an auto-incrementing run number.
+
+    As ``dmfusion.config.prepare_run`` (reference ``get_dump_config``):
+      * ensure the RESULT directory exists,
+      * when training, advance FILE_NUM past every occupied slot,
+      * with ``train.resume`` set, reuse the newest unfinished slot (its
+        output dir exists but its result workbook was never written), so
+        a resumed run finds its ``curweights``,
+      * else with ``delete`` set, remove orphan ``_output`` dirs lacking a
+        result workbook and reuse the lowest freed slot,
+      * finally create the output dir.
+    """
+    cfg = dict(cfg)
+    result_dir = cfg.get("RESULT") or os.path.join(
+        cfg["expo_result"],
+        f"{cfg['data_city']}_tr{cfg['train_rate']}_ep{cfg['epoch']}_bs{cfg['batchsize']}",
+    )
+    if not result_dir.endswith(os.sep) and not result_dir.endswith("/"):
+        result_dir += "/"
+    os.makedirs(result_dir, exist_ok=True)
+
+    def slot_paths(num: int) -> tuple[str, str]:
+        stem = f"{cfg['model_name']}__{num}"
+        return (os.path.join(result_dir, stem + "_result.xlsx"),
+                os.path.join(result_dir, stem + "_output/"))
+
+    filenum = 0
+    if cfg["train"]["index"]:
+        excel, outdir = slot_paths(filenum)
+        while os.path.exists(excel) or os.path.exists(outdir):
+            filenum += 1
+            excel, outdir = slot_paths(filenum)
+        if cfg["train"].get("resume"):
+            for num in range(filenum - 1, -1, -1):
+                ex, od = slot_paths(num)
+                if os.path.isdir(od) and not os.path.isfile(ex):
+                    filenum = num
+                    break
+        elif cfg.get("delete"):
+            for num in range(filenum - 1, -1, -1):
+                ex, od = slot_paths(num)
+                if os.path.isdir(od) and not os.path.isfile(ex):
+                    shutil.rmtree(od)
+                    filenum = num
+    else:
+        filenum = int(cfg.get("FILE_NUM", 0))
+
+    excel, outdir = slot_paths(filenum)
+    cfg["FILE_NUM"] = filenum
+    cfg["RESULT"] = result_dir
+    cfg["RESULT_excel"] = excel
+    cfg["RESULT_output"] = outdir
+    if cfg["train"].get("save_best", True):
+        os.makedirs(outdir, exist_ok=True)
+    return cfg
 
 
 def _parse_value(text: str) -> Any:

@@ -195,7 +195,7 @@ def main(argv: list[str] | None = None) -> None:
     result["eval_s"] = round(time.time() - t0, 3)
 
     if not args.no_maps:
-        from PIL import Image
+        from dmfusion_torch.report.png import write_png
 
         t1 = time.time()
         out_dir = args.out or (os.path.dirname(
@@ -214,7 +214,7 @@ def main(argv: list[str] | None = None) -> None:
         for tag, lab in (("1", sup), ("2", full)):
             img = render_class_map(torch.from_numpy(lab), pal).numpy()
             p = os.path.join(out_dir, f"{stem}_pic_{tag}.png")
-            Image.fromarray(img).save(p)
+            write_png(p, img)
             paths.append(p)
         result["maps"] = paths
         result["map_s"] = round(time.time() - t1, 3)

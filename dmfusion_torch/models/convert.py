@@ -14,6 +14,13 @@ GroupNorm's ``scale`` is torch's ``weight``.  Conversion in either
 direction raises on anything left unmatched, so a tree of another model
 or width never loads in part.  The root scope is the model class's
 ``flax_root`` (``Net`` for gmfnet, ``DenseNet`` for dense_fusion).
+
+The optimizer state goes across the same way (:func:`opt_state_from_optax`,
+:func:`opt_state_to_optax`): an optax Adam, SGD or RMSprop state, as
+``flax.serialization.to_state_dict`` lays it out (``{"0": {"count", "mu",
+"nu"}, "1": {...}}``, numpy leaves), holds one param-shaped tree per
+moment, mapped leaf by leaf with the same transposes, and the update
+count.
 """
 
 from __future__ import annotations
@@ -141,16 +148,27 @@ def _leaf_to_flax(module: nn.Module, name: str, p: torch.Tensor
     raise ValueError(f"{type(module).__name__}.{name} has no flax counterpart")
 
 
-def params_to_flax(model: nn.Module) -> dict[str, Any]:
-    """Torch model -> flax param tree (nested dicts of numpy arrays)."""
+def params_to_flax(model: nn.Module,
+                   values: Mapping[str, torch.Tensor] | None = None
+                   ) -> dict[str, Any]:
+    """Torch model -> flax param tree (nested dicts of numpy arrays).
+
+    With ``values`` (parameter name -> tensor of its shape, e.g. an Adam
+    moment), those tensors are laid out in the tree instead of the
+    parameters."""
     tree: dict[str, Any] = {}
     seen = 0
 
-    def walk(module: nn.Module, scope: str, node: dict[str, Any]):
+    def value(name: str, p: torch.Tensor) -> torch.Tensor:
+        return p if values is None else values[name]
+
+    def walk(module: nn.Module, scope: str, node: dict[str, Any],
+             prefix: str):
         nonlocal seen
         for fname, (attr, kind) in _CHILDREN[scope].items():
+            tname = f"{prefix}.{attr}" if prefix else attr
             if kind == PARAM:
-                node[fname] = getattr(module, attr).detach().to(
+                node[fname] = value(tname, getattr(module, attr)).detach().to(
                     "cpu", torch.float32).numpy()
                 seen += 1
                 continue
@@ -160,16 +178,88 @@ def params_to_flax(model: nn.Module) -> dict[str, Any]:
                 continue
             if kind != LEAF:
                 if type(child).__name__ == kind:  # picks the PAN variant
-                    walk(child, kind, node.setdefault(fname, {}))
+                    walk(child, kind, node.setdefault(fname, {}), tname)
                 continue
             leaves = node.setdefault(fname, {})
             for pname, p in child.named_parameters(recurse=False):
-                leaf, arr = _leaf_to_flax(child, pname, p)
+                leaf, arr = _leaf_to_flax(child, pname,
+                                          value(f"{tname}.{pname}", p))
                 leaves[leaf] = arr
                 seen += 1
 
-    walk(model, getattr(model, "flax_root", "Net"), tree)
+    walk(model, getattr(model, "flax_root", "Net"), tree, "")
     total = len(model.state_dict())
     if seen != total:
         raise ValueError(f"{total - seen} torch parameters have no flax name")
     return tree
+
+
+# Per optimizer: the optax moment trees and the torch state key of each,
+# and the number of optax sub-states (the schedule's count is in "1").
+_OPT_LAYOUT = {
+    "Adam": ((("mu", "exp_avg"), ("nu", "exp_avg_sq")), 2),
+    "SGD": ((("trace", "momentum_buffer"),), 2),
+    "RMSprop": ((("nu", "nu"),), 3),
+}
+
+
+def _opt_layout(optimizer: torch.optim.Optimizer):
+    name = type(optimizer).__name__
+    if name not in _OPT_LAYOUT:
+        raise ValueError(f"no optax counterpart for {name}")
+    return name, *_OPT_LAYOUT[name]
+
+
+def opt_state_to_optax(model: nn.Module, optimizer: torch.optim.Optimizer
+                       ) -> dict[str, Any]:
+    """The port's optimizer state -> optax's, as ``to_state_dict`` lays it
+    out: ``{"0": {moments (and Adam's count)}, "1": {"count"} when a
+    schedule is on else {}, ...}``, numpy leaves."""
+    name, moments, n_sub = _opt_layout(optimizer)
+    names = {p: n for n, p in model.named_parameters()}
+    count = np.asarray(optimizer.param_groups[0]["count"], np.int32)
+    first: dict[str, Any] = {"count": count} if name == "Adam" else {}
+    for okey, tkey in moments:
+        first[okey] = params_to_flax(model, {
+            names[p]: optimizer.state[p][tkey]
+            for g in optimizer.param_groups for p in g["params"]})
+    out: dict[str, Any] = {str(i): {} for i in range(n_sub)}
+    out["0"] = first
+    if getattr(optimizer, "schedule", None) is not None:
+        out["1"] = {"count": count}
+    return out
+
+
+def opt_state_from_optax(state: Mapping[str, Any], model: nn.Module,
+                         optimizer: torch.optim.Optimizer,
+                         count: int | None = None) -> torch.optim.Optimizer:
+    """Load an optax state (the layout of :func:`opt_state_to_optax`) into
+    ``optimizer``, whose parameters are ``model``'s.  The update count
+    comes from the state; SGD and RMSprop keep none without a schedule, and
+    then ``count`` (default 0) is used."""
+    name, moments, _ = _opt_layout(optimizer)
+    root = getattr(model, "flax_root", "Net")
+    first = state["0"]
+    counts = [int(np.asarray(s["count"])) for s in state.values()
+              if isinstance(s, Mapping) and "count" in s]
+    n = counts[0] if counts else int(count or 0)
+    trees = {}
+    for okey, tkey in moments:
+        if okey not in first:
+            raise ValueError(f"optax state has no {okey!r}: not a {name} "
+                             f"state")
+        trees[tkey] = params_from_flax(first[okey], root)
+    names = dict(model.named_parameters())
+    for tkey, tree in trees.items():
+        if set(tree) != set(names):
+            raise ValueError(f"optax {tkey} tree does not cover the model's "
+                             f"parameters")
+    for group in optimizer.param_groups:
+        group["count"] = n
+    for pname, p in names.items():
+        st = {tkey: torch.empty_like(p).copy_(tree[pname])
+              for tkey, tree in trees.items()}
+        if name == "Adam":
+            st["step"] = torch.tensor(float(n))
+        optimizer.state[p] = st
+    return optimizer

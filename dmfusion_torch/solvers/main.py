@@ -1,0 +1,318 @@
+"""Solver: the train, test and color phases of a patch classifier.
+
+Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet).
+Semantics kept:
+  * the model comes from the registry by ``model_name``, seeded with
+    ``seed + repeat``; the optimizer counts ``ceil(len(train) / batchsize)``
+    updates an epoch for its schedule; a loss other than ``Criterion``
+    raises;
+  * each epoch trains over freshly shuffled batches (built while the last
+    epoch's work drains), fetches the mean loss once, evaluates the val
+    batches (built once), keeps the best parameters by val loss (a real
+    copy) and saves them, saves the current parameters, optimizer state
+    and epoch, and records ``Epoch``, ``Loss``, ``ValLoss``, ``ValOA`` and
+    ``EpochTime``; ``train.early_stop`` stops at the first val regression;
+  * ``train.resume`` restarts from ``curweights`` at ``epoch + 1`` with
+    the records trimmed;
+  * test -> ``[pred][target]`` confusion -> OA/AA/kappa and the workbook;
+    a test- or color-only run without weights raises
+    ``FileNotFoundError``;
+  * color() writes ``{time}_pic_1.png`` (labeled pixels) and
+    ``{time}_pic_2.png`` (all pixels), with the port's own PNG writer.
+
+Eval and predict batches are rounded up to 4096 anchors on the card (the
+counterpart of dmfusion's fast-gather rule) and to 64 on the CPU; masks
+keep every confusion exact either way.  Other arities, the dense probes,
+``proof``, ``visualize`` and the two-stage solver are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from dmfusion_torch.models.registry import build_model, model_arity
+from dmfusion_torch.ops.metrics import aa_oa, render_class_map
+from dmfusion_torch.report.png import write_png
+from dmfusion_torch.solvers.base import BaseSolver
+from dmfusion_torch.train.checkpoint import (AsyncCheckpointWriter, exists,
+                                             load_checkpoint, save_checkpoint,
+                                             snapshot)
+from dmfusion_torch.train.optim import make_optimizer
+from dmfusion_torch.train.steps import DualPrograms
+from dmfusion_torch.utils.misc import parse_switch
+
+# Arity -> the ROADMAP item that ports its training.
+_UNPORTED_ARITY = {"dense": "A8", "tri": "A12", "single": "A12",
+                   "quad": "A11", "image": "A11"}
+
+
+class Solver(BaseSolver):
+    def __init__(self, cfg: Mapping[str, Any]):
+        super().__init__(cfg)
+        self.model: torch.nn.Module | None = None
+        self.optimizer: torch.optim.Optimizer | None = None
+        self.programs: DualPrograms | None = None
+        self.best_params: dict[str, torch.Tensor] | None = None
+        self.scene_args: tuple | None = None
+        self.color_time = 0.0
+
+    # -- model lifecycle ---------------------------------------------------
+    def init_model(self) -> None:
+        cfg = self.cfg
+        arity = model_arity(cfg["model_name"])
+        if arity != "dual":
+            raise NotImplementedError(
+                f"model {cfg['model_name']!r} has arity {arity!r}: its "
+                f"training is not ported to dmfusion_torch yet (ROADMAP "
+                f"{_UNPORTED_ARITY.get(arity, 'A')})")
+        loss_name = cfg["schedule"]["loss"]
+        if loss_name != "Criterion":
+            raise ValueError(
+                f"schedule.loss {loss_name!r} is not usable with the main "
+                "solver (integer-label classification); use 'Criterion' "
+                "(qua_loss is selected automatically by task 'dqtl')")
+        model = build_model(cfg)
+        if self.device.type == "cuda":
+            model = model.to(self.device, memory_format=torch.channels_last)
+        self.model = model
+        if self.scene_args is None:
+            self.scene_args = (self.scene.ms, self.scene.pan)
+        steps_per_epoch = max(
+            1, -(-max(1, len(self.split.train) if self.split else 1)
+                 // cfg["batchsize"]))
+        self.optimizer = make_optimizer(cfg, model.parameters(),
+                                        steps_per_epoch)
+        self.programs = DualPrograms(model, self.optimizer, cfg,
+                                     self.scene.width, self.scene.patch)
+        self.programs.init(
+            torch.Generator().manual_seed(int(cfg["seed"]) + int(self.time)))
+
+    def _ckpt_meta(self) -> dict:
+        """Model-identity stamp written into every checkpoint and checked on
+        load."""
+        return {"model": str(self.cfg["model_name"]),
+                "width": int(self.cfg.get("model_width", 0) or 0)}
+
+    def _ckpt_lenient(self) -> bool:
+        return bool(self.cfg["train"].get("pretrained_lenient"))
+
+    # -- phases ------------------------------------------------------------
+    def train(self) -> None:
+        cfg = self.cfg
+        t0 = self.now()
+        self.profile_start("train")
+        if not cfg["train"]["pretrained"] or self.programs is None:
+            self.init_model()
+        best_loss = float("inf")
+        self.epoch = 0
+        if cfg["train"].get("resume") and exists(self.cur_weights_path()):
+            ckpt = load_checkpoint(
+                self.cur_weights_path(),
+                {"params": self.model.state_dict(),
+                 "opt_state": self.optimizer.state_dict(), "epoch": 0},
+                expect=self._ckpt_meta(), lenient=self._ckpt_lenient())
+            self.model.load_state_dict(ckpt["params"])
+            self.optimizer.load_state_dict(ckpt["opt_state"])
+            self.epoch = int(ckpt["epoch"]) + 1
+            self.load_records()
+            if not cfg.get("nohup"):
+                print(f"[repeat {self.time}] resumed at epoch {self.epoch}")
+        saver = self._make_saver()
+        try:
+            self._train_loop(cfg, saver, best_loss)
+        finally:
+            if saver is not None:
+                saver.close()
+        self.profile_stop()
+        self.train_time = self.now() - t0
+        self.epoch = 0
+        self.save_records()
+
+    def _make_saver(self) -> AsyncCheckpointWriter | None:
+        """Per-epoch checkpoint writer: a worker thread by default
+        (``train.async_save``), synchronous under 'off'."""
+        if parse_switch(self.cfg["train"].get("async_save", "auto"),
+                        "train.async_save") == "off":
+            return None
+        return AsyncCheckpointWriter()
+
+    def _save_best(self, saver) -> None:
+        if saver is not None:
+            saver.save(self.best_weights_path(), self.best_params,
+                       copy=False, meta=self._ckpt_meta())
+        else:
+            save_checkpoint(self.best_weights_path(), self.best_params,
+                            meta=self._ckpt_meta())
+
+    def _save_current(self, saver) -> None:
+        tree = {"params": self.model.state_dict(),
+                "opt_state": self.optimizer.state_dict(), "epoch": self.epoch}
+        if saver is not None:
+            # copy=True: the next epoch's steps update these tensors in place.
+            saver.save(self.cur_weights_path(), tree, copy=True,
+                       meta=self._ckpt_meta())
+        else:
+            save_checkpoint(self.cur_weights_path(), tree,
+                            meta=self._ckpt_meta())
+
+    def _train_loop(self, cfg, saver, best_loss: float) -> None:
+        best_epoch = 0
+        save_best = cfg["train"]["save_best"]
+        val_batches = None  # the same every epoch: built once
+
+        def build_train():
+            ids, labels, mask, _ = self.batches(
+                self.split.train, cfg["batchsize"], shuffle=True)
+            return ids, labels, mask.float()
+
+        nxt = build_train()
+        while self.epoch < self.EPOCH:
+            ep_t0 = self.now()
+            ids, labels, mask = nxt
+            losses = self.programs.train_epoch(self.scene_args, ids, labels,
+                                               mask)
+            # The card may still be running the epoch: build the next
+            # epoch's batches first (the same draws as at the top of the
+            # next iteration), then fetch the mean loss once.
+            if self.epoch + 1 < self.EPOCH:
+                nxt = build_train()
+            train_loss = float(losses.mean())
+            val_loss = None
+            val_oa = None
+            stop_early = False
+            if save_best:
+                if val_batches is None:
+                    vids, vlabels, vmask, _ = self.batches(
+                        self.split.valid, cfg["color_batchsize"],
+                        round_to=self._eval_round_to())
+                    val_batches = (vids, vlabels, vmask.float())
+                loss_sum, conf = self.programs.eval_epoch(self.scene_args,
+                                                          *val_batches)
+                val_loss = float(loss_sum)
+                val_oa = float(aa_oa(conf.cpu().numpy())[1])
+                if val_loss < best_loss:
+                    best_loss = val_loss
+                    best_epoch = self.epoch
+                    self.best_params = snapshot(self.model.state_dict())
+                    self._save_best(saver)
+                elif cfg["train"].get("early_stop"):
+                    stop_early = True
+            self._save_current(saver)
+            self.records["Epoch"].append(self.epoch)
+            self.records["Loss"].append(train_loss)
+            self.records["ValLoss"].append(val_loss)
+            self.records.setdefault("ValOA", []).append(val_oa)
+            self.records.setdefault("EpochTime", []).append(
+                round(self.now() - ep_t0, 4))
+            self.save_records()
+            if stop_early:
+                if not cfg.get("nohup"):
+                    print(f"[repeat {self.time}] early stop at epoch "
+                          f"{self.epoch}: val {val_loss:.4f} > best "
+                          f"{best_loss:.4f} (ep {best_epoch})")
+                break
+            if not cfg.get("nohup"):
+                msg = (f"[repeat {self.time}] epoch {self.epoch} "
+                       f"loss {train_loss:.4f}")
+                if val_loss is not None:
+                    msg += (f" val {val_loss:.4f} OA {val_oa:.4f} "
+                            f"(best ep {best_epoch})")
+                print(msg)
+            self.epoch += 1
+
+    def _load_eval_params(self) -> dict[str, torch.Tensor]:
+        """The parameters test and color use: the best ones (in memory, or
+        from ``{time}_weights.pt``), or the current ones without
+        ``save_best``."""
+        cfg = self.cfg
+        if self.programs is None:
+            self.init_model()
+        if cfg["train"]["save_best"]:
+            if self.best_params is not None:
+                return self.best_params
+            path = self.best_weights_path()
+        else:
+            path = self.cur_weights_path()
+        if not exists(path):
+            raise FileNotFoundError(
+                f"eval weights not found at {path} (train.index="
+                f"{cfg['train']['index']}, train.pretrained="
+                f"{cfg['train']['pretrained']}, save_best="
+                f"{cfg['train']['save_best']}).  A test/color-only run "
+                "needs a prior training run in the SAME result slot — "
+                "set train.resume: 1 to reuse the newest unfinished "
+                "slot, or train first.")
+        if cfg["train"]["save_best"]:
+            return load_checkpoint(path, self.model.state_dict(),
+                                   expect=self._ckpt_meta(),
+                                   lenient=self._ckpt_lenient())
+        ckpt = load_checkpoint(
+            path, {"params": self.model.state_dict(),
+                   "opt_state": self.optimizer.state_dict(), "epoch": 0},
+            expect=self._ckpt_meta(), lenient=self._ckpt_lenient())
+        return ckpt["params"]
+
+    def _use_eval_params(self) -> None:
+        params = self._load_eval_params()  # builds the model when needed
+        self.model.load_state_dict(params)
+
+    def _eval_round_to(self) -> int:
+        """Eval/predict batch rounding: 4096 anchors on the card, 64 on the
+        CPU."""
+        return 4096 if self.programs.on_card else 64
+
+    def test(self) -> None:
+        cfg = self.cfg
+        t0 = self.now()
+        self._use_eval_params()
+        ids, labels, mask, _ = self.batches(self.split.test,
+                                            cfg["test_batchsize"],
+                                            round_to=self._eval_round_to())
+        conf = self.programs.test_confusion(self.scene_args, ids, labels,
+                                            mask.float())
+        self.test_matrix = conf.cpu().numpy()
+        self.test_time = self.now() - t0
+        self.indicator()
+
+    def _predict_ids(self, ids: np.ndarray, batch: int) -> np.ndarray:
+        chunks, _, _, n = self.batches(ids, batch,
+                                       round_to=self._eval_round_to())
+        preds = self.programs.predict(self.scene_args, chunks)
+        return preds.cpu().numpy().reshape(-1)[:n]
+
+    def color(self) -> None:
+        """Full-scene class maps: map 1 over the labeled pixels, map 2 over
+        every pixel (each as configured by ``color.supervised`` and
+        ``color.unsupervised``)."""
+        cfg = self.cfg
+        t0 = self.now()
+        self._use_eval_params()
+        h, w = self.scene.height, self.scene.width
+        label_np1 = np.zeros((h, w), np.int32)
+        label_np2 = np.zeros((h, w), np.int32)
+        batch = cfg["color_batchsize"]
+        if cfg["color"]["supervised"]:
+            ids = self.split.labeled
+            preds = self._predict_ids(ids, batch)
+            x, y = self.scene.ids_to_xy(ids)
+            label_np1[x, y] = preds
+            label_np2[x, y] = preds
+        if cfg["color"]["unsupervised"]:
+            ids = self.split.unlabeled
+            preds = self._predict_ids(ids, batch)
+            x, y = self.scene.ids_to_xy(ids)
+            label_np2[x, y] = preds
+        palette = torch.tensor(cfg["DATA_DICT"][cfg["data_city"]]["color"],
+                               dtype=torch.uint8)
+        os.makedirs(cfg["RESULT_output"], exist_ok=True)
+        for tag, lab in (("1", label_np1), ("2", label_np2)):
+            img = render_class_map(torch.from_numpy(lab), palette).numpy()
+            write_png(os.path.join(cfg["RESULT_output"],
+                                   f"{self.time}_pic_{tag}.png"), img)
+        self.color_maps = (label_np1, label_np2)
+        self.color_time = self.now() - t0

@@ -50,7 +50,7 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
 
 
 @pytest.mark.parametrize("module", [
-    "dmfusion_torch", "dmfusion_torch.infer",
+    "dmfusion_torch", "dmfusion_torch.infer", "dmfusion_torch.cli",
     "dmfusion_torch.tools.strip_gather_bench",
     "dmfusion_torch.tools.conv_kernel_probe",
     "dmfusion_torch.tools.pool_probe"])

@@ -340,3 +340,113 @@ def test_conv_kernel_constant_case_closed_form(cuda, h, w):
     abs_sum = conv3x3.conv3x3_f32(x.abs(), wgt.abs())
     for ref in (conv3x3.conv3x3_ref(x, wgt), conv3x3.conv3x3_library(x, wgt)):
         assert conv3x3.ulp_report(got, ref, abs_sum)["ok"]
+
+
+# -- training through the window gather (dmfusion_torch/train/steps.py) ------
+
+def _trainer(device, width=8, plain_gather=False, seed=0):
+    """gmfnet at ``width`` on the (H, W) test scene's geometry, seeded
+    weights, Adam; f32 compute."""
+    from dmfusion_torch.config import load_config
+    from dmfusion_torch.models import build_model
+    from dmfusion_torch.train.optim import make_optimizer
+    from dmfusion_torch.train.steps import DualPrograms
+    cfg = load_config(overrides={
+        "data_city": "synth64", "patch_size": PS, "model_width": width,
+        "seed": seed, "device": "cpu",
+        "precision": {"compute_dtype": "float32"}})
+    model = build_model(cfg).to(device)
+    opt = make_optimizer(cfg, model.parameters(), 3)
+    prog = DualPrograms(model, opt, cfg, W, PS, plain_gather=plain_gather)
+    prog.init(torch.Generator().manual_seed(seed))
+    return prog
+
+
+def _train_batches(device, n, batch, seed=0):
+    from dmfusion_torch.data.patches import batched_ids_np
+    rng = np.random.default_rng(seed)
+    ids, mask, _ = batched_ids_np(rng.integers(0, H * W, n).astype(np.int32),
+                                  batch)
+    labels = rng.integers(0, 5, ids.shape).astype(np.int64)
+    return (torch.from_numpy(ids).to(device),
+            torch.from_numpy(labels).to(device),
+            torch.from_numpy(mask.astype(np.float32)).to(device))
+
+
+@pytest.mark.gpu
+def test_gather_train_batches_bit_equal(cuda):
+    """B1 at the train batch of 256, and on a masked partial batch (the
+    padding gathers anchor 0)."""
+    ms, pan = _scene(device=cuda)
+    ids, _, mask = _train_batches(cuda, 300, 256)
+    assert mask[1].sum() == 44
+    for b in range(ids.shape[0]):
+        before = gather.gather_windows_cuda.launches
+        got = gather.gather_dual_fast(ms, pan, ids[b], W, PS)
+        assert gather.gather_windows_cuda.launches == before + 2
+        want = patches.gather_dual(ms, pan, ids[b], W, PS)
+        for g, w in zip(got, want):
+            assert g.shape[0] == 256 and torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_train_step_through_kernel_equals_plain(cuda):
+    """One Adam step at B 256 in f32 through B1 and through the plain
+    gather: the same loss and the same parameters, bit for bit, with
+    cuDNN's deterministic algorithms."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = (
+        True, False)
+    try:
+        ms, pan = _scene(device=cuda)
+        ids, labels, mask = _train_batches(cuda, 256, 256)
+        out = []
+        for plain in (False, True):
+            prog = _trainer(cuda, plain_gather=plain)
+            before = gather.gather_windows_cuda.launches
+            losses = prog.train_epoch((ms, pan), ids, labels, mask)
+            assert gather.gather_windows_cuda.launches - before == (
+                0 if plain else 2)
+            out.append((losses, [p.detach().clone()
+                                 for p in prog.model.parameters()]))
+        (l_k, p_k), (l_p, p_p) = out
+        assert torch.equal(l_k, l_p)
+        assert all(torch.equal(a, b) for a, b in zip(p_k, p_p))
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+
+
+@pytest.mark.gpu
+def test_train_losses_card_vs_cpu_f32(cuda):
+    """Three Adam steps at width 16, f32 with TF32 off: the card's
+    per-step losses within 1e-3 of the CPU's."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = []
+        for dev in (cuda, torch.device("cpu")):
+            ms, pan = _scene(device=dev)
+            prog = _trainer(dev, width=16)
+            losses.append(prog.train_epoch(
+                (ms, pan), *_train_batches(dev, 600, 256)).cpu())
+        assert losses[0].shape == (3,)
+        assert torch.isfinite(losses[0]).all()
+        assert (losses[0] - losses[1]).abs().max() <= 1e-3
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_train_epoch_cpu_takes_plain_gather():
+    """On the CPU the train epoch gathers with the plain version: no
+    kernel launch, finite losses, one per batch."""
+    ms, pan = _scene()
+    prog = _trainer("cpu")
+    before = gather.gather_windows_cuda.launches
+    losses = prog.train_epoch((ms, pan), *_train_batches("cpu", 70, 32))
+    assert gather.gather_windows_cuda.launches == before
+    assert losses.shape == (3,) and torch.isfinite(losses).all()
