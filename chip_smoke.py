@@ -55,7 +55,26 @@ Phases; any failure exits non-zero before the result line:
                 epochs, 20 train steps, val, test and color, a profile of
                 the 20 steps (device ops, busy and idle share), the host
                 ops of 5 more, and B1 at B 256;
-  8. strip    — the strip gather must be bit-equal to its plain version
+  8. train_dense — dense_fusion trained through the CLI's ``main`` as
+                ``python -m dmfusion_torch.cli --set model_name=dense_fusion
+                model_width=32 data_city=image6 epoch=2 time=1
+                color.index=1`` (w32, patch 16, batch 256, Adam, bf16
+                compute, f32 image6 scene): epochs [0, 1] with finite
+                losses; the remat probe's decision and peak logged; a test
+                matrix that sums to the test split and OA >= 0.5; every
+                file written; B2 launched exactly 4 times (2 val maps, the
+                test map, the color map) and never by a train step; with
+                the best weights, the logits and class maps through B2
+                equal to those with the plain pool; on a 200x200 crop of
+                the scene, three Adam steps: f32 card losses (TF32 off)
+                within 1e-3 of the CPU's, bf16 within DENSE_TRAIN_BF16_ATOL
+                of f32, a full-batch step finite with no B2 launch, a step
+                streamed in 2 bands within 1e-3 of the whole pass; bf16 vs
+                f32 logits maps of the trained weights (argmax agreement at
+                least 0.99); times of the epochs, 20 train steps, val, test
+                and color, a profile of 5 steps and the operators
+                behind the device time of 2 more;
+  9. strip    — the strip gather must be bit-equal to its plain version
                 at the strip bench's shape (98,304 image6 raster anchors,
                 strips of 128, patch 16) in f32 and bf16, and at edge
                 strips past the right and the bottom edge of the view
@@ -64,7 +83,7 @@ Phases; any failure exits non-zero before the result line:
                 card (bit-equal to the per-anchor gather, timed against
                 it); time the kernel, the plain version and one indexing
                 call per view, and compute the bytes bound;
-  9. conv     — the built kernel's SASS must hold wgmma (HGMMA) and
+  10. conv    — the built kernel's SASS must hold wgmma (HGMMA) and
                 bulk copies (UBLKCP) and no mma.sync (HMMA); the 3x3
                 128->128 bf16 conv must be equal or one bf16 ulp apart
                 (``ulp_report``) from its plain version and from
@@ -150,6 +169,17 @@ HOST_STEPS = 5
 # the same seeded w64 weights; a wrong layer or a lost update moves the
 # loss (about 2.4 for 12 classes at init) by far more.
 TRAIN_BF16_ATOL = 0.05
+# The dense training run: the tentpole command line, on image6.
+DENSE_TRAIN_SET = ["model_name=dense_fusion", "model_width=32",
+                   "data_city=image6", "epoch=2", "time=1", "color.index=1"]
+DENSE_CROP, DENSE_PROFILE_STEPS = 200, 5
+# bf16 vs f32 per-step dense training losses, three Adam steps on the crop
+# from the same seeded w32 weights; a wrong layer or a lost update moves
+# the loss (about 2.5 for 12 classes at init) by far more.
+DENSE_TRAIN_BF16_ATOL = 0.05
+# bf16 vs f32 argmax agreement on the trained image6 map: the reference
+# flips 0.4-0.5 % of near-tie argmaxes between the two (BENCH_NOTES.md).
+DENSE_AGREE_MIN = 0.99
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -689,6 +719,28 @@ def _profile(fn, what: str, top_n: int) -> dict:
                                          e.count] for e in top]}
 
 
+def _op_profile(fn, what: str, top_n: int) -> dict:
+    """One ``torch.profiler`` window over ``fn()`` with host and device
+    tracing: the ``top_n`` operators by the device time of the kernels
+    they launch themselves (which names the operator behind a generic
+    elementwise kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    top = sorted(ops, key=lambda e: -e.self_device_time_total)[:top_n]
+    return {"window": what,
+            "ops_device_ms": sum(e.self_device_time_total for e in ops) / 1e3,
+            "top_ops_device_ms_calls": [[e.key[:60],
+                                         e.self_device_time_total / 1e3,
+                                         e.count] for e in top]}
+
+
 def _parity_losses(scene, device, rng) -> dict:
     """Three Adam steps from seeded w64 weights on three image6 batches of
     256: f32 on the card (TF32 off) and on the CPU, bf16 on the card."""
@@ -886,6 +938,232 @@ def phase_train(scene, device) -> int:
     return launches["gather_windows"]
 
 
+def _dense_crop(scene, rows: int):
+    """A ``rows`` x ``rows`` anchor crop of the padded scene, at an even
+    offset: its padded MS and PAN slabs and its labels."""
+    ps = scene.patch
+    r0 = c0 = (scene.height - rows) // 4 * 2
+    ms = scene.ms[r0:r0 + rows + ps - 1, c0:c0 + rows + ps - 1]
+    pan = scene.pan[4 * r0:4 * (r0 + rows) + 4 * ps - 1,
+                    4 * c0:4 * (c0 + rows) + 4 * ps - 1]
+    return ms, pan, scene.label[r0:r0 + rows, c0:c0 + rows]
+
+
+def _dense_crop_steps(scene, device) -> dict:
+    """Three Adam steps on a crop from seeded w32 weights: f32 card (TF32
+    off) against f32 CPU, bf16 card against f32 card, a full-batch step
+    and steps in 2 bands."""
+    from dmfusion_torch.train.optim import make_optimizer
+    state = init_params(build_model(load_config(overrides=DENSE_CFG)),
+                        torch.Generator().manual_seed(DENSE_CFG["seed"])
+                        ).state_dict()
+    ms, pan, label = _dense_crop(scene, DENSE_CROP)
+    check(DensePrograms(None, scene.patch).band_plan(ms.shape[0], 2)
+          is not None, "dense crop: too small for 2 bands")
+    labeled = np.flatnonzero(label.reshape(-1)).astype(np.int32)
+    rng = np.random.default_rng(11)
+    ids_np = rng.choice(labeled, (PARITY_STEPS, TRAIN_BATCH), replace=False)
+    labels_np = label.reshape(-1)[ids_np].astype(np.int32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def steps(dev, dtype, **over):
+        cfg = load_config(overrides={**DENSE_CFG, **over, "precision": {
+            "compute_dtype": dtype, "scene_dtype": "float32"}})
+        model = build_model(cfg)
+        model.load_state_dict(state)
+        if dev.type == "cuda":
+            model = model.to(dev, memory_format=torch.channels_last)
+        prog = DensePrograms(model, scene.patch, cfg=cfg,
+                             optimizer=make_optimizer(cfg, model.parameters(),
+                                                      PARITY_STEPS))
+        batch = [torch.from_numpy(a).to(dev) for a in (
+            ids_np, labels_np, np.ones(ids_np.shape, np.float32))]
+        before = pool_ops.phase_pool_cuda.launches
+        losses = prog.train_epoch((ms.to(dev), pan.to(dev)), *batch).cpu()
+        check(bool(torch.isfinite(losses).all()),
+              f"dense crop {dev.type} {dtype} {over}: losses {losses}")
+        return losses, pool_ops.phase_pool_cuda.launches - before
+
+    cpu = torch.device("cpu")
+    out = {"f32_cpu": steps(cpu, "float32")[0],
+           "f32_card": steps(device, "float32")[0],
+           "bf16_card": steps(device, "bfloat16")[0],
+           "f32_card_2_bands": steps(device, "float32", dense_streams=2)[0]}
+    full, full_launches = steps(device, "bfloat16",
+                                train={"dense_epoch": "full"})
+    check(full.shape == (1,) and full_launches == 0,
+          f"dense full-batch step: loss {full}, {full_launches} B2 launches")
+    gap32 = float((out["f32_card"] - out["f32_cpu"]).abs().max())
+    gap16 = float((out["bf16_card"] - out["f32_card"]).abs().max())
+    gap_bands = float((out["f32_card_2_bands"] - out["f32_card"]).abs().max())
+    check(gap32 <= 1e-3, f"dense f32 card vs CPU train losses differ by "
+          f"{gap32}")
+    check(gap16 <= DENSE_TRAIN_BF16_ATOL, f"dense bf16 vs f32 train losses "
+          f"differ by {gap16} > {DENSE_TRAIN_BF16_ATOL}")
+    check(gap_bands <= 1e-3, f"dense 2-band vs whole train losses differ by "
+          f"{gap_bands}")
+    return {"crop": DENSE_CROP, "steps": PARITY_STEPS, "batch": TRAIN_BATCH,
+            "losses": {k: v.tolist() for k, v in out.items()},
+            "full_batch_loss": float(full[0]),
+            "full_batch_pool_launches": full_launches,
+            "f32_card_vs_cpu_max_abs": gap32, "f32_tolerance": 1e-3,
+            "bf16_vs_f32_card_max_abs": gap16,
+            "bf16_tolerance": DENSE_TRAIN_BF16_ATOL,
+            "bands_2_vs_whole_f32_max_abs": gap_bands,
+            "bands_tolerance": 1e-3}
+
+
+def phase_train_dense(scene, device) -> int:
+    """Train dense_fusion w32 on image6 through ``python -m
+    dmfusion_torch.cli``'s ``main`` (2 epochs, test, color), check what it
+    writes and computes, hold B2 on the trained map against the plain
+    pool and the card's training against the CPU, the bands and bf16, and
+    time it; returns B2's launches over the CLI run."""
+    from dmfusion_torch import cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_dense_")
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = cli.main(["--set", *DENSE_TRAIN_SET, f"expo_result={tmp}/"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        prog, model = solver.programs, solver.model
+        log(f"train_dense: the CLI run took {run_s:.2f} s; epochs "
+            f"{rec['EpochTime']} s, losses {rec['Loss']}; remat probe "
+            f"{json.dumps(solver.remat_probe)}")
+        check(isinstance(prog, DensePrograms)
+              and model.head1_kernel.shape[0] == 32
+              and cfg["patch_size"] == 16 and cfg["batchsize"] == TRAIN_BATCH
+              and model.compute_dtype == torch.bfloat16
+              and solver.scene.ms.dtype == torch.float32
+              and solver.device.type == "cuda", "train_dense: not the w32, "
+              "patch 16, bf16, f32-scene run on the card")
+        probe = solver.remat_probe
+        # On the card the probe measures; None means it ran out of memory.
+        check(probe is not None and probe["budget_bytes"] > 0
+              and probe["decision"] == ("on" if probe["peak_bytes"] is None
+                                        or probe["peak_bytes"]
+                                        >= 0.92 * probe["budget_bytes"]
+                                        else "off"),
+              f"train_dense: remat probe {probe}")
+        check(model.remat == (probe["decision"] == "on"),
+              "train_dense: the model's remat is not the probe's decision")
+        check(rec["Epoch"] == [0, 1], f"train_dense: epochs {rec['Epoch']}")
+        check(all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+              f"train_dense: non-finite losses {rec['Loss']} "
+              f"{rec['ValLoss']}")
+        check(int(solver.test_matrix.sum()) == len(split.test),
+              "train_dense: test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        check(oa >= 0.5, f"train_dense: test OA {oa} < 0.5")
+        out = cfg["RESULT_output"]
+        for f in ("0_weights.pt", "0_curweights.pt", "0_matrix.npy",
+                  "0_records.json", "0_pic_1.png", "0_pic_2.png"):
+            check(os.path.isfile(os.path.join(out, f)),
+                  f"train_dense: no {f}")
+        check(os.path.isfile(cfg["RESULT_excel"]),
+              "train_dense: no workbook")
+        # 2 val maps, the test map and the color map; no train step pools
+        # through B2 (it refuses a tensor that needs grad).
+        check(launches["phase_pool"] == 4,
+              f"train_dense: {launches['phase_pool']} B2 launches, not 4")
+
+        # The best weights (test and color left them in the model): the
+        # val logits map and the class map through B2 and the plain pool.
+        ms, pan = solver.scene_args
+        with torch.inference_mode():
+            logits_k = model(ms, pan, scene.patch)
+            cmap_k = model.class_map(ms, pan, scene.patch)
+            dense_fusion.phase_pool = pool_ops.phase_pool_ref
+            try:
+                logits_p = model(ms, pan, scene.patch)
+                cmap_p = model.class_map(ms, pan, scene.patch)
+            finally:
+                dense_fusion.phase_pool = pool_ops.phase_pool
+        check(torch.equal(logits_k, logits_p) and torch.equal(cmap_k, cmap_p),
+              "train_dense: trained maps through B2 != through the plain "
+              f"pool ({int((cmap_k != cmap_p).sum())} pixels)")
+
+        # The val phase alone, then bf16 vs f32 (TF32 off) on the trained
+        # map.
+        vb = solver.batches(split.valid, cfg["color_batchsize"],
+                            round_to=solver._eval_round_to())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.eval_epoch(solver.scene_args, vb[0], vb[1],
+                              vb[2].float())[0])
+        val_s = time.perf_counter() - t0
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg32 = load_config(overrides={**DENSE_CFG, "precision": {
+            "compute_dtype": "float32", "scene_dtype": "float32"}})
+        model32 = build_model(cfg32)
+        model32.load_state_dict(state)
+        model32 = model32.to(device, memory_format=torch.channels_last)
+        with torch.inference_mode():
+            logits32 = model32.eval()(ms, pan, scene.patch)
+        del model32
+        diff16 = float((logits_k - logits32).abs().max())
+        agree16 = float((logits_k.argmax(-1) == logits32.argmax(-1))
+                        .float().mean())
+        scale = float(logits32.abs().max())
+        del logits_k, logits_p, logits32, cmap_k, cmap_p
+        check(agree16 >= DENSE_AGREE_MIN, f"train_dense: bf16 vs f32 argmax "
+              f"agreement {agree16} < {DENSE_AGREE_MIN}")
+
+        # Train-only time of 20 steps, then a profile of 5.
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        steps = (tb[0][:PROFILE_STEPS], tb[1][:PROFILE_STEPS],
+                 tb[2][:PROFILE_STEPS].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.train_epoch(solver.scene_args, *steps).mean())
+        train_steps_s = time.perf_counter() - t0
+        prof = _profile(lambda: prog.train_epoch(
+            solver.scene_args, *(t[:DENSE_PROFILE_STEPS] for t in steps)),
+            f"{DENSE_PROFILE_STEPS} dense train steps, B {TRAIN_BATCH}", 12)
+        log("profile train_dense: " + json.dumps(prof))
+        ops = _op_profile(lambda: prog.train_epoch(
+            solver.scene_args, *(t[:2] for t in steps)),
+            f"2 dense train steps, B {TRAIN_BATCH}, by operator", 14)
+        log("profile train_dense ops: " + json.dumps(ops))
+        test_s, color_s = solver.test_time, solver.color_time
+        del solver, prog, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    crop = _dense_crop_steps(scene, device)
+    n_train = len(split.train)
+    result = {
+        "model": "dense_fusion", "width": 32, "patch": 16,
+        "batch": TRAIN_BATCH, "run_s": run_s, "epoch_s": rec["EpochTime"],
+        "loss": rec["Loss"], "val_loss": rec["ValLoss"],
+        "val_oa": rec["ValOA"], "remat_probe": probe,
+        "train_anchors": n_train, "val_anchors": len(split.valid),
+        "test_anchors": len(split.test),
+        "epoch1_samples_per_s": n_train / rec["EpochTime"][1],
+        "train_steps": PROFILE_STEPS, "train_steps_s": train_steps_s,
+        "train_step_ms": train_steps_s / PROFILE_STEPS * 1e3,
+        "train_samples_per_s": PROFILE_STEPS * TRAIN_BATCH / train_steps_s,
+        "val_s": val_s, "test_s": test_s,
+        "test_anchors_per_s": len(split.test) / test_s, "color_s": color_s,
+        "test_oa": oa, "test_aa": aa, "test_kappa": kap,
+        "launches": launches,
+        "trained_bf16_vs_f32_max_abs": diff16,
+        "trained_bf16_vs_f32_argmax_agree": agree16,
+        "trained_logit_scale": scale, "crop": crop}
+    log(f"train_dense: {json.dumps(result)}")
+    return launches["phase_pool"]
+
+
 def phase_strip(scene, device) -> tuple[int, dict]:
     """B3: bit-equality with the plain version, the strip bench on the
     card, timings; returns the bench's launches and the kernel's row."""
@@ -1035,6 +1313,9 @@ def main() -> None:
     launches = {"phase_pool": phase_dense(scene, device)["phase_pool"]}
     by_path["train"] = phase_train(scene, device)
     launches["gather_windows"] = sum(by_path.values())
+    pool_by_path = {"dense": launches["phase_pool"],
+                    "train_dense": phase_train_dense(scene, device)}
+    launches["phase_pool"] = sum(pool_by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
                                                                     device)
     del scene
@@ -1048,6 +1329,8 @@ def main() -> None:
                      "launches": launches[name], "ok": True,
                      **({"launches_by_path": by_path}
                         if name == "gather_windows" else {}),
+                     **({"launches_by_path": pool_by_path}
+                        if name == "phase_pool" else {}),
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

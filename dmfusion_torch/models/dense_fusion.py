@@ -24,6 +24,15 @@ kernel for a CUDA tensor, its plain version on the CPU.  The JAX knob
 ``precision.pallas_pool`` chooses between two TPU lowerings and is not
 read here.  Odd patches take the full-resolution summed-area table
 (:func:`window_mean`) on both devices, as in JAX.
+
+Training pools differently: it needs only the train anchors' rows and a
+gradient, and the pool kernel has neither a backward nor a row gather.
+Each step builds the f32 phase summed-area table (:func:`phase_sat`) of
+the whole scene and gathers 16 of its rows per anchor
+(:func:`phase_corner_sums`; odd patches: 4 rows of the full-resolution
+table of :func:`sat_window_sums`).  ``train.dense_remat`` (anything but
+'off') recomputes each conv block in the backward instead of storing its
+activations (``torch.utils.checkpoint``), as flax's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -34,10 +43,12 @@ from typing import Any, Mapping
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dmfusion_torch.models.common import activation_fn, dtypes
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops.pool import phase_pool
+from dmfusion_torch.utils.misc import parse_switch
 
 ARITY = "dense"
 
@@ -76,9 +87,62 @@ def window_mean(feats: torch.Tensor, patch: int) -> torch.Tensor:
 
 def phase_sat(feats_s2d: torch.Tensor, extra: int = 0) -> torch.Tensor:
     """Zero-padded 2-D summed-area table of the s2d-2 features in f32:
-    (H2+1+extra, W2+1+extra, 4C)."""
+    (H2+1+extra, W2+1+extra, 4C); ``extra`` zero rows and columns go
+    after the last ones.
+
+    Two ``torch.cumsum`` passes.  dmfusion's ``chunked_cumsum`` computes
+    the same sums as triangular matmuls on the TPU's matrix unit, with
+    another f32 association; the port keeps the plain cumsum unless a
+    card measurement calls for a kernel."""
     s = F.pad(feats_s2d, (0, 0, 1, extra, 1, extra))
     return s.float().cumsum(0).cumsum(1)
+
+
+def phase_corner_sums(flat_sat: torch.Tensor, w1: int, patch: int,
+                      x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """(B, C) f32 ``patch x patch`` full-resolution window sums at anchors
+    (x, y), from a phase SAT flattened to (rows * w1, 4C).
+
+    For input phase (c, d) the window [x, x+patch) x [y, y+patch) is a
+    half-resolution rectangle of ``patch/2`` rows from ``x//2 + (x%2 &
+    ~c)`` (columns likewise): 4 SAT corners per phase, 16 rows per
+    anchor, each read at its phase block's C channels only (one gather,
+    so the backward scatters into one SAT-sized gradient).  The
+    arithmetic and its order are dmfusion's: ``A - B - C + D`` per phase,
+    then the phases added in order (0, 0), (0, 1), (1, 0), (1, 1)."""
+    ph = patch // 2
+    c = flat_sat.shape[-1] // 4
+    blocks = flat_sat.reshape(-1, c)          # row r, phase k -> 4 r + k
+    x, y = x.long(), y.long()
+    i, a = x // 2, x % 2
+    j, b = y // 2, y % 2
+    idx = []
+    for cc in (0, 1):
+        rs = i + (a & (1 - cc))
+        for d in (0, 1):
+            cs = j + (b & (1 - d))
+            k = cc * 2 + d
+            idx += [((rs + ph) * w1 + cs + ph) * 4 + k,
+                    (rs * w1 + cs + ph) * 4 + k,
+                    ((rs + ph) * w1 + cs) * 4 + k,
+                    (rs * w1 + cs) * 4 + k]
+    rows = blocks[torch.stack(idx)].reshape(4, 4, x.shape[0], c)
+    total = None
+    for k in range(4):
+        r = rows[k]
+        rect = r[0] - r[1] - r[2] + r[3]
+        total = rect if total is None else total + rect
+    return total
+
+
+def sat_window_sums(feats: torch.Tensor, patch: int
+                    ) -> tuple[torch.Tensor, int]:
+    """Flattened f32 full-resolution SAT and its row stride ``w1``:
+    win(x, y) = flat[(x+ps)*w1 + y+ps] - flat[x*w1 + y+ps]
+              - flat[(x+ps)*w1 + y] + flat[x*w1 + y]."""
+    s = F.pad(feats.float(), (0, 0, 1, 0, 1, 0))
+    s = s.cumsum(0).cumsum(1)
+    return s.reshape(-1, s.shape[-1]), s.shape[1]
 
 
 def phase_pooled_s2d(feats_s2d: torch.Tensor, patch: int, out_rows: int,
@@ -196,7 +260,12 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 class Net(nn.Module):
     """The dense model; ``model(ms, pan, patch)`` is the (H, W, ncls) f32
     logits map of a padded scene (MS (H+ps-1, W+ps-1, C), PAN 2-D or
-    (.., .., 1) at 4x)."""
+    (.., .., 1) at 4x).
+
+    ``remat`` (from ``train.dense_remat``: on unless 'off') checkpoints
+    each conv block while grad is enabled; the fusion gate stays
+    unwrapped, as in dmfusion.  A plain attribute, so a copy can be
+    probed with it off."""
 
     flax_root = "DenseNet"
 
@@ -209,6 +278,9 @@ class Net(nn.Module):
         ncls = int(cfg["Categories_Number"])
         self.compute_dtype = dt
         self.act = act
+        self.remat = parse_switch(
+            cfg.get("train", {}).get("dense_remat", "on"),
+            "train.dense_remat") != "off"
         self.ms_stem = LocalConvBlock(4 * ms_channels, w, 3, act, dt)
         self.ms_block = LocalResBlock(w, 2 * w, act, dt)
         self.pan_stem = LocalConvBlock(64, w, 3, act, dt)
@@ -247,12 +319,18 @@ class Net(nn.Module):
         pan = F.pad(pan, (0, 8 * wm2 - pan.shape[1], 0, 8 * hm2 - pan.shape[0]))
         ms16 = _nchw(space_to_depth(ms, 2).to(dt))
         pan64 = _nchw(space_to_depth(pan[..., None], 8).to(dt))
-        h_ms = self.ms_block(self.ms_stem(ms16))
-        h_pan = self.pan_block(self.pan_stem(pan64))
+        blk = self._block
+        h_ms = blk(self.ms_block, blk(self.ms_stem, ms16))
+        h_pan = blk(self.pan_block, blk(self.pan_stem, pan64))
         z = torch.sigmoid(self.fusion_gate(torch.cat([h_ms, h_pan], dim=1)))
         fused = z * h_ms + (1.0 - z) * h_pan
-        t = self.refine(self.trunk2(self.trunk1(fused)))
+        t = blk(self.refine, blk(self.trunk2, blk(self.trunk1, fused)))
         return t[0].permute(1, 2, 0)
+
+    def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, x, use_reentrant=False)
+        return block(x)
 
     def features(self, scene_ms: torch.Tensor,
                  scene_pan: torch.Tensor) -> torch.Tensor:

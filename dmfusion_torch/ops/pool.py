@@ -262,10 +262,18 @@ def phase_pool_cuda(feats: torch.Tensor, patch: int, ni: int, nj: int,
 
     ``feats`` is a contiguous float32 or bfloat16 CUDA tensor.  ``plan``
     defaults to :func:`launch_plan` for this shape and card.  Each launch
-    adds one to ``phase_pool_cuda.launches``.
+    adds one to ``phase_pool_cuda.launches``.  The kernel has no backward
+    (nor has dmfusion's): it refuses features that require grad while
+    grad is enabled, rather than return an output that drops the
+    gradient.
     """
     if not feats.is_cuda:
         raise ValueError("phase_pool_cuda needs a CUDA feature tensor")
+    if feats.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("phase_pool_cuda has no backward: call it under "
+                           "torch.no_grad() or inference_mode, or pool for "
+                           "training through the phase SAT "
+                           "(models/dense_fusion.py::phase_corner_sums)")
     _check_shapes(feats, patch, ni, nj)
     if feats.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported feature dtype {feats.dtype}")

@@ -1,6 +1,7 @@
-"""Solver: the train, test and color phases of a patch classifier.
+"""Solver: the train, test and color phases of a classifier.
 
-Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet).
+Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet)
+and ``dense`` (dense_fusion).
 Semantics kept:
   * the model comes from the registry by ``model_name``, seeded with
     ``seed + repeat``; the optimizer counts ``ceil(len(train) / batchsize)``
@@ -22,19 +23,29 @@ Semantics kept:
 
 Eval and predict batches are rounded up to 4096 anchors on the card (the
 counterpart of dmfusion's fast-gather rule) and to 64 on the CPU; masks
-keep every confusion exact either way.  Other arities, the dense probes,
-``proof``, ``visualize`` and the two-stage solver are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+keep every confusion exact either way.
+
+The dense arity (dense_fusion) resolves its knobs from the scene before it
+builds its programs, as dmfusion does: ``dense_streams`` (the training
+band count), ``train.dense_epoch`` ('auto' is 'full' when streaming; a
+full epoch is one update, so the schedule counts one step an epoch and the
+train batches are built once), ``train.dense_remat`` and
+``dense_streams_infer`` (by the two memory probes below).  Its test and
+color phases render the class map: one map gives both PNGs.  Other
+arities, ``proof``, ``visualize`` and the two-stage solver are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import copy
 import os
-from typing import Any, Mapping
+from typing import Any, Callable, Mapping
 
 import numpy as np
 import torch
 
+from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.registry import build_model, model_arity
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
 from dmfusion_torch.report.png import write_png
@@ -43,12 +54,126 @@ from dmfusion_torch.train.checkpoint import (AsyncCheckpointWriter, exists,
                                              load_checkpoint, save_checkpoint,
                                              snapshot)
 from dmfusion_torch.train.optim import make_optimizer
-from dmfusion_torch.train.steps import DualPrograms
+from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
+                                        resolve_dense_epoch,
+                                        resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
 
 # Arity -> the ROADMAP item that ports its training.
-_UNPORTED_ARITY = {"dense": "A8", "tri": "A12", "single": "A12",
-                   "quad": "A11", "image": "A11"}
+_UNPORTED_ARITY = {"tri": "A12", "single": "A12", "quad": "A11",
+                   "image": "A11"}
+
+# The dense memory probes' decisions, per process.  dmfusion also keeps
+# them on disk, because each of its probes is an XLA compile that costs
+# minutes on a remote TPU; here a probe is one pass on the card, so the
+# disk cache is not ported.
+_PROBE_CACHE: dict[tuple, Any] = {}
+# A probed program fits when its peak is under this share of the budget.
+_PROBE_MARGIN = 0.92
+
+
+def _probe_budget(cfg: Mapping[str, Any], device: torch.device) -> float:
+    """``train.dense_hbm_budget`` when set, else the card's total memory."""
+    budget = float(cfg["train"].get("dense_hbm_budget") or 0)
+    return budget or float(torch.cuda.mem_get_info(device)[1])
+
+
+def _peak_bytes(device: torch.device, fn: Callable[[], Any]) -> int | None:
+    """The card's peak allocated bytes while ``fn()`` runs (what was
+    allocated before counts too: scene, weights, optimizer state), or None
+    when it runs out of memory."""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        fn()
+        torch.cuda.synchronize(device)
+        return int(torch.cuda.max_memory_allocated(device))
+    except torch.cuda.OutOfMemoryError:
+        return None
+    finally:
+        torch.cuda.empty_cache()
+
+
+def dense_remat_probe(cfg: Mapping[str, Any], scene, model: torch.nn.Module,
+                      n_train: int = 0) -> dict:
+    """``train.dense_remat`` 'auto': {'decision': 'off' or 'on',
+    'peak_bytes', 'budget_bytes'}.
+
+    On the card: one forward and backward, no update, of the epoch
+    program the run will execute (one batch of ``batchsize`` anchors; all
+    ``n_train`` train anchors under ``train.dense_epoch: full``) at the
+    scene's real shapes, on a copy of ``model`` with remat off.  'off'
+    (keep the activations: faster) when its peak stays under 0.92 x the
+    budget, 'on' when it does not or runs out of memory.  A failure of
+    any other kind raises: dmfusion's fallback to a byte estimate covers
+    its remote compiles failing, which has no counterpart here.  On the
+    CPU: that byte estimate (``cells * 4w * 2 * 16`` under 9e9 bytes).
+    """
+    w = int(cfg.get("model_width", 32))
+    ms, pan = scene.ms, scene.pan
+    if ms.device.type != "cuda":
+        cells = -(-ms.shape[0] // 2) * -(-ms.shape[1] // 2)
+        est = cells * 4 * w * 2 * 16
+        return {"decision": "off" if est < 9e9 else "on",
+                "peak_bytes": None, "estimate_bytes": est}
+    budget = _probe_budget(cfg, ms.device)
+    mode = str(cfg["train"].get("dense_epoch", "minibatch")).strip().lower()
+    b = int(cfg["batchsize"])
+    steps = max(1, -(-int(n_train) // b)) if (mode == "full" and n_train) \
+        else 1
+    key = (tuple(ms.shape), tuple(pan.shape), w, int(cfg["patch_size"]), b,
+           mode, steps, str(cfg["precision"]["compute_dtype"]), budget)
+    if key not in _PROBE_CACHE:
+        probe = copy.deepcopy(model)
+        probe.remat = False
+        prog = DensePrograms(probe, int(cfg["patch_size"]), cfg=cfg)
+        pooled = prog._anchor_pooled_fn(ms.shape[0], ms.shape[1])
+        n = steps * b
+        ids = (torch.arange(n, device=ms.device) % scene.num_pixels).int()
+        labels = torch.zeros(n, dtype=torch.int64, device=ms.device)
+        mask = torch.ones(n, dtype=torch.float32, device=ms.device)
+        peak = _peak_bytes(ms.device, lambda: prog._loss(
+            pooled, (ms, pan), ids, labels, mask).backward())
+        del probe, prog, pooled
+        torch.cuda.empty_cache()
+        fits = peak is not None and peak < _PROBE_MARGIN * budget
+        _PROBE_CACHE[key] = {"decision": "off" if fits else "on",
+                             "peak_bytes": peak, "budget_bytes": budget}
+    return dict(_PROBE_CACHE[key])
+
+
+def dense_infer_band_probe(cfg: Mapping[str, Any], scene,
+                           model: torch.nn.Module, n_train: int) -> int:
+    """``dense_streams_infer`` 'auto' for a streamed run: the fewest bands
+    whose class map renders on the card under 0.92 x the budget, tried
+    fewest first among dmfusion's candidates (2-16 bands, fewer than the
+    training count, under dmfusion's pixels-per-band limit, and a scene
+    that bands); else ``n_train``.  On the CPU: ``n_train``."""
+    ms, pan = scene.ms, scene.pan
+    if ms.device.type != "cuda":
+        return n_train
+    budget = _probe_budget(cfg, ms.device)
+    w = int(cfg.get("model_width", 32))
+    ps = int(cfg["patch_size"])
+    key = ("infer_bands", tuple(ms.shape), tuple(pan.shape), w, ps,
+           str(cfg["precision"]["compute_dtype"]), budget)
+    if key not in _PROBE_CACHE:
+        prog = DensePrograms(model, ps, cfg=cfg)
+        cells = int(ms.shape[0]) * int(ms.shape[1])
+        limit_px = 18_500_000 * (32 / max(w, 1))
+        decision = n_train
+        for n in (2, 3, 4, 6, 8, 12, 16):
+            if (n >= n_train or cells / n > limit_px
+                    or prog.band_plan(int(ms.shape[0]), n) is None):
+                continue
+            peak = _peak_bytes(ms.device, lambda n=n: prog.class_map_streamed(
+                ms, pan, n))
+            if peak is not None and peak < _PROBE_MARGIN * budget:
+                decision = n
+                break
+        _PROBE_CACHE[key] = decision
+    return _PROBE_CACHE[key]
 
 
 class Solver(BaseSolver):
@@ -56,7 +181,8 @@ class Solver(BaseSolver):
         super().__init__(cfg)
         self.model: torch.nn.Module | None = None
         self.optimizer: torch.optim.Optimizer | None = None
-        self.programs: DualPrograms | None = None
+        self.programs: DualPrograms | DensePrograms | None = None
+        self.remat_probe: dict | None = None
         self.best_params: dict[str, torch.Tensor] | None = None
         self.scene_args: tuple | None = None
         self.color_time = 0.0
@@ -65,7 +191,7 @@ class Solver(BaseSolver):
     def init_model(self) -> None:
         cfg = self.cfg
         arity = model_arity(cfg["model_name"])
-        if arity != "dual":
+        if arity not in ("dual", "dense"):
             raise NotImplementedError(
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "
                 f"training is not ported to dmfusion_torch yet (ROADMAP "
@@ -76,21 +202,69 @@ class Solver(BaseSolver):
                 f"schedule.loss {loss_name!r} is not usable with the main "
                 "solver (integer-label classification); use 'Criterion' "
                 "(qua_loss is selected automatically by task 'dqtl')")
+        if self.scene_args is None:
+            self.scene_args = (self.scene.ms, self.scene.pan)
+        streams = 0
+        if arity == "dense":
+            streams = resolve_dense_streams(cfg.get("dense_streams", "auto"),
+                                            *self.scene.ms.shape[:2])
+            mode = resolve_dense_epoch(cfg["train"].get("dense_epoch", "auto"),
+                                       streams)
+            if streams and mode == "minibatch" and not cfg.get("nohup"):
+                print("[dmfusion] WARNING: dense_streams is active with "
+                      "train.dense_epoch: minibatch — every step replays "
+                      "all band passes for one minibatch (hundreds of "
+                      "full-scene passes per epoch). train.dense_epoch: "
+                      "full is the intended mode at this scale.")
+            cfg = dict(cfg, train=dict(cfg["train"], dense_epoch=mode))
         model = build_model(cfg)
         if self.device.type == "cuda":
             model = model.to(self.device, memory_format=torch.channels_last)
+        init_params(model, torch.Generator().manual_seed(
+            int(cfg["seed"]) + int(self.time)))
         self.model = model
-        if self.scene_args is None:
-            self.scene_args = (self.scene.ms, self.scene.pan)
-        steps_per_epoch = max(
-            1, -(-max(1, len(self.split.train) if self.split else 1)
-                 // cfg["batchsize"]))
+        n_train = len(self.split.train) if self.split else 0
+        if arity == "dense":
+            cfg = self._resolve_dense_memory(cfg, streams, n_train)
+        # A full-batch dense epoch is one update: the schedule counts one
+        # step an epoch.
+        full = arity == "dense" and cfg["train"]["dense_epoch"] == "full"
+        steps_per_epoch = 1 if full else max(
+            1, -(-max(1, n_train) // cfg["batchsize"]))
         self.optimizer = make_optimizer(cfg, model.parameters(),
                                         steps_per_epoch)
-        self.programs = DualPrograms(model, self.optimizer, cfg,
-                                     self.scene.width, self.scene.patch)
-        self.programs.init(
-            torch.Generator().manual_seed(int(cfg["seed"]) + int(self.time)))
+        if arity == "dense":
+            self.programs = DensePrograms(model, self.scene.patch,
+                                          optimizer=self.optimizer, cfg=cfg)
+        else:
+            self.programs = DualPrograms(model, self.optimizer, cfg,
+                                         self.scene.width, self.scene.patch)
+
+    def _resolve_dense_memory(self, cfg: dict, streams: int,
+                              n_train: int) -> dict:
+        """``train.dense_remat`` and, when streaming, ``dense_streams_infer``:
+        explicit values pass through, 'auto' asks the probes (on the
+        seeded model).  Sets the model's remat; returns the run's cfg."""
+        remat = parse_switch(cfg["train"].get("dense_remat", "auto"),
+                             "train.dense_remat")
+        if remat == "auto":
+            self.remat_probe = dense_remat_probe(cfg, self.scene, self.model,
+                                                 n_train)
+            remat = self.remat_probe["decision"]
+            if not cfg.get("nohup"):
+                print(f"[dmfusion] train.dense_remat auto -> {remat} "
+                      f"({self.remat_probe})")
+        self.model.remat = remat != "off"
+        cfg = dict(cfg, train=dict(cfg["train"], dense_remat=remat))
+        if streams:
+            v = str(cfg.get("dense_streams_infer", "auto")).strip().lower()
+            if v in ("auto", ""):
+                v = str(dense_infer_band_probe(cfg, self.scene, self.model,
+                                               streams))
+            elif v in ("train", "same"):
+                v = str(streams)
+            cfg["dense_streams_infer"] = v
+        return cfg
 
     def _ckpt_meta(self) -> dict:
         """Model-identity stamp written into every checkpoint and checked on
@@ -164,6 +338,11 @@ class Solver(BaseSolver):
         best_epoch = 0
         save_best = cfg["train"]["save_best"]
         val_batches = None  # the same every epoch: built once
+        # A full-batch dense epoch sums over every train anchor once: the
+        # batches are built once, and the shuffle generator advances only
+        # for them, as in dmfusion.
+        reuse_train = getattr(self.programs, "dense_epoch_mode",
+                              "minibatch") == "full"
 
         def build_train():
             ids, labels, mask, _ = self.batches(
@@ -179,7 +358,7 @@ class Solver(BaseSolver):
             # The card may still be running the epoch: build the next
             # epoch's batches first (the same draws as at the top of the
             # next iteration), then fetch the mean loss once.
-            if self.epoch + 1 < self.EPOCH:
+            if not reuse_train and self.epoch + 1 < self.EPOCH:
                 nxt = build_train()
             train_loss = float(losses.mean())
             val_loss = None
@@ -295,16 +474,24 @@ class Solver(BaseSolver):
         h, w = self.scene.height, self.scene.width
         label_np1 = np.zeros((h, w), np.int32)
         label_np2 = np.zeros((h, w), np.int32)
-        batch = cfg["color_batchsize"]
+        if self.programs.supports_map:
+            # One class map of the scene fills both PNGs.
+            pred = self.programs.predict_map(*self.scene_args).cpu().numpy()
+
+            def predict(ids):
+                return pred[self.scene.ids_to_xy(ids)]
+        else:
+            def predict(ids):
+                return self._predict_ids(ids, cfg["color_batchsize"])
         if cfg["color"]["supervised"]:
             ids = self.split.labeled
-            preds = self._predict_ids(ids, batch)
+            preds = predict(ids)
             x, y = self.scene.ids_to_xy(ids)
             label_np1[x, y] = preds
             label_np2[x, y] = preds
         if cfg["color"]["unsupervised"]:
             ids = self.split.unlabeled
-            preds = self._predict_ids(ids, batch)
+            preds = predict(ids)
             x, y = self.scene.ids_to_xy(ids)
             label_np2[x, y] = preds
         palette = torch.tensor(cfg["DATA_DICT"][cfg["data_city"]]["color"],

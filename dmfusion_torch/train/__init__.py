@@ -1,2 +1,3 @@
-"""Programs over a model: so far the inference half of the dense family's
-(``DensePrograms``: the whole-scene class map, whole or in row bands)."""
+"""Programs over a model: the patch classifiers' (``DualPrograms``) and
+the dense family's (``DensePrograms``: training, eval and the whole-scene
+class map, whole or in row bands); losses, optimizers, checkpoints."""

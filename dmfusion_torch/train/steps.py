@@ -12,14 +12,14 @@ epoch.  On the card every window gather goes through the CUDA kernel
 (``ops/gather.py::gather_dual_fast``, both streams), for batches of any
 size; on the CPU it is the plain gather.
 
-``DensePrograms`` renders the class map of a padded scene in one dense
-pass, or ``n`` sequential row bands: each band is a slice of the scene
-that lies fully inside it (bands near the bottom are clamped upward),
-starts on an even row so the s2d-2 phase grid stays global, and carries
-a halo of ``RECEPTIVE_RADIUS`` rows, so its owned output rows match the
-whole pass.  JAX's ``lax.scan`` over the bands is a Python loop here.
-Dense training, the remat and band probes, the mesh routes and the
-tri/quad/h5/conv-map program families are not ported yet.
+``DensePrograms`` trains, evaluates and maps the dense family over the
+whole padded scene, in one dense pass or ``n`` sequential row bands: each
+band is a slice of the scene that lies fully inside it (bands near the
+bottom are clamped upward), starts on an even row so the s2d-2 phase grid
+stays global, and carries a halo of ``RECEPTIVE_RADIUS`` rows, so its
+owned output rows match the whole pass.  JAX's ``lax.scan`` over the
+bands, and over the batches, is a Python loop here.  The mesh routes and
+the tri/quad/h5/conv-map program families are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,10 +27,14 @@ from __future__ import annotations
 from typing import Any, Mapping
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dmfusion_torch.data.patches import gather_dual
 from dmfusion_torch.models.common import init_params
-from dmfusion_torch.models.dense_fusion import RECEPTIVE_RADIUS
+from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
+                                                phase_corner_sums, phase_sat,
+                                                sat_window_sums)
 from dmfusion_torch.ops.gather import gather_dual_fast
 from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.train.losses import cross_entropy
@@ -175,6 +179,20 @@ def resolve_dense_streams(value, ms_rows: int, ms_cols: int) -> int:
     return n if n > 1 else 0
 
 
+def resolve_dense_epoch(value, streams: int) -> str:
+    """``train.dense_epoch`` as 'minibatch' or 'full' given the resolved
+    training band count: 'auto' is 'full' exactly when the run streams
+    (a streamed minibatch step replays every band for ~B anchors)."""
+    mode = str(value if value is not None else "auto").strip().lower()
+    if mode == "auto":
+        return "full" if streams else "minibatch"
+    if mode not in ("minibatch", "full"):
+        raise ValueError(
+            f"train.dense_epoch: unknown mode {value!r} "
+            "(use 'auto', 'minibatch' or 'full')")
+    return mode
+
+
 def resolve_dense_streams_infer(value, n_train: int) -> int:
     """The ``dense_streams_infer`` knob given the resolved training band
     count ``n_train``: 'auto' follows it, 'off' forces the whole pass, an
@@ -196,15 +214,56 @@ def resolve_dense_streams_infer(value, n_train: int) -> int:
 
 
 class DensePrograms:
-    """Whole-scene class maps of a dense model (``ARITY = 'dense'``) over
-    padded scene tensors ``ms`` (H+ps-1, W+ps-1, C) and ``pan``.  The band
-    count comes from the caller: an artifact stamps it at export
-    (``dense_bands``, resolved there from the two knobs above)."""
+    """Train, eval and map programs of a dense model (``ARITY = 'dense'``)
+    over padded scene tensors ``ms`` (H+ps-1, W+ps-1, C) and ``pan``; an
+    anchor id is ``x * W + y``, with W read from the scene's shape.
 
-    def __init__(self, model: torch.nn.Module, patch: int):
+    ``DensePrograms(model, patch)`` serves maps only: an artifact stamps
+    its band count at export (``dense_bands``).  The solver adds the
+    ``optimizer`` and the run's ``cfg``, which give the band counts
+    (``dense_streams``, ``dense_streams_infer``) and the epoch mode
+    (``train.dense_epoch``, 'minibatch' unless 'full').
+
+    Training pools from summed-area tables, never through the pool
+    kernel: each step runs the dense features of the whole scene (or of
+    each band in turn), builds the f32 phase SAT and gathers the batch's
+    window sums from it (``_band_corner_fns``).  Eval, test and color
+    render the logits or class map, whose pooling is the pool kernel on
+    the card.  dmfusion's ``_compact_compute_scenes`` (a TPU layout
+    device: cast the whole scene before slicing bands) has no
+    counterpart: bands slice the scene as it is, and the model casts after
+    its space-to-depth packing, which the cast commutes with exactly.
+    """
+
+    supports_map = True
+
+    def __init__(self, model: torch.nn.Module, patch: int, *,
+                 optimizer: torch.optim.Optimizer | None = None,
+                 cfg: Mapping[str, Any] | None = None):
         self.model = model
         self.patch = int(patch)
+        self.optimizer = optimizer
+        self.cfg = dict(cfg or {})
+        # The solver resolves 'auto' from the scene first; programs built
+        # directly train by minibatch.
+        self.dense_epoch_mode = resolve_dense_epoch(
+            self.cfg.get("train", {}).get("dense_epoch", "auto"), 0)
+        self.device = (next(model.parameters()).device if model is not None
+                       else torch.device("cpu"))
+        #: The card's eval/predict batches are rounded up to 4096 anchors.
+        self.on_card = self.device.type == "cuda"
 
+    @property
+    def num_classes(self) -> int:
+        return int(self.model.head2_bias.shape[0])
+
+    def init(self, generator: torch.Generator) -> None:
+        """Seeded parameters and a zeroed optimizer state."""
+        init_params(self.model, generator)
+        if self.optimizer is not None:
+            reset_state(self.optimizer)
+
+    # -- band geometry -----------------------------------------------------
     def band_plan(self, ms_rows: int, parts: int):
         """``(h, parts, band, halo, need)`` for ``parts`` bands, or None
         when the scene is too small to band.  ``need`` (scene rows per
@@ -247,6 +306,221 @@ class DensePrograms:
                 prev_end = e
         return torch.cat(kept, dim=0)
 
+    def _band(self, ms: torch.Tensor, pan: torch.Tensor, plan, i: int):
+        """Band ``i``'s (first scene row, MS slab, PAN slab)."""
+        need = plan[4]
+        _, s0, _ = self.band_slices(plan, i, ms.shape[0])
+        return s0, ms[s0:s0 + need], pan[4 * s0:4 * (s0 + need)]
+
+    def _owns(self, plan, i: int, x: torch.Tensor) -> torch.Tensor:
+        """Anchors whose row lies in band ``i``'s owned output rows."""
+        h, _, band, _, _ = plan
+        return (x >= i * band) & (x < min((i + 1) * band, h))
+
+    def _stream_bands(self, ms_rows: int, ms_cols: int) -> int:
+        """The training band count (0: the whole-scene pass)."""
+        return resolve_dense_streams(self.cfg.get("dense_streams", "auto"),
+                                     ms_rows, ms_cols)
+
+    def _stream_bands_infer(self, ms_rows: int, ms_cols: int) -> int:
+        """The band count of maps, eval and predict: ``dense_streams_infer``
+        (the solver writes its band probe's answer there) over the
+        training count."""
+        return resolve_dense_streams_infer(
+            self.cfg.get("dense_streams_infer", "auto"),
+            self._stream_bands(ms_rows, ms_cols))
+
+    def _eval_stream_plan(self, ms: torch.Tensor):
+        n = self._stream_bands_infer(ms.shape[0], ms.shape[1])
+        return self.band_plan(ms.shape[0], n) if n else None
+
+    # -- anchor pooling (training) -----------------------------------------
+    def _band_corner_fns(self):
+        """``build(ms, pan) -> (flat SAT, w1, compute dtype)`` over one
+        scene slab, and ``corners(state, lx, y) -> (B, C)`` f32 window sums
+        of the anchors at slab rows ``lx`` and columns ``y``: 16 phase-SAT
+        rows an anchor for an even patch, 4 full-resolution SAT rows
+        otherwise.  Streamed eval builds once per band and gathers many
+        batches from it."""
+        ps, model = self.patch, self.model
+        if ps % 2 == 0:
+            def build(band_ms, band_pan):
+                f = model.features_s2d(band_ms, band_pan)
+                s = phase_sat(f)
+                return s.reshape(-1, s.shape[-1]), s.shape[1], f.dtype
+
+            def corners(state, lx, y):
+                return phase_corner_sums(state[0], state[1], ps, lx, y)
+        else:
+            def build(band_ms, band_pan):
+                feats = model.features(band_ms, band_pan)
+                flat, w1 = sat_window_sums(feats, ps)
+                return flat, w1, feats.dtype
+
+            def corners(state, lx, y):
+                flat, w1, _ = state
+                lx, y = lx.long(), y.long()
+                r = flat[torch.stack([(lx + ps) * w1 + y + ps,
+                                      lx * w1 + y + ps, (lx + ps) * w1 + y,
+                                      lx * w1 + y])]
+                return r[0] - r[1] - r[2] + r[3]
+        return build, corners
+
+    def _anchor_pooled_fn(self, ms_rows: int, ms_cols: int):
+        """``pooled(ms, pan, ids_b) -> (B, w)`` window means in the compute
+        dtype (rounded there, as dmfusion rounds them before the head).
+
+        Whole scene: checkpointed end to end unless the model's remat is
+        off (then the backward keeps the features and the SAT).  With
+        ``dense_streams`` resolving to n > 1 bands on a scene that bands:
+        :meth:`_anchor_pooled_streamed`."""
+        ps = self.patch
+        width = ms_cols - ps + 1
+        build, corners = self._band_corner_fns()
+        n = self._stream_bands(ms_rows, ms_cols)
+        splan = self.band_plan(ms_rows, n) if n else None
+        if splan is not None:
+            return self._anchor_pooled_streamed(build, corners, splan, width)
+
+        def pooled(ms, pan, ids_b):
+            state = build(ms, pan)
+            win = corners(state, ids_b // width, ids_b % width)
+            return (win / float(ps * ps)).to(state[2])
+
+        if not self.model.remat:
+            return pooled
+        return lambda ms, pan, ids_b: checkpoint(pooled, ms, pan, ids_b,
+                                                 use_reentrant=False)
+
+    def _anchor_pooled_streamed(self, build, corners, splan, width: int):
+        """Anchor pooling band by band: each band computes its slab's
+        features and SAT and adds the window sums of the anchors it owns
+        (the others are zeroed; every anchor has exactly one owner) into
+        an f32 sum.  Each band is checkpointed whatever the remat setting,
+        so the backward holds one band's intermediates at a time."""
+        ps = self.patch
+        dt = self.model.compute_dtype
+
+        def band_win(band_ms, band_pan, lx, y, own):
+            win = corners(build(band_ms, band_pan), lx, y)
+            return torch.where(own[:, None], win, 0.0).float()
+
+        def pooled(ms, pan, ids_b):
+            x, y = ids_b // width, ids_b % width
+            acc = None
+            for i in range(splan[1]):
+                s0, band_ms, band_pan = self._band(ms, pan, splan, i)
+                lx = (x - s0).clamp(0, splan[4] - ps)
+                win = checkpoint(band_win, band_ms, band_pan, lx, y,
+                                 self._owns(splan, i, x), use_reentrant=False)
+                acc = win if acc is None else acc + win
+            return (acc / float(ps * ps)).to(dt)
+
+        return pooled
+
+    def _loss(self, pooled, scene_args: tuple, ids_b: torch.Tensor,
+              labels_b: torch.Tensor, mask_b: torch.Tensor) -> torch.Tensor:
+        feats = pooled(scene_args[0], scene_args[1], ids_b)
+        return cross_entropy(self.model.head(feats), labels_b, mask_b)
+
+    def _step(self, pooled, scene_args: tuple, ids_b, labels_b,
+              mask_b) -> torch.Tensor:
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self._loss(pooled, scene_args, ids_b, labels_b, mask_b)
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    # -- whole epochs ------------------------------------------------------
+    def train_epoch(self, scene_args: tuple, ids: torch.Tensor,
+                    labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The epoch of ``train.dense_epoch``: minibatch, one update per
+        (steps, B) batch, each recomputing the dense pass; returns the
+        (steps,) losses on the device.  'full': :meth:`train_epoch_full`."""
+        if self.dense_epoch_mode == "full":
+            return self.train_epoch_full(scene_args, ids, labels, mask)
+        self.model.train()
+        pooled = self._anchor_pooled_fn(*scene_args[0].shape[:2])
+        return torch.stack([self._step(pooled, scene_args, ids[i], labels[i],
+                                       mask[i])
+                            for i in range(ids.shape[0])])
+
+    def train_epoch_full(self, scene_args: tuple, ids: torch.Tensor,
+                         labels: torch.Tensor, mask: torch.Tensor
+                         ) -> torch.Tensor:
+        """One dense pass scoring every train anchor and one update; the
+        (1,) loss."""
+        self.model.train()
+        pooled = self._anchor_pooled_fn(*scene_args[0].shape[:2])
+        return self._step(pooled, scene_args, ids.reshape(-1),
+                          labels.reshape(-1), mask.reshape(-1))[None]
+
+    def _band_anchor_scan(self, ms: torch.Tensor, pan: torch.Tensor, splan,
+                          ids: torch.Tensor):
+        """Streamed per-anchor logits: for each band, its features and SAT
+        once, then ``(b, logits, own)`` for every batch ``b`` that owns an
+        anchor in it (the others are skipped: ownership is read on the
+        host once per band)."""
+        ps = self.patch
+        width = ms.shape[1] - ps + 1
+        build, corners = self._band_corner_fns()
+        x, y = ids // width, ids % width
+        for i in range(splan[1]):
+            own = self._owns(splan, i, x)
+            live = [b for b, v in enumerate(own.any(dim=1).tolist()) if v]
+            if not live:
+                continue
+            s0, band_ms, band_pan = self._band(ms, pan, splan, i)
+            state = build(band_ms, band_pan)
+            for b in live:
+                lx = (x[b] - s0).clamp(0, splan[4] - ps)
+                win = corners(state, lx, y[b])
+                feats = (win / float(ps * ps)).to(state[2])
+                yield b, self.model.head(feats), own[b]
+
+    @torch.inference_mode()
+    def eval_epoch(self, scene_args: tuple, ids: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Masked eval: (sample-weighted loss sum, ``[pred][target]``
+        confusion).  One logits map of the scene, every batch indexed from
+        it; streamed, each anchor scored by its owning band."""
+        self.model.eval()
+        ms, pan = scene_args[0], scene_args[1]
+        ncls = self.num_classes
+        loss_sum = torch.zeros((), dtype=torch.float32, device=ids.device)
+        conf = torch.zeros((ncls, ncls), dtype=torch.float32,
+                           device=ids.device)
+        splan = self._eval_stream_plan(ms)
+        if splan is None:
+            flat = self.model(ms, pan, self.patch).reshape(-1, ncls)
+            batches = ((b, flat[ids[b]], None) for b in range(ids.shape[0]))
+        else:
+            batches = self._band_anchor_scan(ms, pan, splan, ids)
+        for b, logits, own in batches:
+            m = mask[b] if own is None else mask[b] * own.to(mask.dtype)
+            per = F.cross_entropy(logits.float(), labels[b].long(),
+                                  reduction="none")
+            loss_sum += (per * m).sum()
+            conf += confusion_matrix(logits.argmax(dim=-1), labels[b], ncls,
+                                     m)
+        return loss_sum, conf
+
+    @torch.inference_mode()
+    def predict(self, scene_args: tuple, ids: torch.Tensor) -> torch.Tensor:
+        """(steps, B) anchor ids -> (steps, B) int32 class ids: indexed
+        from the class map, or streamed, each from its owning band."""
+        self.model.eval()
+        ms, pan = scene_args[0], scene_args[1]
+        splan = self._eval_stream_plan(ms)
+        if splan is None:
+            return self.model.class_map(ms, pan, self.patch).reshape(-1)[ids]
+        out = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
+        for b, logits, own in self._band_anchor_scan(ms, pan, splan, ids):
+            out[b] = torch.where(own, logits.argmax(dim=-1).to(torch.int32),
+                                 out[b])
+        return out
+
     def _streamed(self, ms: torch.Tensor, pan: torch.Tensor, n_bands: int,
                   band_fn):
         """``band_fn(band_ms, band_pan)`` over the bands, owned rows
@@ -254,12 +528,11 @@ class DensePrograms:
         plan = self.band_plan(ms.shape[0], n_bands)
         if plan is None:
             return None
-        need, band = plan[4], plan[2]
         pieces = []
         for i in range(n_bands):
-            _, s0, offset = self.band_slices(plan, i, ms.shape[0])
-            out = band_fn(ms[s0:s0 + need], pan[4 * s0:4 * (s0 + need)])
-            pieces.append(out[offset:offset + band])
+            _, _, offset = self.band_slices(plan, i, ms.shape[0])
+            out = band_fn(*self._band(ms, pan, plan, i)[1:])
+            pieces.append(out[offset:offset + plan[2]])
         return self.assemble_bands(pieces, plan)
 
     @torch.inference_mode()
@@ -276,9 +549,29 @@ class DensePrograms:
 
     @torch.inference_mode()
     def predict_map(self, ms: torch.Tensor, pan: torch.Tensor,
-                    n_bands: int) -> torch.Tensor:
+                    n_bands: int | None = None) -> torch.Tensor:
         """(H, W) int32 class map of the whole scene in one dense pass
-        (``n_bands`` 0) or in ``n_bands`` row bands."""
+        (``n_bands`` 0) or in ``n_bands`` row bands; None: the run's
+        inference band count."""
+        if n_bands is None:
+            n_bands = self._stream_bands_infer(ms.shape[0], ms.shape[1])
         if n_bands:
             return self.class_map_streamed(ms, pan, n_bands)
         return self.model.class_map(ms, pan, self.patch)
+
+    def _conf_from_map(self, pred_map: torch.Tensor, ids: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor
+                       ) -> torch.Tensor:
+        pred = pred_map.reshape(-1)[ids.reshape(-1)]
+        return confusion_matrix(pred, labels.reshape(-1), self.num_classes,
+                                mask.reshape(-1))
+
+    def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor
+                       ) -> torch.Tensor:
+        """Test-phase confusion: streamed, from one class map of the scene
+        (the map's argmax; no loss); otherwise :meth:`eval_epoch`'s."""
+        if self._eval_stream_plan(scene_args[0]) is None:
+            return self.eval_epoch(scene_args, ids, labels, mask)[1]
+        pred_map = self.predict_map(scene_args[0], scene_args[1])
+        return self._conf_from_map(pred_map, ids, labels, mask)

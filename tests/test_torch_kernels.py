@@ -450,3 +450,105 @@ def test_train_epoch_cpu_takes_plain_gather():
     losses = prog.train_epoch((ms, pan), *_train_batches("cpu", 70, 32))
     assert gather.gather_windows_cuda.launches == before
     assert losses.shape == (3,) and torch.isfinite(losses).all()
+
+
+# -- dense training (dmfusion_torch/train/steps.py::DensePrograms) ----------
+
+@pytest.mark.gpu
+def test_phase_pool_kernel_refuses_grad(cuda):
+    """B2 has no backward: it raises on features that require grad while
+    grad is enabled, and launches nothing; under no_grad it runs."""
+    f = _s2d_feats(40, 40, 16, torch.float32, cuda).requires_grad_()
+    before = pool.phase_pool_cuda.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        pool.phase_pool_cuda(f, 8, 17, 17)
+    with pytest.raises(RuntimeError, match="no backward"):
+        dense_fusion.phase_pooled_s2d(f, 8, 33, 33)
+    assert pool.phase_pool_cuda.launches == before
+    with torch.no_grad():
+        got = pool.phase_pool_cuda(f, 8, 17, 17)
+    assert pool.phase_pool_cuda.launches == before + 1
+    assert torch.equal(got, pool.phase_pool_ref(f.detach(), 8, 17, 17))
+
+
+TALL = 100  # anchor rows: a scene that splits into 2 bands
+
+
+def _tall_scene(device):
+    rng = np.random.default_rng(5)
+    ms = rng.random((TALL + PS - 1, W + PS - 1, C), dtype=np.float32)
+    pan = rng.random((4 * TALL + 4 * PS - 1, 4 * W + 4 * PS - 1),
+                     dtype=np.float32)
+    return torch.from_numpy(ms).to(device), torch.from_numpy(pan).to(device)
+
+
+def _dense_trainer(device, **over):
+    from dmfusion_torch.config import load_config
+    from dmfusion_torch.models import build_model
+    from dmfusion_torch.models.common import init_params
+    from dmfusion_torch.train.optim import make_optimizer
+    from dmfusion_torch.train.steps import DensePrograms
+    cfg = load_config(overrides={
+        "data_city": "synth64", "model_name": "dense_fusion",
+        "patch_size": PS, "model_width": 8, "seed": 0,
+        "precision": {"compute_dtype": "float32"}, **over})
+    model = init_params(build_model(cfg), torch.Generator().manual_seed(0))
+    model = model.to(device)
+    return DensePrograms(model, PS, cfg=cfg, optimizer=make_optimizer(
+        cfg, model.parameters(), 3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("over", [{}, {"train": {"dense_epoch": "full"}},
+                                  {"dense_streams": 2}])
+def test_dense_train_steps_card_vs_cpu_no_pool_launch(cuda, over):
+    """Dense training steps (minibatch, full-batch, 2 bands) on the card:
+    no B2 launch, and f32 losses (TF32 off) within 1e-3 of the CPU's."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        losses = []
+        for dev in (cuda, torch.device("cpu")):
+            ms, pan = _tall_scene(dev)
+            prog = _dense_trainer(dev, **over)
+            if "dense_streams" in over:
+                assert prog.band_plan(ms.shape[0], 2) is not None
+            before = pool.phase_pool_cuda.launches
+            losses.append(prog.train_epoch(
+                (ms, pan), *_train_batches(dev, 96, 32)).cpu())
+            assert pool.phase_pool_cuda.launches == before
+        assert torch.isfinite(losses[0]).all()
+        assert (losses[0] - losses[1]).abs().max() <= 1e-3
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.gpu
+def test_dense_memory_probes_on_card(cuda):
+    """The remat probe measures the card: 'off' under a large budget, 'on'
+    under one below its own peak; the band probe picks the fewest bands
+    under a large budget, and the training count under a tiny one."""
+    from types import SimpleNamespace
+
+    from dmfusion_torch.solvers import main
+    ms, pan = _tall_scene(cuda)
+    scene = SimpleNamespace(ms=ms, pan=pan, num_pixels=TALL * W)
+    prog = _dense_trainer(cuda)
+    cfg = dict(prog.cfg, batchsize=32)
+
+    def with_budget(budget):
+        return {**cfg, "train": {**cfg["train"], "dense_hbm_budget": budget}}
+
+    big = main.dense_remat_probe(with_budget(1e15), scene, prog.model)
+    assert big["decision"] == "off" and big["peak_bytes"] > 0
+    small = main.dense_remat_probe(with_budget(big["peak_bytes"] / 2), scene,
+                                   prog.model)
+    assert small["decision"] == "on"
+    assert prog.model.remat  # the probe ran on a copy
+    assert main.dense_infer_band_probe(with_budget(1e15), scene, prog.model,
+                                       3) == 2
+    assert main.dense_infer_band_probe(with_budget(1.0), scene, prog.model,
+                                       3) == 3
