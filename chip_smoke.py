@@ -74,7 +74,32 @@ Phases; any failure exits non-zero before the result line:
                 least 0.99); times of the epochs, 20 train steps, val, test
                 and color, a profile of 5 steps and the operators
                 behind the device time of 2 more;
-  9. strip    — the strip gather must be bit-equal to its plain version
+  9. train_conv — gmfnet_conv trained through the CLI's ``main`` as
+                ``python -m dmfusion_torch.cli --set model_name=gmfnet_conv
+                patch_size=47 data_city=image6 epoch=2 time=1
+                color.index=1`` (w64, batch 256, Adam, bf16 compute, f32
+                image6 scene): epochs [0, 1] with finite losses; a test
+                matrix that sums to the test split and OA >= 0.5; every
+                file written; B1 launched twice per train and val batch
+                (the count computed from the split sizes) and never by
+                test and color, which render one class map each by the
+                shift-and-stitch route; B1 bit-equal to the plain gather
+                at patch 47 (f32 and bf16 scenes, B 4096, B 256, edge
+                anchors, clamped starts) and timed there; with the best
+                weights, on a 200x200 anchor crop at f32 (TF32 off), the
+                map route's logits within 1e-3 of the window route's and
+                of the CPU's; over 32,768 anchors of the scene at bf16
+                (``tools/convmap_ab.run()``), the two routes' argmax
+                agreement at least 0.99, with the map's time (median of
+                10 after 2), anchors/s and peak, and the per-anchor
+                route's anchors/s over 98,304 anchors; a map in 3 bands
+                equal to the whole map in f32 (TF32 off), and in bf16 at
+                least 0.999 of its pixels; ``python -m dmfusion_torch.export
+                --map`` of the best weights, served by ``ScenePredictor``,
+                equal to the solver's map, ``evaluate()``, and ``predict``
+                refused; times of the epochs, 20 train steps, val, test
+                and color, a profile of the 20 steps and of one map;
+  10. strip   — the strip gather must be bit-equal to its plain version
                 at the strip bench's shape (98,304 image6 raster anchors,
                 strips of 128, patch 16) in f32 and bf16, and at edge
                 strips past the right and the bottom edge of the view
@@ -83,7 +108,7 @@ Phases; any failure exits non-zero before the result line:
                 card (bit-equal to the per-anchor gather, timed against
                 it); time the kernel, the plain version and one indexing
                 call per view, and compute the bytes bound;
-  10. conv    — the built kernel's SASS must hold wgmma (HGMMA) and
+  11. conv    — the built kernel's SASS must hold wgmma (HGMMA) and
                 bulk copies (UBLKCP) and no mma.sync (HMMA); the 3x3
                 128->128 bf16 conv must be equal or one bf16 ulp apart
                 (``ulp_report``) from its plain version and from
@@ -180,6 +205,21 @@ DENSE_TRAIN_BF16_ATOL = 0.05
 # bf16 vs f32 argmax agreement on the trained image6 map: the reference
 # flips 0.4-0.5 % of near-tie argmaxes between the two (BENCH_NOTES.md).
 DENSE_AGREE_MIN = 0.99
+# The conv-map training run: the tentpole command line (gmfnet_conv w64,
+# patch 47, batch 256, bf16, f32 image6 scene), then its export with --map.
+CONV_TRAIN_SET = ["model_name=gmfnet_conv", "patch_size=47",
+                  "data_city=image6", "epoch=2", "time=1", "color.index=1"]
+CONV_CFG = {**CFG, "model_name": "gmfnet_conv", "patch_size": 47}
+# The f32 route parity crop (anchors a side), and the A/B's anchors: the
+# per-anchor route's sample and its first 32,768 for the bf16 agreement
+# (the reference flips 0.4-0.5 % of near-tie argmaxes between bf16 and
+# f32, BENCH_NOTES.md; the two routes differ in bf16 by their summation
+# order).
+CONV_CROP, CONV_AB_ANCHORS, CONV_AB_PARITY = 200, 98_304, 32_768
+CONV_AGREE_MIN = 0.99
+# A bf16 map in 3 bands against the whole one, as the dense phase holds its
+# 4 bands (near-tie flips where cuDNN's kernels differ by shape).
+CONV_BAND_AGREE_MIN = 0.999
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -1164,6 +1204,292 @@ def phase_train_dense(scene, device) -> int:
     return launches["phase_pool"]
 
 
+def _b1_patch47(scene, device) -> dict:
+    """B1 at patch 47 (MS rows of 188 f32, 188x188 PAN windows): bit-equal
+    to the plain gather for f32 and bf16 scenes at B 4096 and B 256 and at
+    anchors on the bottom and right edges, with clamped starts; timed at
+    both batch sizes."""
+    ps, w, h = scene.patch, scene.width, scene.height
+    n = scene.num_pixels
+    rng = np.random.default_rng(47)
+    ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
+    check(ms2d.shape[1] // 4 - ps + 1 == w and ps == 47,
+          f"train_conv: scene {tuple(ms2d.shape)} is not padded for 47")
+    # The last row and column of anchors: windows reach the padded edge.
+    edge = np.concatenate([np.arange((h - 1) * w, n), np.arange(w - 1, n, w)])
+    for dtype in (torch.float32, torch.bfloat16):
+        ms, pan = scene.ms.to(dtype), scene.pan.to(dtype)
+        for tag, ids_np in ((f"B={BUCKET}", rng.integers(0, n, BUCKET)),
+                            (f"B={TRAIN_BATCH}",
+                             rng.integers(0, n, TRAIN_BATCH)),
+                            ("edge anchors", edge)):
+            ids = torch.from_numpy(ids_np.astype(np.int32)).to(device)
+            got = gather_ops.gather_dual_fast(ms, pan, ids, w, ps)
+            want = gather_dual(ms, pan, ids, w, ps)
+            for g, r in zip(got, want):
+                check(g.shape == r.shape and torch.equal(g, r),
+                      f"train_conv: B1 != plain at patch 47, {dtype} {tag} "
+                      f"(max {_max_err(g, r)})")
+        views = ((ms.reshape(ms.shape[0], -1), ps, 4), (pan, 4 * ps, 1))
+        for view, patch, chans in views:
+            hi_r, hi_c = view.shape[0] + 5, view.shape[1] // chans + 5
+            xs = torch.tensor([-1, hi_r, 10**9, view.shape[0] - patch + 1, 0],
+                              dtype=torch.int32, device=device)
+            ys = torch.tensor([hi_c, -1, 10**9, 0,
+                               view.shape[1] // chans - patch + 1],
+                              dtype=torch.int32, device=device)
+            check(torch.equal(
+                gather_ops.gather_windows_cuda(view, xs, ys, patch, chans),
+                gather_ops.gather_windows_ref(view, xs, ys, patch, chans)),
+                f"train_conv: B1 clamped starts, patch {patch}, {dtype}")
+        del ms, pan
+    log("kernels: gather_dual patch 47 (MS rows of 188, PAN 188x188): "
+        "bit-equal, f32 and bf16, B 4096, B 256, edge anchors, clamped "
+        "starts")
+    out = {}
+    for batch in (BUCKET, TRAIN_BATCH):
+        med, bound = time_gather(scene, device, batch, rng)
+        out[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
+                            "library_ms": med["library"], "bound_ms": bound,
+                            "bound_by": "bytes"}
+    return out
+
+
+def _conv_crop_parity(scene, model, device):
+    """On a CONV_CROP x CONV_CROP anchor crop at odd offsets (every one of
+    the 16 phases), f32 with TF32 off: the map route's logits on the card
+    against the window route's (windows gathered through B1 from the whole
+    scene) and against the map route's on the CPU.  Returns the readings
+    and the f32 copy of ``model`` on the card (TF32 stays off)."""
+    from dmfusion_torch.models import gmfnet_conv
+    ps, w = scene.patch, scene.width
+    r0, c0 = (scene.height - CONV_CROP) // 2 | 1, (w - CONV_CROP) // 2 | 1
+    ms = scene.ms[r0:r0 + CONV_CROP + ps - 1, c0:c0 + CONV_CROP + ps - 1]
+    pan = scene.pan[4 * r0:4 * (r0 + CONV_CROP + ps - 1),
+                    4 * c0:4 * (c0 + CONV_CROP + ps - 1)]
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    cfg32 = load_config(overrides={**CONV_CFG, "precision": {
+        "compute_dtype": "float32", "scene_dtype": "float32"}})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    m32 = build_model(cfg32)
+    m32.load_state_dict(state)
+    m32.eval()
+    xs, ys = np.meshgrid(np.arange(CONV_CROP), np.arange(CONV_CROP),
+                         indexing="ij")
+    ids = torch.from_numpy(((xs + r0) * w + ys + c0).reshape(-1)
+                           .astype(np.int32)).to(device)
+    with torch.inference_mode():
+        cpu_map = m32.logits_map(ms.cpu(), pan.cpu(), ps)
+        m32 = m32.to(device, memory_format=torch.channels_last)
+        card_map = m32.logits_map(ms, pan, ps)
+        win = torch.cat([m32(*[t.float() for t in gather_ops.gather_dual_fast(
+            scene.ms, scene.pan, b, w, ps)]) for b in ids.split(BUCKET)])
+    win = win.reshape(CONV_CROP, CONV_CROP, -1)
+    check(isinstance(m32, gmfnet_conv.Net)
+          and card_map.shape == win.shape == cpu_map.shape,
+          f"train_conv: crop shapes {tuple(card_map.shape)} "
+          f"{tuple(win.shape)} {tuple(cpu_map.shape)}")
+    gap_win = _max_err(card_map, win)
+    gap_cpu = _max_err(card_map.cpu(), cpu_map)
+    check(gap_win <= 1e-3 and gap_cpu <= 1e-3,
+          f"train_conv: f32 map route vs window route {gap_win}, vs CPU "
+          f"{gap_cpu} (> 1e-3)")
+    return {"crop": [CONV_CROP, CONV_CROP], "offset": [r0, c0],
+            "map_vs_window_max_abs": gap_win, "map_vs_cpu_max_abs": gap_cpu,
+            "logit_scale": float(card_map.abs().max()),
+            "tolerance": 1e-3}, m32
+
+
+def phase_train_conv(device) -> tuple[int, dict]:
+    """Train gmfnet_conv w64 at patch 47 on image6 through ``python -m
+    dmfusion_torch.cli``'s ``main`` (2 epochs, test and color by the map
+    route), check what it writes and computes, hold B1 at patch 47 and the
+    two routes against each other, export the best weights with ``python
+    -m dmfusion_torch.export --map`` and serve the artifact; returns B1's
+    launches over the CLI run and its patch-47 times."""
+    from dmfusion_torch import cli
+    from dmfusion_torch import export as export_cli
+    from dmfusion_torch.tools import convmap_ab
+    from dmfusion_torch.train.steps import ConvMapPrograms
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_conv_")
+    renders = []
+    predict_map = ConvMapPrograms.predict_map
+
+    def counted(self, *args, **kw):
+        renders.append(1)
+        return predict_map(self, *args, **kw)
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        ConvMapPrograms.predict_map = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver = cli.main(["--set", *CONV_TRAIN_SET,
+                               f"expo_result={tmp}/"])
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            ConvMapPrograms.predict_map = predict_map
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        prog, model, scene = solver.programs, solver.model, solver.scene
+        log(f"train_conv: the CLI run took {run_s:.2f} s; epochs "
+            f"{rec['EpochTime']} s, losses {rec['Loss']}, val "
+            f"{rec['ValLoss']}")
+        check(isinstance(prog, ConvMapPrograms) and prog.supports_map
+              and model.head1.in_features == 4 * 64
+              and cfg["patch_size"] == 47 and cfg["batchsize"] == TRAIN_BATCH
+              and model.compute_dtype == torch.bfloat16
+              and scene.ms.dtype == torch.float32
+              and solver.device.type == "cuda", "train_conv: not the w64, "
+              "patch 47, bf16, f32-scene run on the card")
+        check(rec["Epoch"] == [0, 1], f"train_conv: epochs {rec['Epoch']}")
+        check(all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+              f"train_conv: non-finite losses {rec['Loss']} {rec['ValLoss']}")
+        check(int(solver.test_matrix.sum()) == len(split.test),
+              "train_conv: test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        check(oa >= 0.5, f"train_conv: test OA {oa} < 0.5")
+        out = cfg["RESULT_output"]
+        for f in ("0_weights.pt", "0_curweights.pt", "0_matrix.npy",
+                  "0_records.json", "0_pic_1.png", "0_pic_2.png"):
+            check(os.path.isfile(os.path.join(out, f)), f"train_conv: no {f}")
+        check(os.path.isfile(cfg["RESULT_excel"]), "train_conv: no workbook")
+        # Test and color render one class map each and gather nothing; B1
+        # runs twice (MS, PAN) on every train and val batch.
+        check(len(renders) == 2, f"train_conv: {len(renders)} map renders, "
+              "not 2 (test, color)")
+        ev = solver._eval_round_to()
+        batches = {"train": -(-len(split.train) // TRAIN_BATCH) * 2,
+                   "val": -(-len(split.valid) // ev) * 2}
+        want = 2 * sum(batches.values())
+        check(ev == EVAL_BATCH and launches["gather_windows"] == want,
+              f"train_conv: {launches['gather_windows']} B1 launches, the "
+              f"split sizes give {want} ({batches}, eval batches of {ev}) "
+              "and none in test and color")
+
+        ms, pan = solver.scene_args
+        b1 = _b1_patch47(scene, device)
+
+        # The val phase alone; 20 train steps, then a profile of them.
+        vb = solver.batches(split.valid, cfg["color_batchsize"], round_to=ev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.eval_epoch(solver.scene_args, vb[0], vb[1],
+                              vb[2].float())[0])
+        val_s = time.perf_counter() - t0
+        best = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        steps = (tb[0][:PROFILE_STEPS], tb[1][:PROFILE_STEPS],
+                 tb[2][:PROFILE_STEPS].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.train_epoch(solver.scene_args, *steps).mean())
+        train_steps_s = time.perf_counter() - t0
+        prof = _profile(lambda: prog.train_epoch(solver.scene_args, *steps),
+                        f"{PROFILE_STEPS} gmfnet_conv train steps, B "
+                        f"{TRAIN_BATCH}, patch 47", 10)
+        log("profile train_conv: " + json.dumps(prof))
+        # Back to the best weights for the route checks and the export.
+        model.load_state_dict(best)
+
+        # The two routes with the best weights: f32 on a crop, bf16 over
+        # 32,768 anchors of the scene (and the map's times), 3 bands.
+        crop, m32 = _conv_crop_parity(scene, model, device)
+        log(f"train_conv: crop parity {json.dumps(crop)}")
+        ab = convmap_ab.run(device, cfg["data_city"],
+                            model.head1.in_features // 4, cfg["patch_size"],
+                            state=best,
+                            scene=scene, anchors=CONV_AB_ANCHORS,
+                            parity_anchors=CONV_AB_PARITY, batch=EVAL_BATCH,
+                            warmup=2, repeats=10)
+        log(f"train_conv: convmap_ab {json.dumps(ab)}")
+        check(ab["agreement"] >= CONV_AGREE_MIN
+              and ab["parity_anchors"] == CONV_AB_PARITY,
+              f"train_conv: bf16 route agreement {ab['agreement']} over "
+              f"{ab['parity_anchors']} anchors")
+        map_prof = _profile(lambda: prog.predict_map(ms, pan, 0),
+                            "one gmfnet_conv image6 map", 8)
+        log("profile train_conv map: " + json.dumps(map_prof))
+        map_ops = _op_profile(lambda: prog.predict_map(ms, pan, 0),
+                              "one gmfnet_conv image6 map, by operator", 12)
+        log("profile train_conv map ops: " + json.dumps(map_ops))
+        # 3 bands against the whole map, in f32 (TF32 off) and in bf16.
+        # cuDNN picks its conv kernels by shape, so a band's sums may run
+        # in another order than the whole pass's: bit-equal in f32 is the
+        # check, bf16 near-tie argmax flips are counted.
+        bands = {}
+        for tag, p in (("f32", ConvMapPrograms(m32, None, cfg, scene.width,
+                                               scene.patch)), ("bf16", prog)):
+            whole = p.predict_map(ms, pan, 0)
+            bands[tag] = int((p.predict_map(ms, pan, 3) != whole).sum())
+        del m32
+        band_agree = 1 - bands["bf16"] / whole.numel()
+        log(f"train_conv: 3 bands vs whole, pixels apart {json.dumps(bands)}"
+            f" of {whole.numel()}")
+
+        # Entry points 2 and 3: export --map, then serve the artifact.
+        art = os.path.join(tmp, "conv_map.zip")
+        export_cli.main(["--set", *CONV_TRAIN_SET, "--weights",
+                         os.path.join(out, "0_weights.pt"), "--map", "--out",
+                         art])
+        clf = load_artifact(art, device)
+        check(clf.is_map and clf.manifest["serving"] == "map"
+              and clf.manifest["conv_bands"] == 0,
+              f"train_conv: artifact manifest {clf.manifest}")
+        served = ScenePredictor(clf, scene).class_map()
+        check(np.array_equal(served, whole.cpu().numpy()),
+              "train_conv: the served map != the solver's map")
+        ev_res = ScenePredictor(clf, scene).evaluate()
+        ev_res.pop("confusion")
+        try:
+            clf.predict(ms[None, :47, :47], pan[None, :188, :188, None])
+            check(False, "train_conv: predict on a map artifact returned")
+        except ValueError as e:
+            check("whole scenes" in str(e), f"train_conv: predict: {e}")
+        log(f"train_conv: served --map artifact: map equal, evaluate "
+            f"{json.dumps(ev_res)}")
+        check(prog.band_plan(ms.shape[0], 3) is not None
+              and bands["f32"] == 0 and band_agree >= CONV_BAND_AGREE_MIN,
+              f"train_conv: 3 bands vs the whole map: {bands} pixels apart "
+              f"(f32 must be 0, bf16 agreement {band_agree} >= "
+              f"{CONV_BAND_AGREE_MIN})")
+        test_s, color_s = solver.test_time, solver.color_time
+        n_train = len(split.train)
+        del solver, prog, model, clf, whole
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    result = {
+        "model": "gmfnet_conv", "width": 64, "patch": 47,
+        "batch": TRAIN_BATCH, "run_s": run_s, "epoch_s": rec["EpochTime"],
+        "loss": rec["Loss"], "val_loss": rec["ValLoss"],
+        "val_oa": rec["ValOA"], "train_anchors": n_train,
+        "val_anchors": len(split.valid), "test_anchors": len(split.test),
+        "epoch1_samples_per_s": n_train / rec["EpochTime"][1],
+        "train_steps": PROFILE_STEPS, "train_steps_s": train_steps_s,
+        "train_step_ms": train_steps_s / PROFILE_STEPS * 1e3,
+        "train_samples_per_s": PROFILE_STEPS * TRAIN_BATCH / train_steps_s,
+        "busy_share": prof["busy_share"], "val_s": val_s, "test_s": test_s,
+        "test_anchors_per_s": len(split.test) / test_s, "color_s": color_s,
+        "test_oa": oa, "test_aa": aa, "test_kappa": kap,
+        "gather_batches": batches, "launches": launches,
+        "map_renders": len(renders), "b1_patch47": b1, "crop": crop,
+        "map_ms": ab["map_ms"], "map_anchors_per_s": ab["map_anchors_per_s"],
+        "map_peak_bytes": ab["map_peak_bytes"],
+        "map_busy_share": map_prof["busy_share"],
+        "bands3_pixels_apart": bands, "bands3_bf16_agreement": band_agree,
+        "per_anchor_anchors_per_s": ab["per_anchor_anchors_per_s"],
+        "speedup": ab["speedup"], "agreement": ab["agreement"],
+        "served": ev_res}
+    log(f"train_conv: {json.dumps(result)}")
+    return launches["gather_windows"], b1
+
+
 def phase_strip(scene, device) -> tuple[int, dict]:
     """B3: bit-equality with the plain version, the strip bench on the
     card, timings; returns the bench's launches and the kernel's row."""
@@ -1312,10 +1638,12 @@ def main() -> None:
     timings["phase_pool"] = phase_pool(scene, device)
     launches = {"phase_pool": phase_dense(scene, device)["phase_pool"]}
     by_path["train"] = phase_train(scene, device)
-    launches["gather_windows"] = sum(by_path.values())
     pool_by_path = {"dense": launches["phase_pool"],
                     "train_dense": phase_train_dense(scene, device)}
     launches["phase_pool"] = sum(pool_by_path.values())
+    by_path["train_conv"], timings["gather_windows"]["patch47"] = \
+        phase_train_conv(device)
+    launches["gather_windows"] = sum(by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
                                                                     device)
     del scene
@@ -1334,7 +1662,9 @@ def main() -> None:
                      "max_abs_err": t["max_abs_err"], "ms": t["ms"],
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                     "library_ms": t["library_ms"], "unit": spec["unit"]})
+                     "library_ms": t["library_ms"], "unit": spec["unit"],
+                     **({"patch47": t["patch47"]}
+                        if name == "gather_windows" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

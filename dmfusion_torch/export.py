@@ -7,7 +7,9 @@
     ``activate`` (and ``gmfnet_pan`` for gmfnet), which a ``.dmx`` bakes
     into its program instead; a dense artifact's unit is the whole padded
     scene, and it carries ``scene_shape`` and ``dense_bands`` as a dense
-    ``.dmx`` does;
+    ``.dmx`` does; so does a map export of gmfnet_conv (``map_route``,
+    ``--map``), stamped ``serving: "map"`` with ``scene_shape`` and
+    ``conv_bands``;
   * ``params.npz`` — the parameters under their flax tree paths
     (``ResBlock_2/Conv_0/kernel``) in flax layout, so the file is the
     same whichever framework reads it.
@@ -15,6 +17,13 @@
 ``load_artifact`` reads that zip or a ``.dmx`` written by the JAX package
 (``manifest.json`` + ``params.msgpack``; its ``program.bin`` is StableHLO
 for XLA and is ignored) and rebuilds the model from the manifest.
+
+    python -m dmfusion_torch.export --weights W.pt [--map] --out X.zip \
+        [--config C] [--city CITY] [--model NAME] [--set key=value ...]
+
+packages a checkpoint of the port's solver (``{time}_weights.pt``, whose
+model and width stamp must match the config) as an artifact; it reads
+and writes files only, on the host.
 """
 
 from __future__ import annotations
@@ -31,7 +40,10 @@ import torch
 from dmfusion_torch.config import _deep_merge, load_config, resolve_device
 from dmfusion_torch.models import build_model, model_arity
 from dmfusion_torch.models.convert import load_flax_params, params_to_flax
-from dmfusion_torch.train.steps import (DensePrograms, resolve_dense_streams,
+from dmfusion_torch.models.registry import model_map_programs
+from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
+                                        resolve_conv_streams,
+                                        resolve_dense_streams,
                                         resolve_dense_streams_infer)
 
 ARTIFACT_FORMAT = 1
@@ -53,7 +65,7 @@ def _dense_manifest_extras(cfg: Mapping[str, Any]) -> dict[str, Any]:
             "dense_bands": int(bands)}
 
 
-def _manifest(cfg: Mapping[str, Any]) -> dict[str, Any]:
+def _manifest(cfg: Mapping[str, Any], map_route: bool) -> dict[str, Any]:
     ps = int(cfg["patch_size"])
     h, w, chans = (int(v) for v in cfg["DATA_DICT"][cfg["data_city"]]["size"])
     prec = cfg.get("precision", {})
@@ -76,14 +88,21 @@ def _manifest(cfg: Mapping[str, Any]) -> dict[str, Any]:
         "torch_version": torch.__version__,
         "activate": str(cfg["schedule"]["activate"]),
     }
-    if arity == "dense":
+    if arity == "dense" or map_route:
         # The unit is the whole padded scene, as in dmfusion's export.
         manifest["batch"] = "scene"
         manifest["input_shapes"] = [
             [str(h + ps - 1), str(w + ps - 1), str(chans)],
             [str(4 * h + 4 * ps - 1), str(4 * w + 4 * ps - 1)]]
+    if arity == "dense":
         manifest.update(_dense_manifest_extras(cfg))
-    else:
+    elif map_route:
+        manifest["serving"] = "map"
+        manifest["scene_shape"] = [h, w, chans]
+        manifest["conv_bands"] = int(resolve_conv_streams(
+            cfg.get("conv_streams", "auto"), h + ps - 1, w + ps - 1, ps,
+            int(cfg.get("model_width", 64))))
+    if str(cfg["model_name"]).lower() == "gmfnet":
         manifest["gmfnet_pan"] = str(cfg.get("gmfnet_pan", "s2d"))
     return manifest
 
@@ -108,9 +127,18 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> dict[str, Any]:
 
 
 def save_artifact(path: str | os.PathLike, cfg: Mapping[str, Any],
-                  model: torch.nn.Module) -> dict[str, Any]:
-    """Package ``model`` and its manifest into one zip at ``path``."""
-    manifest = _manifest(cfg)
+                  model: torch.nn.Module, *,
+                  map_route: bool = False) -> dict[str, Any]:
+    """Package ``model`` and its manifest into one zip at ``path``.
+    ``map_route``: serve the whole-scene class map of a model with a
+    convolutional map route (``MAP_PROGRAMS``, gmfnet_conv) instead of
+    its per-anchor forward."""
+    if map_route and model_map_programs(cfg["model_name"]) != "convmap":
+        raise ValueError(
+            f"--map: model {cfg['model_name']!r} has no convolutional map "
+            "route (only MAP_PROGRAMS models, e.g. gmfnet_conv; the dense "
+            "family exports its map by default)")
+    manifest = _manifest(cfg, map_route)
     arrays = io.BytesIO()
     np.savez(arrays, **_flatten(params_to_flax(model)))
     buf = io.BytesIO()
@@ -147,9 +175,9 @@ class TorchClassifier:
     """A loaded artifact: ``manifest``, the config ``cfg`` it was rebuilt
     from, and the model on ``device``.  Per-anchor artifacts (arity
     ``dual``) take NHWC window batches in ``logits(ms, pan)`` and
-    ``predict(ms, pan)``; map artifacts (arity ``dense``) take the padded
-    scene in ``logits(ms, pan)`` (the (H, W, ncls) map) and
-    ``class_map(ms, pan)``."""
+    ``predict(ms, pan)``; map artifacts (arity ``dense``, or ``serving:
+    "map"``) take the padded scene in ``logits(ms, pan)`` (the (H, W,
+    ncls) map) and ``class_map(ms, pan)``."""
 
     def __init__(self, model: torch.nn.Module, manifest: dict[str, Any],
                  device: torch.device, cfg: Mapping[str, Any]):
@@ -160,13 +188,18 @@ class TorchClassifier:
 
     @property
     def is_map(self) -> bool:
-        """True when the serving unit is the whole-scene class map."""
-        return self.manifest["arity"] == "dense"
+        """True when the serving unit is the whole-scene class map: the
+        dense family, or a map export of a ``MAP_PROGRAMS`` model."""
+        return (self.manifest["arity"] == "dense"
+                or self.manifest.get("serving") == "map")
 
     @torch.inference_mode()
     def logits(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+        ps = int(self.manifest["patch_size"])
+        if self.manifest["arity"] == "dense":
+            return self.model(ms, pan, ps)
         if self.is_map:
-            return self.model(ms, pan, int(self.manifest["patch_size"]))
+            return self.model.logits_map(ms, pan, ps)
         return self.model(ms, pan)
 
     def predict(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
@@ -177,14 +210,20 @@ class TorchClassifier:
 
     def class_map(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
         """Map artifacts only: the (H, W) int32 class map of the padded
-        scene, in the manifest's ``dense_bands`` row bands (0: one pass)."""
+        scene, in the manifest's ``dense_bands`` (dense) or ``conv_bands``
+        (map export) row bands; 0: one pass."""
         if not self.is_map:
             raise ValueError(f"class_map serves whole-scene artifacts; this "
                              f"one has arity {self.manifest['arity']!r}: use "
                              f"predict()")
-        prog = DensePrograms(self.model, int(self.manifest["patch_size"]))
+        ps = int(self.manifest["patch_size"])
+        if self.manifest["arity"] == "dense":
+            return DensePrograms(self.model, ps).predict_map(
+                ms, pan, int(self.manifest.get("dense_bands", 0)))
+        prog = ConvMapPrograms(self.model, None, self.cfg,
+                               int(self.manifest["scene_shape"][1]), ps)
         return prog.predict_map(ms, pan,
-                                int(self.manifest.get("dense_bands", 0)))
+                                int(self.manifest.get("conv_bands", 0)))
 
 
 def load_artifact(path: str | os.PathLike,
@@ -197,7 +236,7 @@ def load_artifact(path: str | os.PathLike,
     A ``.dmx`` does not record ``gmfnet_pan`` (read here from the param
     tree) nor the activation its program bakes in: that comes only from
     ``overrides`` (e.g. ``{"schedule": {"activate": "Gelu"}}``), and
-    without it the load raises.
+    without it the load raises.  The width is read from the tree.
     """
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read("manifest.json"))
@@ -234,12 +273,16 @@ def load_artifact(path: str | os.PathLike,
         "precision": {"compute_dtype": manifest["compute_dtype"],
                       "scene_dtype": manifest.get("scene_dtype", "float32")},
     }
+    if "scene_shape" in manifest:
+        # A map artifact's city, even one outside DATA_DICT, is described
+        # by the manifest itself.
+        cfg_over["DATA_DICT"] = {manifest["data_city"]: {
+            "size": manifest["scene_shape"], "color": manifest["palette"]}}
     if arity == "dense":
         cfg_over["model_width"] = int(
             np.shape(tree["ms_stem"]["WSConv_0"]["kernel"])[-1])
-        # A city outside DATA_DICT is described by the manifest itself.
-        cfg_over["DATA_DICT"] = {manifest["data_city"]: {
-            "size": manifest["scene_shape"], "color": manifest["palette"]}}
+    elif str(manifest["model_name"]).lower() == "gmfnet_conv":
+        cfg_over["model_width"] = int(np.shape(tree["ms_c1"]["kernel"])[-1])
     else:
         cfg_over["model_width"] = 2 * int(
             np.shape(tree["ConvBlock_0"]["Conv_0"]["kernel"])[-1])
@@ -253,3 +296,60 @@ def load_artifact(path: str | os.PathLike,
     if device.type == "cuda":
         model = model.to(device, memory_format=torch.channels_last)
     return TorchClassifier(model, manifest, device, cfg)
+
+
+def main(argv: list[str] | None = None) -> None:
+    """Package a trained checkpoint of the port as an artifact; print one
+    JSON line."""
+    import argparse
+
+    from dmfusion_torch.config import parse_overrides
+    from dmfusion_torch.models.common import init_params
+    from dmfusion_torch.train.checkpoint import load_checkpoint
+
+    ap = argparse.ArgumentParser(prog="python -m dmfusion_torch.export")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--city", default=None)
+    ap.add_argument("--model", default=None)
+    ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
+    ap.add_argument("--weights", default=None,
+                    help="the solver's best or current weights (.pt); "
+                         "omit only with --random-init")
+    ap.add_argument("--random-init", action="store_true",
+                    help="export seeded parameters (smoke tests)")
+    ap.add_argument("--map", action="store_true", dest="map_route",
+                    help="export the whole-scene conv map route of a "
+                         "MAP_PROGRAMS model (gmfnet_conv) instead of the "
+                         "per-anchor forward")
+    ap.add_argument("--out", required=True)
+    args = ap.parse_args(argv)
+    if args.weights is None and not args.random_init:
+        ap.error("--weights is required (or pass --random-init)")
+
+    overrides = parse_overrides(args.set)
+    if args.city:
+        overrides["data_city"] = args.city
+    if args.model:
+        overrides["model_name"] = args.model
+    cfg = load_config(args.config, overrides=overrides)
+    model = init_params(build_model(cfg), torch.Generator().manual_seed(
+        int(cfg.get("seed", 0))))
+    if args.weights is not None:
+        # The identity stamp the solver writes (``Solver._ckpt_meta``):
+        # weights of another model or width are refused.
+        state = load_checkpoint(
+            args.weights, None, strict=True,
+            expect={"model": str(cfg["model_name"]),
+                    "width": int(cfg.get("model_width", 0) or 0)},
+            lenient=bool(cfg.get("train", {}).get("pretrained_lenient")))
+        # A current-weights file holds its parameters under "params"; a
+        # missing or mis-shaped parameter raises.
+        model.load_state_dict(state.get("params", state))
+    manifest = save_artifact(args.out, cfg, model, map_route=args.map_route)
+    print(json.dumps({"out": args.out, **{k: manifest[k] for k in (
+        "model_name", "arity", "patch_size", "categories", "batch")},
+        "serving": manifest.get("serving", "per_anchor")}))
+
+
+if __name__ == "__main__":
+    main()

@@ -4,9 +4,9 @@ Port of ``dmfusion/infer.py`` for the ``dual`` and ``dense`` arities.
 ``ScenePredictor`` runs a loaded classifier over a device-resident scene.
 Per-anchor (``dual``) artifacts gather windows (the CUDA kernel on the
 card, the plain gather on the CPU) into fixed-size ``bucket`` batches;
-map (``dense``) artifacts render the whole-scene class map once and
-index it.  Both give argmax labels, OA/AA/kappa against the scene labels
-and class maps.
+map artifacts (``dense``, and a gmfnet_conv export with ``--map``) render
+the whole-scene class map once and index it.  Both give argmax labels,
+OA/AA/kappa against the scene labels and class maps.
 
     python -m dmfusion_torch.infer --artifact m.dmx [--set device=cpu] [--no-maps]
 
@@ -36,8 +36,9 @@ class ScenePredictor:
     ``dual``: the MS anchor (x, y) owns a ``ps`` window, the PAN anchor
     (4x, 4y) a ``4*ps`` window, as in training; every chunk of anchors is
     padded to the one ``bucket`` size, so the model always sees one batch
-    shape.  ``dense``: the first query renders the whole-scene class map
-    (one ``clf.class_map`` call, cached), and every query indexes it.
+    shape.  Map artifacts (``clf.is_map``: ``dense``, or ``serving:
+    "map"``): the first query renders the whole-scene class map (one
+    ``clf.class_map`` call, cached), and every query indexes it.
     """
 
     def __init__(self, clf, scene, *, bucket: int = 4096):
@@ -58,14 +59,14 @@ class ScenePredictor:
             have = [scene.height, scene.width, int(scene.ms.shape[-1])]
             if want is not None and list(map(int, want)) != have:
                 raise ValueError(
-                    f"dense artifact was exported for scene geometry "
+                    f"map artifact was exported for scene geometry "
                     f"{want} but this scene is {have} — wrong city?")
         self.clf = clf
         self.scene = scene
         self.bucket = int(bucket)
         self._map_cache: np.ndarray | None = None
 
-    def _dense_map(self) -> np.ndarray:
+    def _map(self) -> np.ndarray:
         """Map artifacts: the whole-scene (H, W) class map from one
         ``class_map`` call, rendered once and cached; anchor queries index
         it."""
@@ -87,7 +88,7 @@ class ScenePredictor:
         """Flat anchor ids -> predicted class id per anchor."""
         ids = np.asarray(ids, np.int32)
         if self.clf.is_map:
-            return np.asarray(self._dense_map(), np.int32).reshape(-1)[ids]
+            return np.asarray(self._map(), np.int32).reshape(-1)[ids]
         n = ids.shape[0]
         out = np.empty((n,), np.int32)
         b = self.bucket
@@ -106,7 +107,7 @@ class ScenePredictor:
         anchors not in ``ids`` stay class 0."""
         s = self.scene
         if ids is None and self.clf.is_map:
-            return self._dense_map().copy()
+            return self._map().copy()
         if ids is None:
             ids = np.arange(s.num_pixels, dtype=np.int32)
         label = np.zeros((s.height, s.width), np.int32)

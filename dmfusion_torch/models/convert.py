@@ -13,7 +13,8 @@ in torch, dense kernels ``(in, out)`` against ``(out, in)``, and
 GroupNorm's ``scale`` is torch's ``weight``.  Conversion in either
 direction raises on anything left unmatched, so a tree of another model
 or width never loads in part.  The root scope is the model class's
-``flax_root`` (``Net`` for gmfnet, ``DenseNet`` for dense_fusion).
+``flax_root`` (``Net`` for gmfnet, ``DenseNet`` for dense_fusion,
+``ConvNet`` for gmfnet_conv, whose tree names every layer explicitly).
 
 The optimizer state goes across the same way (:func:`opt_state_from_optax`,
 :func:`opt_state_to_optax`): an optax Adam, SGD or RMSprop state, as
@@ -66,6 +67,13 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
         "fusion_gate": ("fusion_gate", LEAF),
         **{n: (n, PARAM) for n in ("head1_kernel", "head1_bias",
                                    "head2_kernel", "head2_bias")}},
+    "ConvNet": {
+        **{n: (n, LEAF) for n in (
+            "ms_stem", "ms_c1", "ms_c2", "ms_sc", "pan_stem1", "pan_stem2",
+            "pan_c1", "pan_c2", "fusion_gate", "t1_c1", "t1_c2", "t1_sc",
+            "t2_c1", "t2_c2", "t3_c1", "t3_c2", "t3_sc", "head1", "head2")},
+        **{n: (n, PARAM) for n in ("alpha_ms", "alpha_pan", "alpha1",
+                                   "alpha2", "alpha3")}},
     "LocalConvBlock": {"WSConv_0": ("conv", LEAF)},
     "LocalResBlock": {"LocalConvBlock_0": ("block", "LocalConvBlock"),
                       "WSConv_0": ("conv", LEAF),

@@ -164,19 +164,26 @@ def phase_window_mean(feats_s2d: torch.Tensor, patch: int, out_rows: int,
 
 
 class WSConv(nn.Module):
-    """Conv with scaled weight standardization (norm-free); stride 1,
-    SAME padding.  ``weight`` is OIHW, ``gain`` and ``bias`` per output
-    channel, all f32."""
+    """Conv with scaled weight standardization (norm-free); ``padding``
+    "SAME" (at stride 1) or "VALID".  ``weight`` is OIHW,
+    ``gain`` and ``bias`` per output channel, all f32.  The stride is a
+    call argument: the parameters do not depend on it, which lets a
+    shift-and-stitch scene route run a stride-2 conv at stride 1 with the
+    same weights (``models/gmfnet_conv.py``)."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 act_gain: float = 1.0, dtype: torch.dtype = torch.bfloat16):
+                 act_gain: float = 1.0, dtype: torch.dtype = torch.bfloat16,
+                 padding: str = "SAME"):
         super().__init__()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"WSConv padding {padding!r}: use SAME or VALID")
         self.weight = nn.Parameter(torch.empty(features, in_features, kernel,
                                                kernel))
         self.gain = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.act_gain = act_gain
         self.dtype = dtype
+        self.padding = padding
 
     def flax_init(self, generator: torch.Generator) -> None:
         """he_normal kernel (variance 2/fan_in), unit gain, zero bias."""
@@ -194,10 +201,14 @@ class WSConv(nn.Module):
         wn = (w - mu) * torch.rsqrt(var * fan_in + 1e-8)
         return wn * (self.gain * self.act_gain)[:, None, None, None]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
         k = self.weight.shape[-1]
+        if self.padding == "SAME" and stride != 1:
+            # flax pads the odd pixel after; no caller needs that yet.
+            raise ValueError("WSConv: SAME padding runs at stride 1 only")
         y = F.conv2d(x.to(self.dtype), self.standardized().to(self.dtype),
-                     padding=k // 2)
+                     stride=stride,
+                     padding=k // 2 if self.padding == "SAME" else 0)
         return y + self.bias.to(self.dtype)[:, None, None]
 
 

@@ -13,7 +13,8 @@ from typing import Any, Callable, Mapping
 _EXPLICIT: dict[str, Callable] = {}
 
 # Ported model name -> module under dmfusion_torch.models.
-_PORTED = {"gmfnet": "gmfnet", "dense_fusion": "dense_fusion"}
+_PORTED = {"gmfnet": "gmfnet", "gmfnet_conv": "gmfnet_conv",
+           "dense_fusion": "dense_fusion"}
 
 # Model input contract (``dmfusion/models/registry.py``): how windows are
 # gathered and fed.  Names absent here are "dual": model(ms, pan).
@@ -50,6 +51,17 @@ def build_model(cfg: Mapping[str, Any], name: str | None = None):
 
 def model_arity(name: str) -> str:
     return _ARITY.get(name.lower(), "dual")
+
+
+def model_map_programs(name: str) -> str | None:
+    """The map-route programs a ported model's module declares
+    (``MAP_PROGRAMS``): "convmap" renders whole-scene maps through
+    ``train/steps.py::ConvMapPrograms`` (gmfnet_conv); None otherwise."""
+    key = name.lower()
+    if key not in _PORTED:
+        return None
+    mod = importlib.import_module(f"dmfusion_torch.models.{_PORTED[key]}")
+    return getattr(mod, "MAP_PROGRAMS", None)
 
 
 def available_models() -> list[str]:

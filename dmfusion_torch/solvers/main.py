@@ -1,7 +1,7 @@
 """Solver: the train, test and color phases of a classifier.
 
-Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet)
-and ``dense`` (dense_fusion).
+Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet,
+gmfnet_conv) and ``dense`` (dense_fusion).
 Semantics kept:
   * the model comes from the registry by ``model_name``, seeded with
     ``seed + repeat``; the optimizer counts ``ceil(len(train) / batchsize)``
@@ -31,7 +31,9 @@ band count), ``train.dense_epoch`` ('auto' is 'full' when streaming; a
 full epoch is one update, so the schedule counts one step an epoch and the
 train batches are built once), ``train.dense_remat`` and
 ``dense_streams_infer`` (by the two memory probes below).  Its test and
-color phases render the class map: one map gives both PNGs.  Other
+color phases render the class map: one map gives both PNGs.  So do
+gmfnet_conv's (``ConvMapPrograms``, the shift-and-stitch route), which
+trains and validates per anchor like gmfnet.  Other
 arities, ``proof``, ``visualize`` and the two-stage solver are not ported
 yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -46,7 +48,8 @@ import numpy as np
 import torch
 
 from dmfusion_torch.models.common import init_params
-from dmfusion_torch.models.registry import build_model, model_arity
+from dmfusion_torch.models.registry import (build_model, model_arity,
+                                            model_map_programs)
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.solvers.base import BaseSolver
@@ -54,8 +57,8 @@ from dmfusion_torch.train.checkpoint import (AsyncCheckpointWriter, exists,
                                              load_checkpoint, save_checkpoint,
                                              snapshot)
 from dmfusion_torch.train.optim import make_optimizer
-from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
-                                        resolve_dense_epoch,
+from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
+                                        DualPrograms, resolve_dense_epoch,
                                         resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
 
@@ -237,8 +240,13 @@ class Solver(BaseSolver):
             self.programs = DensePrograms(model, self.scene.patch,
                                           optimizer=self.optimizer, cfg=cfg)
         else:
-            self.programs = DualPrograms(model, self.optimizer, cfg,
-                                         self.scene.width, self.scene.patch)
+            # A model with a convolutional map route (gmfnet_conv) trains
+            # per anchor and maps test and color in one pass.
+            cls = (ConvMapPrograms
+                   if model_map_programs(cfg["model_name"]) == "convmap"
+                   else DualPrograms)
+            self.programs = cls(model, self.optimizer, cfg, self.scene.width,
+                                self.scene.patch)
 
     def _resolve_dense_memory(self, cfg: dict, streams: int,
                               n_train: int) -> dict:

@@ -1,5 +1,5 @@
 """Programs over a model: the dual-stream training/eval/predict programs
-of the patch classifiers (``DualPrograms``) and the inference half of the
+of the patch classifiers (``DualPrograms``, ``ConvMapPrograms``) and the
 dense family's (``DensePrograms``).
 
 Port of ``dmfusion/train/steps.py``.  ``DualPrograms`` holds the
@@ -18,8 +18,11 @@ band is a slice of the scene that lies fully inside it (bands near the
 bottom are clamped upward), starts on an even row so the s2d-2 phase grid
 stays global, and carries a halo of ``RECEPTIVE_RADIUS`` rows, so its
 owned output rows match the whole pass.  JAX's ``lax.scan`` over the
-bands, and over the batches, is a Python loop here.  The mesh routes and
-the tri/quad/h5/conv-map program families are not ported yet.
+bands, and over the batches, is a Python loop here.
+
+``ConvMapPrograms`` is ``DualPrograms`` with the shift-and-stitch map
+route of gmfnet_conv for test and color.  The mesh routes and the
+tri/quad/h5 program families are not ported yet.
 """
 
 from __future__ import annotations
@@ -55,6 +58,31 @@ def check_eval_scan_anchors(cfg: Mapping[str, Any]) -> None:
         raise ValueError(
             f"eval_scan_anchors: unrecognized value {v!r} (use "
             "auto/off or an anchor count)") from None
+
+
+def assemble_bands(pieces: list[torch.Tensor], h: int,
+                   band: int) -> torch.Tensor:
+    """Per-band owned rows -> (h, ...); band i holds rows
+    [min(i*band, h-band), +band), and a later band supersedes the overlap
+    of an earlier one."""
+    kept, prev_end = [], 0
+    for i, piece in enumerate(pieces):
+        s = min(i * band, h - band)
+        e = s + band
+        if e > prev_end:
+            kept.append(piece[prev_end - s:])
+            prev_end = e
+    return torch.cat(kept, dim=0)
+
+
+def conf_from_map(pred_map: torch.Tensor, ids: torch.Tensor,
+                  labels: torch.Tensor, mask: torch.Tensor,
+                  num_classes: int) -> torch.Tensor:
+    """``[pred][target]`` confusion of the (steps, B) anchors ``ids``, read
+    from a class map (padding masked out)."""
+    pred = pred_map.reshape(-1)[ids.reshape(-1)]
+    return confusion_matrix(pred, labels.reshape(-1), num_classes,
+                            mask.reshape(-1))
 
 
 class DualPrograms:
@@ -291,21 +319,6 @@ class DensePrograms:
         s0 = (s0 // 2) * 2
         return out_start, s0, out_start - s0
 
-    @staticmethod
-    def assemble_bands(pieces: list[torch.Tensor], plan) -> torch.Tensor:
-        """Per-band owned rows -> (h, ...); band i holds rows
-        [min(i*band, h-band), +band), and a later band supersedes the
-        overlap of an earlier one."""
-        h, parts, band, _, _ = plan
-        kept, prev_end = [], 0
-        for i in range(parts):
-            s = min(i * band, h - band)
-            e = s + band
-            if e > prev_end:
-                kept.append(pieces[i][prev_end - s:])
-                prev_end = e
-        return torch.cat(kept, dim=0)
-
     def _band(self, ms: torch.Tensor, pan: torch.Tensor, plan, i: int):
         """Band ``i``'s (first scene row, MS slab, PAN slab)."""
         need = plan[4]
@@ -533,7 +546,7 @@ class DensePrograms:
             _, _, offset = self.band_slices(plan, i, ms.shape[0])
             out = band_fn(*self._band(ms, pan, plan, i)[1:])
             pieces.append(out[offset:offset + plan[2]])
-        return self.assemble_bands(pieces, plan)
+        return assemble_bands(pieces, plan[0], plan[2])
 
     @torch.inference_mode()
     def class_map_streamed(self, ms: torch.Tensor, pan: torch.Tensor,
@@ -559,13 +572,6 @@ class DensePrograms:
             return self.class_map_streamed(ms, pan, n_bands)
         return self.model.class_map(ms, pan, self.patch)
 
-    def _conf_from_map(self, pred_map: torch.Tensor, ids: torch.Tensor,
-                       labels: torch.Tensor, mask: torch.Tensor
-                       ) -> torch.Tensor:
-        pred = pred_map.reshape(-1)[ids.reshape(-1)]
-        return confusion_matrix(pred, labels.reshape(-1), self.num_classes,
-                                mask.reshape(-1))
-
     def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
                        labels: torch.Tensor, mask: torch.Tensor
                        ) -> torch.Tensor:
@@ -574,4 +580,130 @@ class DensePrograms:
         if self._eval_stream_plan(scene_args[0]) is None:
             return self.eval_epoch(scene_args, ids, labels, mask)[1]
         pred_map = self.predict_map(scene_args[0], scene_args[1])
-        return self._conf_from_map(pred_map, ids, labels, mask)
+        return conf_from_map(pred_map, ids, labels, mask, self.num_classes)
+
+
+def resolve_conv_streams(value, ms_rows: int, ms_cols: int, patch: int,
+                         width: int = 64) -> int:
+    """The ``conv_streams`` knob as a band count for the shift-and-stitch
+    map route (0 = the whole-scene pass): 'auto' keeps scenes of up to
+    6.5M anchor cells whole and gives larger ones one band per 4M anchor
+    cells at width 64 (scaled by width); 'off'/0 force the whole pass; an
+    integer forces a count."""
+    v = str(value).strip().lower() if value is not None else "auto"
+    if v in ("off", "0", "false", "no", "none"):
+        return 0
+    cells = (ms_rows - patch + 1) * (ms_cols - patch + 1)
+    if v in ("auto", ""):
+        per_band = int(4_000_000 * 64 / max(width, 1))
+        return 0 if cells <= 6_500_000 else -(-cells // per_band)
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"conv_streams: unrecognized value {value!r} "
+                         "(use auto/off or a band count)") from None
+
+
+class ConvMapPrograms(DualPrograms):
+    """:class:`DualPrograms` plus the shift-and-stitch map route of a model
+    that declares ``MAP_PROGRAMS = "convmap"`` (gmfnet_conv).
+
+    Train and val are the inherited per-anchor programs (the window gather
+    on every batch).  Test and color render the model's convolutional
+    ``class_map``, whose entries are the window route's argmaxes: one map
+    of the scene, or ``conv_streams`` sequential row bands.  A band is a
+    slab of the scene that starts on the stride-4 phase grid (so it
+    computes the same global phases) and lies inside the scene (the
+    bottom band is clamped upward); its owned rows equal the whole map's,
+    since WSConv features do not depend on the input and every pooled sum
+    lies inside one band.  dmfusion's cast of the whole scene before
+    slicing is not needed: the model pads and packs before it casts, which
+    commutes exactly."""
+
+    supports_map = True
+
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer | None,
+                 cfg: Mapping[str, Any], width: int, patch: int, *,
+                 plain_gather: bool = False):
+        super().__init__(model, optimizer, cfg, width, patch,
+                         plain_gather=plain_gather)
+        self.cfg = dict(cfg)
+
+    # -- band geometry -----------------------------------------------------
+    def band_plan(self, ms_rows: int, n: int):
+        """``(h, n, band, need)`` for ``n`` row bands, or None when the
+        scene is too small to band.  ``need`` (scene rows per band) carries
+        the patch-1 window rows plus 7 slack rows (up to 3 for moving the
+        start onto the stride-4 grid) and is congruent to ``ms_rows`` mod
+        4, so a bottom-clamped band still starts on the grid and ends at
+        the scene's last row."""
+        ps = self.patch
+        h = ms_rows - ps + 1
+        if n < 2:
+            return None
+        band = -(-h // n)
+        need = band + ps + 7
+        need += (ms_rows - need) % 4
+        if need > ms_rows or band > h:
+            return None
+        return h, n, band, need
+
+    @staticmethod
+    def band_slices(plan, i: int, ms_rows: int) -> tuple[int, int]:
+        """Band ``i``'s (first scene row, offset of its owned rows in the
+        band's map)."""
+        h, _, band, need = plan
+        out_start = min(i * band, h - band)
+        s0 = min(max(out_start, 0), ms_rows - need) // 4 * 4
+        return s0, out_start - s0
+
+    @torch.inference_mode()
+    def class_map_streamed(self, ms: torch.Tensor, pan: torch.Tensor,
+                           n_bands: int) -> torch.Tensor:
+        """(H, W) int32 class map from ``n_bands`` sequential row bands (the
+        whole pass when the scene is too small to band)."""
+        plan = self.band_plan(ms.shape[0], n_bands)
+        if plan is None:
+            return self._whole_class_map(ms, pan)
+        self.model.eval()
+        need, band = plan[3], plan[2]
+        pieces = []
+        for i in range(n_bands):
+            s0, offset = self.band_slices(plan, i, ms.shape[0])
+            out = self.model.class_map(ms[s0:s0 + need],
+                                       pan[4 * s0:4 * (s0 + need)],
+                                       self.patch)
+            pieces.append(out[offset:offset + band])
+        return assemble_bands(pieces, plan[0], band)
+
+    @torch.inference_mode()
+    def _whole_class_map(self, ms: torch.Tensor,
+                         pan: torch.Tensor) -> torch.Tensor:
+        self.model.eval()
+        return self.model.class_map(ms, pan, self.patch)
+
+    def conv_streams(self, ms_rows: int, ms_cols: int) -> int:
+        """The run's band count (``conv_streams``; 0: one pass)."""
+        return resolve_conv_streams(
+            self.cfg.get("conv_streams", "auto"), ms_rows, ms_cols,
+            self.patch, int(self.cfg.get("model_width", 64)))
+
+    def predict_map(self, ms: torch.Tensor, pan: torch.Tensor,
+                    n_bands: int | None = None) -> torch.Tensor:
+        """(H, W) int32 class map of the whole scene in one pass
+        (``n_bands`` 0) or in ``n_bands`` row bands; None: the run's
+        ``conv_streams``."""
+        if n_bands is None:
+            n_bands = self.conv_streams(ms.shape[0], ms.shape[1])
+        if n_bands:
+            return self.class_map_streamed(ms, pan, n_bands)
+        return self._whole_class_map(ms, pan)
+
+    def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor
+                       ) -> torch.Tensor:
+        """Test-phase confusion from one class map of the scene (exact: the
+        map's entries are the window route's argmaxes)."""
+        pred_map = self.predict_map(scene_args[0], scene_args[1])
+        return conf_from_map(pred_map, ids, labels, mask, self.num_classes)

@@ -51,9 +51,10 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
 
 @pytest.mark.parametrize("module", [
     "dmfusion_torch", "dmfusion_torch.infer", "dmfusion_torch.cli",
+    "dmfusion_torch.export", "dmfusion_torch.models.gmfnet_conv",
     "dmfusion_torch.tools.strip_gather_bench",
     "dmfusion_torch.tools.conv_kernel_probe",
-    "dmfusion_torch.tools.pool_probe"])
+    "dmfusion_torch.tools.pool_probe", "dmfusion_torch.tools.convmap_ab"])
 def test_entry_point_alone_imports_without_jax(module):
     """Each entry point, imported alone in a fresh interpreter."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "

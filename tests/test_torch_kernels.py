@@ -24,10 +24,10 @@ from dmfusion_torch.tools import conv_kernel_probe
 H, W, C, PS = 40, 44, 4, 8
 
 
-def _scene(dtype=torch.float32, device="cpu", seed=0):
+def _scene(dtype=torch.float32, device="cpu", seed=0, ps=PS):
     rng = np.random.default_rng(seed)
-    ms = rng.standard_normal((H + PS - 1, W + PS - 1, C)).astype(np.float32)
-    pan = rng.standard_normal((4 * H + 4 * PS - 1, 4 * W + 4 * PS - 1)
+    ms = rng.standard_normal((H + ps - 1, W + ps - 1, C)).astype(np.float32)
+    pan = rng.standard_normal((4 * H + 4 * ps - 1, 4 * W + 4 * ps - 1)
                               ).astype(np.float32)
     return (torch.from_numpy(ms).to(device, dtype),
             torch.from_numpy(pan).to(device, dtype))
@@ -74,6 +74,31 @@ def test_gather_dual_kernel_bit_equal(cuda, dtype, batch):
     for g, w in zip(got, want):
         assert g.dtype == dtype and g.shape == w.shape
         assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [4096, 256])
+def test_gather_dual_kernel_bit_equal_patch47(cuda, dtype, batch):
+    """gmfnet_conv's geometry: MS window rows of 47 x 4 = 188 elements and
+    188 x 188 PAN windows (a PAN row is not a multiple of 8); the last
+    anchor row and column reach the padded bottom and right edges."""
+    ps = 47
+    ms, pan = _scene(dtype, cuda, seed=batch, ps=ps)
+    rng = np.random.default_rng(batch)
+    ids_np = rng.integers(0, H * W, batch).astype(np.int32)
+    ids_np[:W] = np.arange((H - 1) * W, H * W)     # the bottom row
+    ids_np[W:W + H] = np.arange(W - 1, H * W, W)   # the right column
+    ids = torch.from_numpy(ids_np).to(cuda)
+    before = gather.gather_windows_cuda.launches
+    got = gather.gather_dual_fast(ms, pan, ids, W, ps)
+    assert gather.gather_windows_cuda.launches == before + 2
+    want = patches.gather_dual(ms, pan, ids, W, ps)
+    torch.cuda.synchronize()
+    assert got[0].shape == (batch, ps, ps, C)
+    assert got[1].shape == (batch, 4 * ps, 4 * ps, 1)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
 
 
 @pytest.mark.gpu

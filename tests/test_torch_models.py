@@ -225,8 +225,9 @@ def test_converter_raises_on_unmatched():
 
 
 def test_registry():
-    assert available_models() == ["dense_fusion", "gmfnet"]
+    assert available_models() == ["dense_fusion", "gmfnet", "gmfnet_conv"]
     assert model_arity("gmfnet") == "dual" and model_arity("dqtl") == "quad"
+    assert model_arity("gmfnet_conv") == "dual"
     assert model_arity("dense_fusion") == "dense"
     with pytest.raises(ValueError, match="not ported.*gmfnet"):
         build_model({"model_name": "resnet18"})
