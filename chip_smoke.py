@@ -9,8 +9,11 @@ Phases; any failure exits non-zero before the result line:
   3. kernels  — hold each kernel against its plain PyTorch version at the
                 main path's shapes (image6 synthetic scene, patch 16): the
                 window gather must be bit-equal for f32 and bf16 scenes, a
-                4096 bucket, an odd batch, corner and clamped anchors; time
-                the kernel, the plain version and one PyTorch indexing
+                4096 bucket, an odd batch, corner and clamped anchors, as a
+                dual gather (MS, PAN), as a tri gather (MS, PAN and the
+                seeded IHS MSPAN scene, whose build on the card is timed)
+                and, at B 4096, as the single-stream wrapper;
+                time the kernel, the plain version and one PyTorch indexing
                 call, and compute the bytes bound;
   4. serving  — gmfnet at width 64, bf16 compute, f32 scene, seeded
                 weights, saved and loaded as an artifact, serving
@@ -118,7 +121,40 @@ Phases; any failure exits non-zero before the result line:
                 at the dense trunk's (1008, 1058, 128), which checks the
                 same way and times the kernel, the plain version and
                 ``F.conv2d``; the bound is the operations' at dense bf16
-                peak.
+                peak;
+  12. train_tri — tri_net trained through the CLI's ``main`` as ``python -m
+                dmfusion_torch.cli --set model_name=tri_net data_city=image6
+                epoch=2 time=1 color.index=1`` (w64, patch 16, batch 256,
+                Adam, bf16 compute, f32 image6 scene; color over the labeled
+                pixels): two finite epoch losses, the second below the
+                first; a test matrix that sums to the test split and OA >=
+                0.5; every file written; MSPAN the shape of the padded PAN,
+                float32, within 1e-5 of it (equal in exact arithmetic); B1
+                launched 3 times per gathered batch (train, val, test and
+                color), the count computed from the split sizes; the val
+                confusion through B1 equal to the one through the plain
+                gather; three Adam steps from seeded weights: f32 card
+                losses (TF32 off) within 1e-3 of the CPU's, bf16 within
+                TRAIN_BF16_ATOL of f32; ``python -m dmfusion_torch.export``
+                of the best weights served by ``ScenePredictor`` (MSPAN
+                rebuilt from the manifest's seed, equal to the solver's):
+                the served labels of 8 requests of 4096 labeled anchors
+                equal the solver's color map there, 3 launches a request;
+                ``--map`` refused; times of the epochs, 20 train steps, val,
+                test, color and the requests, a profile of the 20 steps, and
+                the tri bucket (3 launches) at B 4096 and B 256 beside its
+                bytes bound;
+  13. zoo     — resnet18 (width 32), cross_net and vision_transformer (the
+                config's ``trans``: embed 96, depth 2, 3 heads, patch 1) at
+                bf16 from seeded weights: 20 train steps of 256 through
+                ``DualPrograms`` (B1 twice a step, counted; the loss falls),
+                then a ``save_artifact`` -> ``load_artifact`` ->
+                ``ScenePredictor`` round trip serving 8 requests of 4096
+                (B1 twice a request); with the trained weights, on 256
+                anchors, bf16 card logits within ZOO_BF16_ATOL of f32 CPU
+                logits and f32 card logits (TF32 off) within 1e-3; bf16 vs
+                f32 card argmax agreement at least ZOO_AGREE_MIN over a
+                request of 4096; times of a step and a request.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
 ``nvcc`` per source.
@@ -139,14 +175,15 @@ import numpy as np
 import torch
 
 from dmfusion_torch.config import load_config, resolve_device
-from dmfusion_torch.data.patches import gather_dual
-from dmfusion_torch.data.scene import split_labels, synthetic_scene
+from dmfusion_torch.data.patches import batched_ids, gather_dual, gather_one
+from dmfusion_torch.data.scene import mspan_scene, split_labels, synthetic_scene
 from dmfusion_torch.export import load_artifact, save_artifact
 from dmfusion_torch.infer import ScenePredictor
 from dmfusion_torch.models import build_model
 from dmfusion_torch.models import dense_fusion
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.ops import gather as gather_ops
+from dmfusion_torch.ops import ihs
 from dmfusion_torch.ops import conv3x3 as conv_ops
 from dmfusion_torch.ops import pool as pool_ops
 from dmfusion_torch.ops import strip_gather as strip_ops
@@ -155,7 +192,8 @@ from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
 from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
                                   conv_kernel_probe, strip_gather_bench,
                                   time_in_turns)
-from dmfusion_torch.train.steps import DensePrograms
+from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
+                                        TriPrograms)
 
 BUCKET = 4096
 REQUESTS = 32
@@ -191,8 +229,9 @@ TRAIN_SET = ["data_city=image6", "epoch=2", "time=1", "color.index=1",
 TRAIN_BATCH, EVAL_BATCH, PARITY_STEPS, PROFILE_STEPS = 256, 4096, 3, 20
 HOST_STEPS = 5
 # bf16 vs f32 per-step training losses on the card, three Adam steps from
-# the same seeded w64 weights; a wrong layer or a lost update moves the
-# loss (about 2.4 for 12 classes at init) by far more.
+# the same seeded w64 weights (gmfnet, and tri_net: 0.0041 apart on the
+# CPU); a wrong layer or a lost update moves the loss (about 2.4 for 12
+# classes at init) by far more.
 TRAIN_BF16_ATOL = 0.05
 # The dense training run: the tentpole command line, on image6.
 DENSE_TRAIN_SET = ["model_name=dense_fusion", "model_width=32",
@@ -220,6 +259,24 @@ CONV_AGREE_MIN = 0.99
 # A bf16 map in 3 bands against the whole one, as the dense phase holds its
 # 4 bands (near-tie flips where cuDNN's kernels differ by shape).
 CONV_BAND_AGREE_MIN = 0.999
+# The tri training run: the tentpole command line (tri_net w64, patch 16,
+# batch 256, bf16, f32 image6 scene), color over the labeled pixels; then
+# its export, served by 8 requests of 4096 labeled anchors.
+TRI_TRAIN_SET = ["model_name=tri_net", *TRAIN_SET]
+TRI_REQUESTS = 8
+# The zoo: the config's baselines at its widths (resnet18's base 32; the
+# transformers take ``trans``: embed 96, depth 2, 3 heads, patch 1).
+ZOO = {"resnet18": {"model_width": 32}, "cross_net": {},
+       "vision_transformer": {}}
+ZOO_STEPS, ZOO_REQUESTS = 20, 8
+# bf16 vs f32 logits of the zoo after 20 Adam steps, on the CPU over 256
+# image6 anchors: 0.0116 (resnet18), 0.0377 (cross_net), 0.0283 (vit), at
+# logit scales of 4.1-4.7; at init 0.024-0.037.  A skipped or wrong layer
+# moves them by the logits' own scale.
+ZOO_BF16_ATOL = 0.12
+# bf16 vs f32 argmax agreement over a request: the reference flips 0.4-0.5
+# % of near-tie argmaxes between the two (BENCH_NOTES.md).
+ZOO_AGREE_MIN = 0.99
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -284,13 +341,18 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def time_gather(scene, device, batch: int, rng) -> tuple[dict, float]:
-    """Time one dual gather of ``batch`` anchors (the MS and the PAN launch),
-    f32 scene: the kernel, the plain version and one indexing call; print
-    them with the bytes bound; return the medians and the bound (ms)."""
+def time_gather(scene, streams: tuple, gathers: tuple, device, batch: int,
+                rng) -> tuple[dict, float]:
+    """Time one gather of ``batch`` anchors over ``streams`` (the MS scene,
+    then the PAN-geometry ones: PAN, MSPAN), one B1 launch a stream, f32
+    scene: the kernel, the plain version (``gathers``: the (plain, kernel)
+    pair, as ``DualPrograms.gathers``) and one indexing call per stream;
+    print them with the bytes bound; return the medians and the bound
+    (ms)."""
+    plain_gather, fast_gather = gathers
     ps, w = scene.patch, scene.width
     c = int(scene.ms.shape[-1])
-    ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
+    ms2d = streams[0].reshape(streams[0].shape[0], -1)
     n = scene.num_pixels
     # Eight anchor sets in turn so consecutive calls do not reuse L2 lines.
     # The kernel and the indexing call get their anchors precomputed (int32
@@ -298,11 +360,11 @@ def time_gather(scene, device, batch: int, rng) -> tuple[dict, float]:
     # version is timed whole, from the flat ids.
     sets = [torch.from_numpy(rng.integers(0, n, batch).astype(np.int32)
                              ).to(device) for _ in range(8)]
-    pan2d = scene.pan
 
     def views(ids):
         x, y = ids // w, ids % w
-        return ((ms2d, ps, c, x, y), (pan2d, 4 * ps, 1, 4 * x, 4 * y))
+        return ([(ms2d, ps, c, x, y)]
+                + [(v, 4 * ps, 1, 4 * x, 4 * y) for v in streams[1:]])
 
     starts = [[(v, p, ch, xx.int().contiguous(), yy.int().contiguous())
                for v, p, ch, xx, yy in views(ids)] for ids in sets]
@@ -312,25 +374,27 @@ def time_gather(scene, device, batch: int, rng) -> tuple[dict, float]:
                 )[:, None, :])
               for v, p, ch, xx, yy in views(ids)] for ids in sets]
     runs = {
-        "plain": lambda i: gather_dual(scene.ms, scene.pan, sets[i % 8], w, ps),
+        "plain": lambda i: plain_gather(*streams, sets[i % 8], w, ps),
         "kernel": lambda i: [gather_ops.gather_windows_cuda(v, xx, yy, p, ch)
                              for v, p, ch, xx, yy in starts[i % 8]],
         "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]],
     }
     med, times = time_in_turns(runs, iters=50)
     itemsize = scene.ms.element_size()
-    moved = (2 * batch * (ps * ps * c + (4 * ps) ** 2) * itemsize
-             + 4 * batch)  # windows read + written, anchor ids read
+    moved = (2 * batch * (ps * ps * c + (len(streams) - 1) * (4 * ps) ** 2)
+             * itemsize + 4 * batch)  # windows read + written, anchor ids
     bound = moved / HBM_BYTES_PER_S * 1e3
-    log(f"kernels: gather_dual B={batch} f32 ms median of 6: kernel "
+    tag = fast_gather.__name__.removesuffix("_fast")
+    log(f"kernels: {tag} B={batch} f32 ms median of 6: kernel "
         f"{med['kernel']:.4f} plain {med['plain']:.4f} library "
         f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "
         f"all: {json.dumps(times)}")
     return med, bound
 
 
-def phase_kernels(scene, device) -> dict:
-    """gather_windows vs gather_windows_ref at image6 shapes."""
+def phase_kernels(scene, device, mspan) -> dict:
+    """gather_windows vs gather_windows_ref at image6 shapes, as dual and
+    as tri gathers (``mspan``: the seeded IHS MSPAN scene)."""
     ps, w = scene.patch, scene.width
     h, c = scene.height, int(scene.ms.shape[-1])
     ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
@@ -343,28 +407,44 @@ def phase_kernels(scene, device) -> dict:
     rng = np.random.default_rng(0)
     worst = 0.0
 
-    def dual_case(ms, pan, ids_np, tag):
+    def case(streams, gathers, ids_np, tag):
+        """``gathers``' kernel against its plain version over ``streams``:
+        bit-equal, one B1 launch a stream."""
         nonlocal worst
+        plain_gather, fast_gather = gathers
+        name = fast_gather.__name__.removesuffix("_fast")
         ids = torch.from_numpy(ids_np).to(device)
-        got = gather_ops.gather_dual_fast(ms, pan, ids, w, ps)
-        want = gather_dual(ms, pan, ids, w, ps)
-        for g, r in zip(got, want):
-            check(g.dtype == r.dtype and g.shape == r.shape, f"{tag}: shape")
+        before = gather_ops.gather_windows_cuda.launches
+        got = fast_gather(*streams, ids, w, ps)
+        check(gather_ops.gather_windows_cuda.launches
+              == before + len(streams), f"{name} {tag}: not "
+              f"{len(streams)} launches")
+        want = plain_gather(*streams, ids, w, ps)
+        for g, r in zip(got, want, strict=True):
+            check(g.dtype == r.dtype and g.shape == r.shape,
+                  f"{name} {tag}: shape")
             err = _max_err(g, r)
             worst = max(worst, err)
-            check(torch.equal(g, r), f"{tag}: kernel != plain (max {err})")
-        log(f"kernels: gather_dual {tag}: bit-equal "
-            f"ms {tuple(got[0].shape)} pan {tuple(got[1].shape)}")
+            check(torch.equal(g, r),
+                  f"{name} {tag}: kernel != plain (max {err})")
+        log(f"kernels: {name} {tag}: bit-equal "
+            + " ".join(str(tuple(g.shape)) for g in got))
 
     ids = rng.integers(0, n, BUCKET).astype(np.int32)
     ids[0], ids[-1] = 0, n - 1
-    dual_case(scene.ms, scene.pan, ids, f"f32 B={BUCKET}")
-    dual_case(scene.ms, scene.pan, ids[:BUCKET - 3], f"f32 B={BUCKET - 3}")
-    ms16, pan16 = scene.ms.bfloat16(), scene.pan.bfloat16()
-    dual_case(ms16, pan16, ids, f"bf16 B={BUCKET}")
-    del ms16, pan16
+    # Corner anchors, the last row and column: windows reach the padded
+    # bottom and right edges.
+    ids[1:5] = [w - 1, (h - 1) * w, n - w, 2 * w - 1]
+    dual, tri = DualPrograms.gathers, TriPrograms.gathers
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        streams = tuple(t.to(dt) for t in (scene.ms, scene.pan, mspan))
+        for batch in (BUCKET, BUCKET - 3):
+            case(streams[:2], dual, ids[:batch], f"{tag} B={batch}")
+            case(streams, tri, ids[:batch], f"{tag} B={batch}")
+        del streams
 
-    for view, patch, chans in ((ms2d, ps, c), (scene.pan, 4 * ps, 1)):
+    for view, patch, chans in ((ms2d, ps, c), (scene.pan, 4 * ps, 1),
+                               (mspan, 4 * ps, 1)):
         hi_r, hi_c = view.shape[0] + 5, view.shape[1] // chans + 5
         xs = torch.tensor([-1, -hi_r, 0, hi_r, 10**9, 3, -7], dtype=torch.int32,
                           device=device)
@@ -375,11 +455,27 @@ def phase_kernels(scene, device) -> dict:
         check(torch.equal(got, want), f"clamped anchors, patch {patch}")
     log("kernels: clamped and negative starts: bit-equal")
 
-    med, bound = time_gather(scene, device, BUCKET, rng)
+    # The single-stream wrapper (no model of the repo has arity single):
+    # bit-equal and timed on its own.
+    ids_t = torch.from_numpy(ids).to(device)
+    check(torch.equal(gather_ops.gather_one_fast(scene.ms, ids_t, w, ps),
+                      gather_one(scene.ms, ids_t, w, ps)),
+          "gather_one_fast != gather_one")
+    one, one_bound = time_gather(scene, (scene.ms,),
+                                 (gather_one, gather_ops.gather_one_fast),
+                                 device, BUCKET, rng)
+    med, bound = time_gather(scene, (scene.ms, scene.pan),
+                             DualPrograms.gathers, device, BUCKET, rng)
     return {"gather_windows": {"max_abs_err": worst, "ms": med["kernel"],
                                "plain_ms": med["plain"],
                                "library_ms": med["library"],
-                               "bound_ms": bound, "bound_by": "bytes"}}
+                               "bound_ms": bound, "bound_by": "bytes",
+                               "one": {"B4096": {
+                                   "ms": one["kernel"],
+                                   "plain_ms": one["plain"],
+                                   "library_ms": one["library"],
+                                   "bound_ms": one_bound,
+                                   "bound_by": "bytes"}}}}
 
 
 def phase_serving(scene, device) -> dict:
@@ -781,19 +877,20 @@ def _op_profile(fn, what: str, top_n: int) -> dict:
                                          e.count] for e in top]}
 
 
-def _parity_losses(scene, device, rng) -> dict:
+def _parity_losses(scene, streams: tuple, device, rng) -> dict:
     """Three Adam steps from seeded w64 weights on three image6 batches of
-    256: f32 on the card (TF32 off) and on the CPU, bf16 on the card."""
+    256: f32 on the card (TF32 off) and on the CPU, bf16 on the card;
+    gmfnet over ``streams`` (MS, PAN), or tri_net over (MS, PAN, MSPAN)."""
     from dmfusion_torch.train.optim import make_optimizer
-    from dmfusion_torch.train.steps import DualPrograms
     labeled, _ = split_labels(scene.label)
     ids = torch.from_numpy(rng.choice(labeled, PARITY_STEPS * TRAIN_BATCH,
                                       replace=False).astype(np.int32))
     labels = torch.from_numpy(scene.label.reshape(-1)[ids.numpy()]
                               .astype(np.int64))
-    windows = [gather_ops.gather_dual_fast(scene.ms, scene.pan,
-                                           b.to(device), scene.width,
-                                           scene.patch)
+    over, programs = ((CFG, DualPrograms) if len(streams) == 2 else
+                      ({**CFG, "model_name": "tri_net"}, TriPrograms))
+    windows = [programs.gathers[1](*streams, b.to(device), scene.width,
+                                   scene.patch)
                for b in ids.split(TRAIN_BATCH)]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -801,19 +898,17 @@ def _parity_losses(scene, device, rng) -> dict:
     for tag, dev, dtype in (("f32_cpu", torch.device("cpu"), "float32"),
                             ("f32_card", device, "float32"),
                             ("bf16_card", device, "bfloat16")):
-        cfg = load_config(overrides={**CFG, "device": "cpu", "precision": {
+        cfg = load_config(overrides={**over, "device": "cpu", "precision": {
             "compute_dtype": dtype, "scene_dtype": "float32"}})
         model = build_model(cfg).to(dev)
         if dev.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
-        prog = DualPrograms(model, make_optimizer(cfg, model.parameters(),
-                                                  PARITY_STEPS),
-                            cfg, scene.width, scene.patch)
+        prog = programs(model, make_optimizer(cfg, model.parameters(),
+                                              PARITY_STEPS),
+                        cfg, scene.width, scene.patch)
         prog.init(torch.Generator().manual_seed(cfg["seed"]))
-        losses = [prog.train_step(ms_b.to(dev), pan_b.to(dev),
-                                  lab.to(dev))
-                  for (ms_b, pan_b), lab in zip(windows,
-                                                labels.split(TRAIN_BATCH))]
+        losses = [prog.train_step([t.to(dev) for t in win], lab.to(dev))
+                  for win, lab in zip(windows, labels.split(TRAIN_BATCH))]
         out[tag] = torch.stack(losses).cpu()
     for t in out.values():
         check(bool(torch.isfinite(t).all()), "parity: non-finite loss")
@@ -822,7 +917,8 @@ def _parity_losses(scene, device, rng) -> dict:
     check(gap32 <= 1e-3, f"f32 card vs CPU train losses differ by {gap32}")
     check(gap16 <= TRAIN_BF16_ATOL, f"bf16 vs f32 train losses differ by "
           f"{gap16} > {TRAIN_BF16_ATOL}")
-    return {"steps": PARITY_STEPS, "batch": TRAIN_BATCH,
+    return {"model": over.get("model_name", "gmfnet"), "steps": PARITY_STEPS,
+            "batch": TRAIN_BATCH,
             "losses": {k: v.tolist() for k, v in out.items()},
             "f32_card_vs_cpu_max_abs": gap32, "f32_tolerance": 1e-3,
             "bf16_vs_f32_card_max_abs": gap16,
@@ -837,7 +933,6 @@ def phase_train(scene, device) -> int:
     the CLI run."""
     from dmfusion_torch import cli
     from dmfusion_torch.solvers import build_solver
-    from dmfusion_torch.train.steps import DualPrograms
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         for spec in KERNELS.values():
@@ -956,8 +1051,9 @@ def phase_train(scene, device) -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     rng = np.random.default_rng(7)
-    med, bound = time_gather(scene, device, TRAIN_BATCH, rng)
-    parity = _parity_losses(scene, device, rng)
+    med, bound = time_gather(scene, (scene.ms, scene.pan),
+                             DualPrograms.gathers, device, TRAIN_BATCH, rng)
+    parity = _parity_losses(scene, (scene.ms, scene.pan), device, rng)
     n_train = len(split.train)
     result = {
         "model": "gmfnet", "width": width, "patch": 16, "batch": TRAIN_BATCH,
@@ -1248,7 +1344,8 @@ def _b1_patch47(scene, device) -> dict:
         "starts")
     out = {}
     for batch in (BUCKET, TRAIN_BATCH):
-        med, bound = time_gather(scene, device, batch, rng)
+        med, bound = time_gather(scene, (scene.ms, scene.pan),
+                                 DualPrograms.gathers, device, batch, rng)
         out[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
                             "library_ms": med["library"], "bound_ms": bound,
                             "bound_by": "bytes"}
@@ -1490,6 +1587,326 @@ def phase_train_conv(device) -> tuple[int, dict]:
     return launches["gather_windows"], b1
 
 
+def phase_train_tri(scene, device, mspan) -> tuple[int, dict]:
+    """Train tri_net w64 on image6 through ``python -m
+    dmfusion_torch.cli``'s ``main`` (2 epochs, test, color), check what it
+    writes and computes, hold the gather route and the card's losses
+    against their plain versions, export the best weights with ``python -m
+    dmfusion_torch.export`` and serve them; time it, and the tri bucket on
+    ``scene`` and ``mspan``; returns B1's launches over the CLI run and the
+    tri bucket's times."""
+    from dmfusion_torch import cli
+    from dmfusion_torch import export as export_cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_tri_")
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = cli.main(["--set", *TRI_TRAIN_SET, f"expo_result={tmp}/"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        prog, model, sc = solver.programs, solver.model, solver.scene
+        log(f"train_tri: the CLI run took {run_s:.2f} s; epochs "
+            f"{rec['EpochTime']} s, losses {rec['Loss']}, val "
+            f"{rec['ValLoss']}")
+        check(isinstance(prog, TriPrograms)
+              and model.ms_res.conv.out_channels == 64
+              and cfg["patch_size"] == 16 and cfg["batchsize"] == TRAIN_BATCH
+              and model.compute_dtype == torch.bfloat16
+              and sc.ms.dtype == torch.float32
+              and solver.device.type == "cuda", "train_tri: not the w64, "
+              "patch 16, bf16, f32-scene run on the card")
+        check(rec["Epoch"] == [0, 1], f"train_tri: epochs {rec['Epoch']}")
+        check(all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+              f"train_tri: non-finite losses {rec['Loss']} {rec['ValLoss']}")
+        check(rec["Loss"][1] < rec["Loss"][0],
+              f"train_tri: epoch 1 loss {rec['Loss'][1]} not below epoch "
+              f"0's {rec['Loss'][0]}")
+        check(int(solver.test_matrix.sum()) == len(split.test),
+              "train_tri: test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        check(oa >= 0.5, f"train_tri: test OA {oa} < 0.5")
+        out = cfg["RESULT_output"]
+        for f in ("0_weights.pt", "0_curweights.pt", "0_matrix.npy",
+                  "0_records.json", "0_pic_1.png", "0_pic_2.png"):
+            check(os.path.isfile(os.path.join(out, f)), f"train_tri: no {f}")
+        check(os.path.isfile(cfg["RESULT_excel"]), "train_tri: no workbook")
+
+        # MSPAN: PAN in exact arithmetic, padded like it.
+        ms, pan, mp = solver.scene_args
+        mspan_gap = float((mp - pan).abs().max())
+        log(f"train_tri: MSPAN {tuple(mp.shape)} {mp.dtype}, max |MSPAN - "
+            f"PAN| {mspan_gap}")
+        check(mp.shape == pan.shape and mp.dtype == torch.float32
+              and mspan_gap <= 1e-5, f"train_tri: MSPAN {tuple(mp.shape)} "
+              f"{mp.dtype}, {mspan_gap} from the padded PAN")
+
+        # B1: three launches (MS, PAN, MSPAN) per gathered batch.
+        ev = solver._eval_round_to()
+        batches = {"train": -(-len(split.train) // TRAIN_BATCH) * 2,
+                   "val": -(-len(split.valid) // ev) * 2,
+                   "test": -(-len(split.test) // ev),
+                   "color": -(-len(split.labeled) // ev)}
+        want = 3 * sum(batches.values())
+        check(ev == EVAL_BATCH and launches["gather_windows"] == want,
+              f"train_tri: {launches['gather_windows']} B1 launches, the "
+              f"split sizes give {want} ({batches}, eval batches of {ev})")
+
+        # The gather route: val confusion through B1 and the plain gather.
+        vb = solver.batches(split.valid, cfg["color_batchsize"], round_to=ev)
+        vb = (vb[0], vb[1], vb[2].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, conf_k = prog.eval_epoch(solver.scene_args, *vb)
+        conf_k = conf_k.cpu()
+        val_s = time.perf_counter() - t0
+        plain = TriPrograms(model, None, cfg, sc.width, sc.patch,
+                            plain_gather=True)
+        _, conf_p = plain.eval_epoch(solver.scene_args, *vb)
+        check(torch.equal(conf_k, conf_p.cpu()),
+              "train_tri: val confusion with B1 != with the plain gather")
+        del plain
+
+        # Train-only time of 20 steps, then a profile of the same steps.
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        steps = (tb[0][:PROFILE_STEPS], tb[1][:PROFILE_STEPS],
+                 tb[2][:PROFILE_STEPS].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.train_epoch(solver.scene_args, *steps).mean())
+        train_steps_s = time.perf_counter() - t0
+        prof = _profile(lambda: prog.train_epoch(solver.scene_args, *steps),
+                        f"{PROFILE_STEPS} tri_net train steps, B "
+                        f"{TRAIN_BATCH}", 10)
+        log("profile train_tri: " + json.dumps(prof))
+
+        # Entry points 2 and 3: export the best weights, serve them.
+        art = os.path.join(tmp, "tri.zip")
+        weights = os.path.join(out, "0_weights.pt")
+        export_cli.main(["--set", *TRI_TRAIN_SET, "--weights", weights,
+                         "--out", art])
+        clf = load_artifact(art, device)
+        check(clf.manifest["arity"] == "tri"
+              and len(clf.manifest["input_shapes"]) == 3
+              and clf.manifest["seed"] == cfg["seed"],
+              f"train_tri: artifact manifest {clf.manifest}")
+        pred = ScenePredictor(clf, sc, bucket=BUCKET)
+        check(torch.equal(pred.mspan, mp), "train_tri: the served MSPAN != "
+              "the solver's")
+        rng = np.random.default_rng(10)
+        chunks = rng.choice(split.labeled, (1 + TRI_REQUESTS) * BUCKET,
+                            replace=False).astype(np.int32).reshape(
+                                -1, BUCKET)
+        pred.predict_ids(chunks[0])
+        before = gather_ops.gather_windows_cuda.launches
+        request_ms, served = [], []
+        for c in chunks[1:]:
+            t0 = time.perf_counter()
+            served.append(pred.predict_ids(c))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        req_launches = gather_ops.gather_windows_cuda.launches - before
+        check(req_launches == 3 * TRI_REQUESTS,
+              f"train_tri: {req_launches} B1 launches for {TRI_REQUESTS} "
+              "requests")
+        x, y = sc.ids_to_xy(chunks[1:].reshape(-1))
+        check(np.array_equal(np.concatenate(served),
+                             solver.color_maps[0][x, y]),
+              "train_tri: served labels != the solver's color map")
+        # Where a request's (and a test batch's) time goes.
+        req_prof = _profile(lambda: [pred.predict_ids(c)
+                                     for c in chunks[1:3]],
+                            "2 tri_net requests of 4096", 10)
+        log("profile train_tri requests: " + json.dumps(req_prof))
+        try:
+            export_cli.main(["--set", *TRI_TRAIN_SET, "--weights", weights,
+                             "--map", "--out", os.path.join(tmp, "m.zip")])
+            check(False, "train_tri: export --map of tri_net returned")
+        except ValueError as e:
+            check("map route" in str(e), f"train_tri: export --map: {e}")
+        log(f"train_tri: served the exported weights: {TRI_REQUESTS} "
+            f"requests equal to the color map, request ms {request_ms}")
+        test_s, color_s = solver.test_time, solver.color_time
+        n_train = len(split.train)
+        n_val, n_test, n_lab = (len(split.valid), len(split.test),
+                                len(split.labeled))
+        del solver, prog, model, clf, pred, ms, pan, mp
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # The MSPAN build on the card, the tri bucket, the losses' parity.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = mspan_scene(scene, CFG["seed"])
+    torch.cuda.synchronize()
+    mspan_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(built, mspan), "train_tri: MSPAN differs between "
+          "two builds from one seed")
+    del built
+    # Its host share: the offsets drawn on a CPU generator.
+    t0 = time.perf_counter()
+    ihs.unpool_offsets((scene.height, scene.width, int(scene.ms.shape[-1])),
+                       int(scene.ms.shape[-1]),
+                       torch.Generator().manual_seed(CFG["seed"]))
+    offsets_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(12)
+    tri = {}
+    for batch in (BUCKET, TRAIN_BATCH):
+        med, bound = time_gather(scene, (scene.ms, scene.pan, mspan),
+                                 TriPrograms.gathers, device, batch, rng)
+        tri[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
+                            "library_ms": med["library"], "bound_ms": bound,
+                            "bound_by": "bytes"}
+    parity = _parity_losses(scene, (scene.ms, scene.pan, mspan), device, rng)
+    result = {
+        "model": "tri_net", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
+        "run_s": run_s, "epoch_s": rec["EpochTime"], "loss": rec["Loss"],
+        "val_loss": rec["ValLoss"], "val_oa": rec["ValOA"],
+        "train_anchors": n_train, "val_anchors": n_val,
+        "test_anchors": n_test, "color_anchors": n_lab,
+        "epoch1_samples_per_s": n_train / rec["EpochTime"][1],
+        "train_steps": PROFILE_STEPS, "train_steps_s": train_steps_s,
+        "train_step_ms": train_steps_s / PROFILE_STEPS * 1e3,
+        "train_samples_per_s": PROFILE_STEPS * TRAIN_BATCH / train_steps_s,
+        "busy_share": prof["busy_share"], "val_s": val_s, "test_s": test_s,
+        "test_anchors_per_s": n_test / test_s, "color_s": color_s,
+        "test_oa": oa, "test_aa": aa, "test_kappa": kap,
+        "mspan_gap_to_pan": mspan_gap, "mspan_build_ms": mspan_ms,
+        "mspan_offsets_draw_ms": offsets_ms,
+        "request_busy_share": req_prof["busy_share"],
+        "gather_batches": batches, "launches": launches,
+        "request_ms_median": statistics.median(request_ms),
+        "request_ms": request_ms, "tri_bucket": tri, "parity": parity}
+    log(f"train_tri: {json.dumps(result)}")
+    return launches["gather_windows"], tri
+
+
+def phase_zoo(scene, device) -> int:
+    """resnet18, cross_net and vision_transformer at the config's widths,
+    bf16, from seeded weights: 20 train steps through ``DualPrograms``,
+    then an artifact round trip serving 8 requests; logits against f32 on
+    the card and the CPU; returns B1's launches over the steps and
+    requests."""
+    from dmfusion_torch.train.optim import make_optimizer
+    from dmfusion_torch.train.steps import DualPrograms
+    labeled, _ = split_labels(scene.label)
+    rng = np.random.default_rng(13)
+    picked = rng.choice(labeled, (ZOO_STEPS + 1) * TRAIN_BATCH,
+                        replace=False).astype(np.int32)
+    ids, mask, _ = batched_ids(picked, TRAIN_BATCH, device=device)
+    labels = torch.from_numpy(scene.label.reshape(-1)[picked].astype(
+        np.int64)).to(device).reshape(ids.shape)
+    mask = mask.float()
+    chunks = rng.choice(labeled, (1 + ZOO_REQUESTS) * BUCKET,
+                        replace=False).astype(np.int32).reshape(-1, BUCKET)
+    scene_args = (scene.ms, scene.pan)
+    counter = gather_ops.gather_windows_cuda
+    total, results = 0, {}
+    for name, extra in ZOO.items():
+        cfg = load_config(overrides={**CFG, "model_name": name, **extra})
+        torch.cuda.reset_peak_memory_stats(device)
+        model = build_model(cfg).to(device, memory_format=torch.channels_last)
+        prog = DualPrograms(model, make_optimizer(cfg, model.parameters(),
+                                                  ZOO_STEPS + 1),
+                            cfg, scene.width, scene.patch)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        counter.launches = 0
+        # One warm-up step (cuDNN and cuBLAS pick their kernels), then 20.
+        prog.train_epoch(scene_args, ids[:1], labels[:1], mask[:1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = prog.train_epoch(scene_args, ids[1:], labels[1:], mask[1:])
+        losses = losses.cpu()
+        step_ms = (time.perf_counter() - t0) / ZOO_STEPS * 1e3
+        check(bool(torch.isfinite(losses).all())
+              and float(losses[-5:].mean()) < float(losses[:5].mean()),
+              f"zoo {name}: losses {losses.tolist()}")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            path = f"{tmp}/{name}.zip"
+            save_artifact(path, cfg, model)
+            clf = load_artifact(path, device)
+        # The widths the loader read from the artifact's tree.
+        for key, value in (extra or {"trans": cfg["trans"]}).items():
+            got = clf.cfg[key]
+            if isinstance(value, dict):
+                got = {k: got[k] for k in value}
+            check(got == value, f"zoo {name}: artifact {key} {got} != "
+                  f"{value}")
+        pred = ScenePredictor(clf, scene, bucket=BUCKET)
+        pred.predict_ids(chunks[0])
+        request_ms, served = [], []
+        for c in chunks[1:]:
+            t0 = time.perf_counter()
+            served.append(pred.predict_ids(c))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = counter.launches
+        want = 2 * (1 + ZOO_STEPS + 1 + ZOO_REQUESTS)
+        check(launches == want, f"zoo {name}: {launches} B1 launches, the "
+              f"steps and requests give {want}")
+        total += launches
+
+        # The trained weights: bf16 on the card and f32 on the card (TF32
+        # off) against f32 on the CPU on 256 anchors; bf16 vs f32 argmax
+        # agreement over a request.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        cfg32 = load_config(overrides={**cfg, "precision": {
+            "compute_dtype": "float32", "scene_dtype": "float32"}})
+        state = clf.model.state_dict()
+        card32 = build_model(cfg32).to(device,
+                                       memory_format=torch.channels_last)
+        card32.load_state_dict(state)
+        cpu32 = build_model(cfg32)
+        cpu32.load_state_dict({k: v.cpu() for k, v in state.items()})
+        req = torch.from_numpy(chunks[1]).to(device)
+        ms_b, pan_b = gather_ops.gather_dual_fast(scene.ms, scene.pan, req,
+                                                  scene.width, scene.patch)
+        with torch.inference_mode():
+            on_card = card32.eval()(ms_b, pan_b)
+            served16 = clf.logits(ms_b, pan_b)
+            on_cpu = cpu32.eval()(ms_b[:256].cpu(), pan_b[:256].cpu())
+        check(np.array_equal(served16.argmax(-1).cpu().numpy(), served[0]),
+              f"zoo {name}: served labels != the logits' argmax")
+        for t in (on_card, served16):
+            check(bool(torch.isfinite(t).all()) and t.dtype == torch.float32,
+                  f"zoo {name}: logits dtype or non-finite values")
+        err32 = _max_err(on_card[:256].cpu(), on_cpu)
+        err16 = _max_err(served16[:256].cpu(), on_cpu)
+        agree = float((served16.argmax(-1) == on_card.argmax(-1)).float()
+                      .mean())
+        agree_cpu = float((served16[:256].argmax(-1).cpu()
+                           == on_cpu.argmax(-1)).float().mean())
+        check(err32 <= 1e-3, f"zoo {name}: f32 card vs CPU logits differ by "
+              f"{err32}")
+        check(err16 <= ZOO_BF16_ATOL, f"zoo {name}: bf16 card vs f32 CPU "
+              f"logits differ by {err16} > {ZOO_BF16_ATOL}")
+        check(agree >= ZOO_AGREE_MIN, f"zoo {name}: bf16 vs f32 argmax "
+              f"agreement {agree} < {ZOO_AGREE_MIN}")
+        results[name] = {
+            "params": sum(p.numel() for p in model.parameters()),
+            "loss_first_last": [float(losses[0]), float(losses[-1])],
+            "step_ms": step_ms,
+            "samples_per_s": TRAIN_BATCH / step_ms * 1e3,
+            "request_ms_median": statistics.median(request_ms),
+            "anchors_per_s": ZOO_REQUESTS * BUCKET / sum(request_ms) * 1e3,
+            "request_ms": request_ms, "launches": launches,
+            "f32_card_vs_cpu_max_abs": err32,
+            "bf16_card_vs_f32_cpu_max_abs": err16,
+            "bf16_vs_f32_card_argmax_agree_4096": agree,
+            "bf16_card_vs_f32_cpu_argmax_agree_256": agree_cpu,
+            "logit_scale": float(on_cpu.abs().max()),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+        log(f"zoo {name}: {json.dumps(results[name])}")
+        del model, prog, clf, pred, card32, cpu32, on_card, served16
+        torch.cuda.empty_cache()
+    return total
+
+
 def phase_strip(scene, device) -> tuple[int, dict]:
     """B3: bit-equality with the plain version, the strip bench on the
     card, timings; returns the bench's launches and the kernel's row."""
@@ -1631,7 +2048,13 @@ def main() -> None:
     log(f"scene: {CFG['data_city']} synthetic, ms {tuple(scene.ms.shape)} pan "
         f"{tuple(scene.pan.shape)} {scene.ms.dtype}, "
         f"{time.perf_counter() - t0:.2f} s")
-    timings = phase_kernels(scene, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mspan = mspan_scene(scene, CFG["seed"])
+    torch.cuda.synchronize()
+    log(f"scene: MSPAN {tuple(mspan.shape)} {mspan.dtype} built in "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms (first build)")
+    timings = phase_kernels(scene, device, mspan)
     # Each path is driven with every count set to 0 just before it and read
     # just after; a kernel's launches are those of its own path.
     by_path = {"serving": phase_serving(scene, device)["gather_windows"]}
@@ -1643,6 +2066,10 @@ def main() -> None:
     launches["phase_pool"] = sum(pool_by_path.values())
     by_path["train_conv"], timings["gather_windows"]["patch47"] = \
         phase_train_conv(device)
+    by_path["train_tri"], timings["gather_windows"]["tri"] = \
+        phase_train_tri(scene, device, mspan)
+    del mspan
+    by_path["zoo"] = phase_zoo(scene, device)
     launches["gather_windows"] = sum(by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
                                                                     device)
@@ -1663,7 +2090,7 @@ def main() -> None:
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "unit": spec["unit"],
-                     **({"patch47": t["patch47"]}
+                     **({k: t[k] for k in ("one", "patch47", "tri")}
                         if name == "gather_windows" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -13,7 +13,9 @@ end from ``python -m dmfusion_torch.cli`` — run slots, seeded splits,
 losses, optimizers and schedules, train/eval/predict programs,
 checkpoints, the train/test/color solver, xlsx reports and class-map
 PNGs; and the whole-scene class map of the dense flagship, dense_fusion,
-with its phase window-pool as a second hand-written CUDA kernel.
+with its phase window-pool as a second hand-written CUDA kernel; dense
+and gmfnet_conv training; the tri arity (tri_net with its seeded IHS
+MSPAN stream) and the resnet18, cross_net and vit baselines.
 """
 
 __version__ = "0.1.0"

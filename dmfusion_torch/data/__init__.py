@@ -7,4 +7,5 @@ from dmfusion_torch.data.scene import (  # noqa: F401
     split_labels_masked,
     synthetic_scene,
 )
-from dmfusion_torch.data.patches import gather_dual, gather_one  # noqa: F401
+from dmfusion_torch.data.patches import (gather_dual, gather_one,  # noqa: F401
+                                         gather_tri)

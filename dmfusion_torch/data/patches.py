@@ -40,6 +40,22 @@ def gather_dual(ms: torch.Tensor, pan: torch.Tensor, ids: torch.Tensor,
     return ms_p, pan_p
 
 
+def gather_tri(ms: torch.Tensor, pan: torch.Tensor, mspan: torch.Tensor,
+               ids: torch.Tensor, width: int, patch: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MS window + PAN window + IHS-fused MSPAN window; the MSPAN stream is
+    at PAN geometry (reference dataset_tri, train/dataset.py:248-282).
+    Returns ``(B, ps, ps, C)``, ``(B, 4ps, 4ps, 1)`` and ``(B, 4ps, 4ps,
+    1)``."""
+    x, y = ids_to_xy(ids, width)
+    ms_p = gather_windows(ms, x, y, patch)
+    pan3 = pan[..., None] if pan.ndim == 2 else pan
+    mspan3 = mspan[..., None] if mspan.ndim == 2 else mspan
+    pan_p = gather_windows(pan3, 4 * x, 4 * y, 4 * patch)
+    mspan_p = gather_windows(mspan3, 4 * x, 4 * y, 4 * patch)
+    return ms_p, pan_p, mspan_p
+
+
 def gather_one(img: torch.Tensor, ids: torch.Tensor, width: int,
                patch: int) -> torch.Tensor:
     """Single-modality windows (reference dataset_one)."""

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from dmfusion_torch.config import resolve_device
+from dmfusion_torch.ops.ihs import ihs_transform
 
 
 def minmax_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -43,6 +44,24 @@ def pad_scene(x: torch.Tensor, patch: int) -> torch.Tensor:
 def prep_scene(x: torch.Tensor, patch: int, dtype: torch.dtype) -> torch.Tensor:
     """normalize + reflect-pad + cast, on ``x``'s device."""
     return pad_scene(minmax_normalize(x), patch).to(dtype)
+
+
+def mspan_scene(scene: Scene, seed: int) -> torch.Tensor:
+    """The tri arity's third stream: the seeded IHS pansharpen of the raw
+    scene at PAN geometry, normalized and padded like PAN, float32 (as
+    dmfusion keeps it whatever ``precision.scene_dtype`` says), on the
+    scene's device.  The (4H, 4W, C) unpooled intermediate is freed before
+    this returns."""
+    device = scene.pan.device
+    mspan = ihs_transform(
+        torch.from_numpy(np.asarray(scene.raw_ms, np.float32)).to(device),
+        torch.from_numpy(np.asarray(scene.raw_pan, np.float32)).to(device),
+        torch.Generator().manual_seed(int(seed)))
+    out = prep_scene(mspan, 4 * scene.patch, torch.float32)
+    del mspan
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def split_labels(label: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

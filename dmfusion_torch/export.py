@@ -16,7 +16,11 @@
 
 ``load_artifact`` reads that zip or a ``.dmx`` written by the JAX package
 (``manifest.json`` + ``params.msgpack``; its ``program.bin`` is StableHLO
-for XLA and is ignored) and rebuilds the model from the manifest.
+for XLA and is ignored) and rebuilds the model from the manifest and the
+widths its param tree gives (a ``.dmx`` records ``model_width`` but no
+``trans``).  Per-anchor artifacts take arity ``dual`` (two inputs) or
+``tri`` (three: MS, PAN and the MSPAN stream that serving rebuilds from
+the manifest's ``seed``).
 
     python -m dmfusion_torch.export --weights W.pt [--map] --out X.zip \
         [--config C] [--city CITY] [--model NAME] [--set key=value ...]
@@ -40,7 +44,8 @@ import torch
 from dmfusion_torch.config import _deep_merge, load_config, resolve_device
 from dmfusion_torch.models import build_model, model_arity
 from dmfusion_torch.models.convert import load_flax_params, params_to_flax
-from dmfusion_torch.models.registry import model_map_programs
+from dmfusion_torch.models.registry import (get_model_class,
+                                            model_map_programs)
 from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
                                         resolve_conv_streams,
                                         resolve_dense_streams,
@@ -83,8 +88,9 @@ def _manifest(cfg: Mapping[str, Any], map_route: bool) -> dict[str, Any]:
         "seed": int(cfg.get("seed", 0)),
         "compute_dtype": str(prec.get("compute_dtype", "bfloat16")),
         "scene_dtype": str(prec.get("scene_dtype", "float32")),
-        "input_shapes": [["b", str(ps), str(ps), str(chans)],
-                         ["b", str(4 * ps), str(4 * ps), "1"]],
+        "input_shapes": [["b", str(ps), str(ps), str(chans)]] + [
+            ["b", str(4 * ps), str(4 * ps), "1"]] * (2 if arity == "tri"
+                                                      else 1),
         "torch_version": torch.__version__,
         "activate": str(cfg["schedule"]["activate"]),
     }
@@ -173,11 +179,12 @@ def read_manifest(path: str | os.PathLike) -> dict[str, Any]:
 
 class TorchClassifier:
     """A loaded artifact: ``manifest``, the config ``cfg`` it was rebuilt
-    from, and the model on ``device``.  Per-anchor artifacts (arity
-    ``dual``) take NHWC window batches in ``logits(ms, pan)`` and
-    ``predict(ms, pan)``; map artifacts (arity ``dense``, or ``serving:
-    "map"``) take the padded scene in ``logits(ms, pan)`` (the (H, W,
-    ncls) map) and ``class_map(ms, pan)``."""
+    from, and the model on ``device``.  Per-anchor artifacts take NHWC
+    window batches in ``logits(*inputs)`` and ``predict(*inputs)``: ``(ms,
+    pan)`` for arity ``dual``, ``(ms, pan, mspan)`` for ``tri``; map
+    artifacts (arity ``dense``, or ``serving: "map"``) take the padded
+    scene in ``logits(ms, pan)`` (the (H, W, ncls) map) and
+    ``class_map(ms, pan)``."""
 
     def __init__(self, model: torch.nn.Module, manifest: dict[str, Any],
                  device: torch.device, cfg: Mapping[str, Any]):
@@ -194,19 +201,19 @@ class TorchClassifier:
                 or self.manifest.get("serving") == "map")
 
     @torch.inference_mode()
-    def logits(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+    def logits(self, *inputs: torch.Tensor) -> torch.Tensor:
         ps = int(self.manifest["patch_size"])
         if self.manifest["arity"] == "dense":
-            return self.model(ms, pan, ps)
+            return self.model(*inputs, ps)
         if self.is_map:
-            return self.model.logits_map(ms, pan, ps)
-        return self.model(ms, pan)
+            return self.model.logits_map(*inputs, ps)
+        return self.model(*inputs)
 
-    def predict(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
+    def predict(self, *inputs: torch.Tensor) -> torch.Tensor:
         if self.is_map:
             raise ValueError("map artifacts classify whole scenes: call "
                              "class_map(ms, pan) with the padded scene")
-        return self.logits(ms, pan).argmax(dim=-1).to(torch.int32)
+        return self.logits(*inputs).argmax(dim=-1).to(torch.int32)
 
     def class_map(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
         """Map artifacts only: the (H, W) int32 class map of the padded
@@ -233,10 +240,11 @@ def load_artifact(path: str | os.PathLike,
     (default: ``resolve_device`` of the config, i.e. ``cuda:0`` unless
     ``overrides`` say ``device: cpu``; raises when there is no card).
 
-    A ``.dmx`` does not record ``gmfnet_pan`` (read here from the param
-    tree) nor the activation its program bakes in: that comes only from
-    ``overrides`` (e.g. ``{"schedule": {"activate": "Gelu"}}``), and
-    without it the load raises.  The width is read from the tree.
+    A ``.dmx`` does not record the activation its program bakes in: that
+    comes only from ``overrides`` (e.g. ``{"schedule": {"activate":
+    "Gelu"}}``), and without it the load raises.  The widths (and
+    gmfnet's PAN branch, which a ``.dmx`` does not record either) are read
+    from the param tree by the model class's ``widths_from_tree``.
     """
     with zipfile.ZipFile(path) as zf:
         manifest = json.loads(zf.read("manifest.json"))
@@ -254,9 +262,10 @@ def load_artifact(path: str | os.PathLike,
         else:
             raise ValueError(f"{path}: no params.npz or params.msgpack")
     arity = manifest["arity"]
-    if arity not in ("dual", "dense"):
+    if arity not in ("dual", "tri", "dense"):
         raise ValueError(f"{path}: arity {arity!r} is not ported to "
-                         f"dmfusion_torch yet (ported: 'dual', 'dense')")
+                         f"dmfusion_torch yet (ported: 'dual', 'tri', "
+                         f"'dense')")
     act = manifest.get("activate") or (overrides or {}).get(
         "schedule", {}).get("activate")
     if act is None:
@@ -278,16 +287,8 @@ def load_artifact(path: str | os.PathLike,
         # by the manifest itself.
         cfg_over["DATA_DICT"] = {manifest["data_city"]: {
             "size": manifest["scene_shape"], "color": manifest["palette"]}}
-    if arity == "dense":
-        cfg_over["model_width"] = int(
-            np.shape(tree["ms_stem"]["WSConv_0"]["kernel"])[-1])
-    elif str(manifest["model_name"]).lower() == "gmfnet_conv":
-        cfg_over["model_width"] = int(np.shape(tree["ms_c1"]["kernel"])[-1])
-    else:
-        cfg_over["model_width"] = 2 * int(
-            np.shape(tree["ConvBlock_0"]["Conv_0"]["kernel"])[-1])
-        cfg_over["gmfnet_pan"] = manifest.get("gmfnet_pan") or (
-            "pyramid" if "PanPyramid_0" in tree else "s2d")
+    cfg_over.update(get_model_class(manifest["model_name"])
+                    .widths_from_tree(tree))
     if overrides:
         cfg_over = _deep_merge(cfg_over, overrides)
     cfg = load_config(overrides=cfg_over)

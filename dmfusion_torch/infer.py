@@ -1,9 +1,11 @@
 """Serving-side scene inference from an artifact.
 
-Port of ``dmfusion/infer.py`` for the ``dual`` and ``dense`` arities.
-``ScenePredictor`` runs a loaded classifier over a device-resident scene.
-Per-anchor (``dual``) artifacts gather windows (the CUDA kernel on the
-card, the plain gather on the CPU) into fixed-size ``bucket`` batches;
+Port of ``dmfusion/infer.py`` for the ``dual``, ``tri`` and ``dense``
+arities.  ``ScenePredictor`` runs a loaded classifier over a
+device-resident scene.  Per-anchor artifacts (``dual``; ``tri``, whose
+third stream, MSPAN, is rebuilt from the scene and the manifest's seed as
+the solver builds it) gather windows (the CUDA kernel on the card, the
+plain gather on the CPU) into fixed-size ``bucket`` batches;
 map artifacts (``dense``, and a gmfnet_conv export with ``--map``) render
 the whole-scene class map once and index it.  Both give argmax labels,
 OA/AA/kappa against the scene labels and class maps.
@@ -27,25 +29,31 @@ from typing import Any
 import numpy as np
 import torch
 
-from dmfusion_torch.ops.gather import gather_dual_fast
+from dmfusion_torch.data.scene import mspan_scene
+from dmfusion_torch.ops.gather import gather_dual_fast, gather_tri_fast
 
 
 class ScenePredictor:
     """Per-anchor scene classification through a loaded classifier.
 
     ``dual``: the MS anchor (x, y) owns a ``ps`` window, the PAN anchor
-    (4x, 4y) a ``4*ps`` window, as in training; every chunk of anchors is
-    padded to the one ``bucket`` size, so the model always sees one batch
-    shape.  Map artifacts (``clf.is_map``: ``dense``, or ``serving:
-    "map"``): the first query renders the whole-scene class map (one
-    ``clf.class_map`` call, cached), and every query indexes it.
+    (4x, 4y) a ``4*ps`` window, as in training; ``tri`` adds the MSPAN
+    window at the PAN anchor, from the MSPAN stream built with ``seed``
+    (default: the manifest's, as the artifact was trained with); every
+    chunk of anchors is padded to the one ``bucket`` size, so the model
+    always sees one batch shape.  Map artifacts (``clf.is_map``:
+    ``dense``, or ``serving: "map"``): the first query renders the
+    whole-scene class map (one ``clf.class_map`` call, cached), and every
+    query indexes it.
     """
 
-    def __init__(self, clf, scene, *, bucket: int = 4096):
+    def __init__(self, clf, scene, *, bucket: int = 4096,
+                 seed: int | None = None):
         arity = clf.manifest["arity"]
-        if arity not in ("dual", "dense"):
+        if arity not in ("dual", "tri", "dense"):
             raise ValueError(f"arity {arity!r} is not ported to "
-                             f"dmfusion_torch yet (ported: 'dual', 'dense')")
+                             f"dmfusion_torch yet (ported: 'dual', 'tri', "
+                             f"'dense')")
         if int(clf.manifest["patch_size"]) != int(scene.patch):
             raise ValueError(
                 f"scene was padded for patch_size={scene.patch} but the "
@@ -65,6 +73,14 @@ class ScenePredictor:
         self.scene = scene
         self.bucket = int(bucket)
         self._map_cache: np.ndarray | None = None
+        self.mspan = None
+        self.streams, self.gather = (scene.ms, scene.pan), gather_dual_fast
+        if arity == "tri":
+            if seed is None:
+                seed = int(clf.manifest.get("seed", 0) or 0)
+            self.mspan = mspan_scene(scene, seed)
+            self.streams += (self.mspan,)
+            self.gather = gather_tri_fast
 
     def _map(self) -> np.ndarray:
         """Map artifacts: the whole-scene (H, W) class map from one
@@ -78,11 +94,11 @@ class ScenePredictor:
             self._map_cache = out.cpu().numpy()[:s.height, :s.width]
         return self._map_cache
 
-    def _gather(self, ids_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        s = self.scene
-        ms_b, pan_b = gather_dual_fast(s.ms, s.pan, ids_b, s.width, s.patch)
+    def _gather(self, ids_b: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        windows = self.gather(*self.streams, ids_b, self.scene.width,
+                              self.scene.patch)
         # bf16 scenes widen exactly to the model's f32 inputs.
-        return ms_b.float(), pan_b.float()
+        return tuple(w.float() for w in windows)
 
     def predict_ids(self, ids: np.ndarray) -> np.ndarray:
         """Flat anchor ids -> predicted class id per anchor."""

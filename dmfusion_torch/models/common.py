@@ -6,10 +6,11 @@ reproduce the flax modules' arithmetic:
   * flax ``padding="SAME"`` pads ``(total // 2, total - total // 2)``, so a
     stride-2 3x3 conv on an even size pads ``(0, 1)``, not torch's
     symmetric ``padding=1`` (:class:`SameConv2d`),
-  * flax GroupNorm's epsilon is 1e-6 (torch's default is 1e-5), and its
-    output is in the compute dtype: autocast runs ``group_norm`` in
-    float32, so :class:`GroupNorm` casts the result back to its input's
-    dtype and the activations, gate and residual adds stay in bf16,
+  * flax GroupNorm's and LayerNorm's epsilon is 1e-6 (torch's default is
+    1e-5), and their output is in the compute dtype: autocast runs
+    ``group_norm`` and ``layer_norm`` in float32, so :class:`GroupNorm`
+    and :class:`LayerNorm` cast the result back to their input's dtype
+    and the activations, gate and residual adds stay in bf16,
   * ``ConvBlock`` picks its group count with a divisor loop, while the
     second norm of ``ResBlock`` takes ``min(8, features)`` groups,
   * flax ``nn.gelu`` is the tanh approximation,
@@ -24,11 +25,13 @@ from __future__ import annotations
 
 from typing import Any, Callable, Mapping, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 GROUPNORM_EPS = 1e-6
+LAYERNORM_EPS = 1e-6
 
 
 def activation_fn(cfg: Mapping[str, Any]) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -38,6 +41,13 @@ def activation_fn(cfg: Mapping[str, Any]) -> Callable[[torch.Tensor], torch.Tens
             "gelu": lambda x: F.gelu(x, approximate="tanh"),
             "silu": F.silu, "tanh": torch.tanh,
             "leakyrelu": F.leaky_relu}[name]
+
+
+def tree_shape(tree: Mapping[str, Any], *path: str) -> tuple[int, ...]:
+    """The shape of the leaf at ``path`` of a flax param tree."""
+    for key in path:
+        tree = tree[key]
+    return tuple(int(d) for d in np.shape(tree))
 
 
 def dtypes(cfg: Mapping[str, Any]) -> tuple[torch.dtype, torch.dtype]:
@@ -74,6 +84,17 @@ class GroupNorm(nn.GroupNorm):
 
     def __init__(self, num_groups: int, num_channels: int):
         super().__init__(num_groups, num_channels, eps=GROUPNORM_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x).to(x.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last dim with flax's epsilon, whose output keeps
+    the input dtype (float32 statistics and affine, then one rounding)."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=LAYERNORM_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x).to(x.dtype)
@@ -188,7 +209,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded initialization like flax's defaults: conv and dense kernels
     LeCun-normal (variance 1/fan_in), biases zero, norm scales one; a
     module with a ``flax_init(generator)`` method initializes its own
-    parameters (the dense family's WSConv, alpha and raw head params)."""
+    parameters (the dense family's WSConv, alpha and raw head params, the
+    transformers' position, modality and class embeddings)."""
     with torch.no_grad():
         for m in model.modules():
             if hasattr(m, "flax_init"):
@@ -199,7 +221,7 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
                                 dtype=torch.float32)
                 m.weight.copy_(w / fan_in ** 0.5)
                 m.bias.zero_()
-            elif isinstance(m, nn.GroupNorm):
+            elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
     return model

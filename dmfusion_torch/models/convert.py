@@ -10,11 +10,20 @@ are ``kernel``, ``bias``, ``scale``, ``gain``), or a raw parameter (the
 dense heads' ``head1_kernel``, a residual ``alpha``), copied as it is.
 Layouts differ for leaf modules: conv kernels are HWIO in flax and OIHW
 in torch, dense kernels ``(in, out)`` against ``(out, in)``, and
-GroupNorm's ``scale`` is torch's ``weight``.  Conversion in either
-direction raises on anything left unmatched, so a tree of another model
-or width never loads in part.  The root scope is the model class's
-``flax_root`` (``Net`` for gmfnet, ``DenseNet`` for dense_fusion,
-``ConvNet`` for gmfnet_conv, whose tree names every layer explicitly).
+GroupNorm's and LayerNorm's ``scale`` is torch's ``weight``.  An
+attention layer's ``query``/``key``/``value`` kernels are ``DenseGeneral``
+``(in, heads, head_dim)`` with ``(heads, head_dim)`` biases, and its
+``out`` kernel is ``(heads, head_dim, dim)``: torch ``nn.Linear`` layers
+over the flattened head axes, heads major (leaf kinds ``HEADS_IN`` and
+``HEADS_OUT``; the head count is the attention module's ``heads``).
+Conversion in either direction raises on anything left unmatched, so a
+tree of another model or width never loads in part.  The root scope is
+the model class's ``flax_root``: ``Net`` for gmfnet, ``DenseNet`` for
+dense_fusion, ``ConvNet`` for gmfnet_conv (whose tree names every layer
+explicitly), and ``TriNet``, ``ResNet18``, ``CrossNet`` and ``ViT`` for
+the tri_net, resnet18, cross_net and vit trees, each rooted at flax's
+``Net`` (tri_net's ``ResBlock_2`` is its MSPAN branch, gmfnet's the
+trunk's first block: one name, two layers).
 
 The optimizer state goes across the same way (:func:`opt_state_from_optax`,
 :func:`opt_state_to_optax`): an optax Adam, SGD or RMSprop state, as
@@ -34,11 +43,18 @@ from torch import nn
 
 LEAF = "leaf"    # a module whose params are kernel/bias/scale/gain leaves
 PARAM = "param"  # a raw parameter, same array in both frameworks
+HEADS_IN = "heads_in"    # DenseGeneral dim -> (heads, head_dim)
+HEADS_OUT = "heads_out"  # DenseGeneral (heads, head_dim) -> dim
+_LEAVES = (LEAF, HEADS_IN, HEADS_OUT)
 
 
 def _conv_block(n: int, path: str) -> dict[str, tuple[str, str]]:
     return {f"ConvBlock_{i}": (f"{path}.{i}", "ConvBlock") for i in range(n)}
 
+
+# The transformer scopes list blocks up to this depth; a deeper model's
+# extra blocks are refused as unmatched.
+_DEPTHS = 32
 
 # Per scope: flax child name -> (torch attribute path, child scope or kind).
 _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
@@ -74,6 +90,55 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
             "t2_c1", "t2_c2", "t3_c1", "t3_c2", "t3_sc", "head1", "head2")},
         **{n: (n, PARAM) for n in ("alpha_ms", "alpha_pan", "alpha1",
                                    "alpha2", "alpha3")}},
+    "TriNet": {"ConvBlock_0": ("ms_stem", "ConvBlock"),
+               "ResBlock_0": ("ms_res", "ResBlock"),
+               "PanPyramid_0": ("pan", "PanPyramid"),
+               "ResBlock_1": ("pan_res", "ResBlock"),
+               "PanPyramid_1": ("mspan", "PanPyramid"),
+               "ResBlock_2": ("mspan_res", "ResBlock"),
+               "stream_gate": ("stream_gate", LEAF),
+               "ResBlock_3": ("trunk.0", "ResBlock"),
+               "ResBlock_4": ("trunk.1", "ResBlock"),
+               "MLPHead_0": ("head", "MLPHead")},
+    "ResNet18": {"ms_branch": ("ms_branch", "Branch"),
+                 "pan_branch": ("pan_branch", "Branch"),
+                 "MLPHead_0": ("head", "MLPHead")},
+    "Branch": {"ConvBlock_0": ("stem", "ConvBlock"),
+               **{f"ResBlock_{i}": (f"blocks.{i}", "ResBlock")
+                  for i in range(8)}},
+    "CrossNet": {
+        "ms_embed": ("ms_embed", LEAF), "pan_embed": ("pan_embed", LEAF),
+        "PanPyramid_0": ("pan", "PanPyramid"),
+        "pos_ms": ("pos_ms", PARAM), "pos_pan": ("pos_pan", PARAM),
+        **{f"{n}_{i}": (f"{n}.{i}", "CrossAttnBlock")
+           for n in ("ms_from_pan", "pan_from_ms") for i in range(_DEPTHS)},
+        **{f"{n}_{i}": (f"{n}.{i}", "SelfAttnBlock")
+           for n in ("ms_self", "pan_self") for i in range(_DEPTHS)},
+        "MLPHead_0": ("head", "MLPHead")},
+    "ViT": {"ms_embed": ("ms_embed", LEAF), "pan_embed": ("pan_embed", LEAF),
+            "PanPyramid_0": ("pan", "PanPyramid"),
+            **{n: (n, PARAM) for n in ("pos", "modality", "cls")},
+            **{f"block_{i}": (f"blocks.{i}", "SelfAttnBlock")
+               for i in range(_DEPTHS)},
+            "LayerNorm_0": ("norm", LEAF),
+            "MLPHead_0": ("head", "MLPHeadOut")},
+    # flax's MLPHead without a hidden layer names its one Dense "Dense_0".
+    "MLPHeadOut": {"Dense_0": ("out", LEAF)},
+    "SelfAttnBlock": {"LayerNorm_0": ("ln_0", LEAF),
+                      "MultiHeadDotProductAttention_0": (
+                          "attn", "MultiHeadAttention"),
+                      "LayerNorm_1": ("ln_1", LEAF),
+                      "Dense_0": ("fc_0", LEAF), "Dense_1": ("fc_1", LEAF)},
+    "CrossAttnBlock": {"LayerNorm_0": ("ln_0", LEAF),
+                       "LayerNorm_1": ("ln_1", LEAF),
+                       "MultiHeadDotProductAttention_0": (
+                           "attn", "MultiHeadAttention"),
+                       "LayerNorm_2": ("ln_2", LEAF),
+                       "Dense_0": ("fc_0", LEAF), "Dense_1": ("fc_1", LEAF)},
+    "MultiHeadAttention": {"query": ("query", HEADS_IN),
+                           "key": ("key", HEADS_IN),
+                           "value": ("value", HEADS_IN),
+                           "out": ("out", HEADS_OUT)},
     "LocalConvBlock": {"WSConv_0": ("conv", LEAF)},
     "LocalResBlock": {"LocalConvBlock_0": ("block", "LocalConvBlock"),
                       "WSConv_0": ("conv", LEAF),
@@ -81,14 +146,23 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
                       "alpha": ("alpha", PARAM)},
 }
 
+# A scope whose torch modules are of another class than its name.
+_SCOPE_CLASS = {"MLPHeadOut": "MLPHead"}
+
 
 def _f32(arr: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, dtype=np.float32))
 
 
-def _leaf_to_torch(name: str, arr: np.ndarray, where: str
+def _leaf_to_torch(name: str, arr: np.ndarray, where: str, kind: str = LEAF
                    ) -> tuple[str, torch.Tensor]:
     t = _f32(arr)
+    if kind == HEADS_IN and name == "kernel":   # (in, heads, hd)
+        return "weight", t.reshape(t.shape[0], -1).t().contiguous()
+    if kind == HEADS_IN and name == "bias":     # (heads, hd)
+        return "bias", t.reshape(-1)
+    if kind == HEADS_OUT and name == "kernel":  # (heads, hd, out)
+        return "weight", t.reshape(-1, t.shape[-1]).t().contiguous()
     if name == "kernel" and t.ndim == 4:
         return "weight", t.permute(3, 2, 0, 1).contiguous()
     if name == "kernel" and t.ndim == 2:
@@ -116,9 +190,9 @@ def params_from_flax(tree: Mapping[str, Any], root: str = "Net"
             tname = f"{tpath}.{attr}" if tpath else attr
             if kind == PARAM:
                 out[tname] = _f32(value)
-            elif kind == LEAF:
+            elif kind in _LEAVES:
                 for leaf, arr in value.items():
-                    pname, tensor = _leaf_to_torch(leaf, arr, where)
+                    pname, tensor = _leaf_to_torch(leaf, arr, where, kind)
                     out[f"{tname}.{pname}"] = tensor
             else:
                 walk(value, kind, where, tname)
@@ -142,12 +216,20 @@ def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
     return model
 
 
-def _leaf_to_flax(module: nn.Module, name: str, p: torch.Tensor
-                  ) -> tuple[str, np.ndarray]:
+def _leaf_to_flax(module: nn.Module, name: str, p: torch.Tensor,
+                  kind: str = LEAF, heads: int = 0) -> tuple[str, np.ndarray]:
     a = p.detach().to("cpu", torch.float32).numpy()
+    if kind == HEADS_IN and name == "weight":   # (heads*hd, in)
+        return "kernel", np.ascontiguousarray(a.T).reshape(
+            a.shape[1], heads, -1)
+    if kind == HEADS_IN and name == "bias":
+        return "bias", a.reshape(heads, -1)
+    if kind == HEADS_OUT and name == "weight":  # (out, heads*hd)
+        return "kernel", np.ascontiguousarray(a.T).reshape(
+            heads, -1, a.shape[0])
     if name in ("bias", "gain"):
         return name, a
-    if isinstance(module, nn.GroupNorm):
+    if isinstance(module, (nn.GroupNorm, nn.LayerNorm)):
         return "scale", a
     if name == "weight" and a.ndim == 4:
         return "kernel", np.ascontiguousarray(a.transpose(2, 3, 1, 0))
@@ -184,14 +266,16 @@ def params_to_flax(model: nn.Module,
                 child = module.get_submodule(attr)
             except AttributeError:  # an absent optional layer (shortcut)
                 continue
-            if kind != LEAF:
-                if type(child).__name__ == kind:  # picks the PAN variant
+            if kind not in _LEAVES:
+                # The class check picks gmfnet's PAN variant.
+                if type(child).__name__ == _SCOPE_CLASS.get(kind, kind):
                     walk(child, kind, node.setdefault(fname, {}), tname)
                 continue
             leaves = node.setdefault(fname, {})
             for pname, p in child.named_parameters(recurse=False):
                 leaf, arr = _leaf_to_flax(child, pname,
-                                          value(f"{tname}.{pname}", p))
+                                          value(f"{tname}.{pname}", p),
+                                          kind, getattr(module, "heads", 0))
                 leaves[leaf] = arr
                 seen += 1
 

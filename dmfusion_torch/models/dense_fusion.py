@@ -45,7 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from dmfusion_torch.models.common import activation_fn, dtypes
+from dmfusion_torch.models.common import activation_fn, dtypes, tree_shape
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops.pool import phase_pool
 from dmfusion_torch.utils.misc import parse_switch
@@ -279,6 +279,12 @@ class Net(nn.Module):
     probed with it off."""
 
     flax_root = "DenseNet"
+
+    @classmethod
+    def widths_from_tree(cls, tree: Mapping[str, Any]) -> dict[str, Any]:
+        """The width, from the flax tree's MS stem."""
+        return {"model_width": tree_shape(tree, "ms_stem", "WSConv_0",
+                                          "kernel")[-1]}
 
     def __init__(self, cfg: Mapping[str, Any]):
         super().__init__()

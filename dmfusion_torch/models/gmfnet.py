@@ -18,12 +18,22 @@ from torch import nn
 
 from dmfusion_torch.models.common import (ConvBlock, MLPHead, PanPyramid,
                                           PanSpaceToDepth, ResBlock,
-                                          activation_fn, dtypes)
+                                          activation_fn, dtypes,
+                                          tree_shape)
 from dmfusion_torch.models.registry import register
 
 
 @register("gmfnet")
 class Net(nn.Module):
+    @classmethod
+    def widths_from_tree(cls, tree: Mapping[str, Any]) -> dict[str, Any]:
+        """The config keys that size the model, read from its flax param
+        tree: the width (the MS stem is w // 2 wide) and the PAN branch."""
+        return {"model_width": 2 * tree_shape(tree, "ConvBlock_0", "Conv_0",
+                                              "kernel")[-1],
+                "gmfnet_pan": ("pyramid" if "PanPyramid_0" in tree
+                               else "s2d")}
+
     def __init__(self, cfg: Mapping[str, Any], width: int = 64):
         super().__init__()
         act = activation_fn(cfg)

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dmfusion_torch.models.common import activation_fn, dtypes
+from dmfusion_torch.models.common import activation_fn, dtypes, tree_shape
 from dmfusion_torch.models.dense_fusion import (_SQRT2, GateConv, WSConv,
                                                 space_to_depth)
 from dmfusion_torch.models.registry import register
@@ -105,6 +105,11 @@ class Net(nn.Module):
     (.., .., 1) at 4x)."""
 
     flax_root = "ConvNet"
+
+    @classmethod
+    def widths_from_tree(cls, tree: Mapping[str, Any]) -> dict[str, Any]:
+        """The width, from the flax tree's first MS conv."""
+        return {"model_width": tree_shape(tree, "ms_c1", "kernel")[-1]}
 
     def __init__(self, cfg: Mapping[str, Any], width: int = 64):
         super().__init__()

@@ -14,7 +14,9 @@ _EXPLICIT: dict[str, Callable] = {}
 
 # Ported model name -> module under dmfusion_torch.models.
 _PORTED = {"gmfnet": "gmfnet", "gmfnet_conv": "gmfnet_conv",
-           "dense_fusion": "dense_fusion"}
+           "dense_fusion": "dense_fusion", "tri_net": "tri_net",
+           "resnet18": "resnet18", "cross_net": "cross_net",
+           "vision_transformer": "vit", "vit": "vit"}
 
 # Model input contract (``dmfusion/models/registry.py``): how windows are
 # gathered and fed.  Names absent here are "dual": model(ms, pan).

@@ -138,3 +138,19 @@ def gather_dual_fast(ms: torch.Tensor, pan: torch.Tensor, ids: torch.Tensor,
                            4 * patch, pc)
     return (ms_p.reshape(b, patch, patch, c),
             pan_p.reshape(b, 4 * patch, 4 * patch, pc))
+
+
+def gather_tri_fast(ms: torch.Tensor, pan: torch.Tensor, mspan: torch.Tensor,
+                    ids: torch.Tensor, width: int, patch: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Same contract as :func:`dmfusion_torch.data.patches.gather_tri`:
+    :func:`gather_dual_fast`, then the MSPAN windows at the PAN anchor and
+    window (three kernel launches on the card)."""
+    ms_p, pan_p = gather_dual_fast(ms, pan, ids, width, patch)
+    mspan3 = mspan if mspan.ndim == 3 else mspan[..., None]
+    mc = mspan3.shape[-1]
+    mspan_p = gather_windows(mspan3.reshape(mspan3.shape[0], -1),
+                             4 * (ids // width), 4 * (ids % width),
+                             4 * patch, mc)
+    return ms_p, pan_p, mspan_p.reshape(ids.shape[0], 4 * patch, 4 * patch,
+                                        mc)

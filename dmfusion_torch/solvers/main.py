@@ -1,7 +1,8 @@
 """Solver: the train, test and color phases of a classifier.
 
 Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet,
-gmfnet_conv) and ``dense`` (dense_fusion).
+gmfnet_conv, resnet18, cross_net, vit), ``tri`` (tri_net) and ``dense``
+(dense_fusion).
 Semantics kept:
   * the model comes from the registry by ``model_name``, seeded with
     ``seed + repeat``; the optimizer counts ``ceil(len(train) / batchsize)``
@@ -33,7 +34,10 @@ train batches are built once), ``train.dense_remat`` and
 ``dense_streams_infer`` (by the two memory probes below).  Its test and
 color phases render the class map: one map gives both PNGs.  So do
 gmfnet_conv's (``ConvMapPrograms``, the shift-and-stitch route), which
-trains and validates per anchor like gmfnet.  Other
+trains and validates per anchor like gmfnet.  The tri arity adds a third
+scene, MSPAN: the seeded IHS pansharpen of the raw scene (seed ``seed``,
+``data/scene.py::mspan_scene``), built once on the device, normalized and
+padded like PAN, and gathered with MS and PAN by ``TriPrograms``.  Other
 arities, ``proof``, ``visualize`` and the two-stage solver are not ported
 yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -47,6 +51,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from dmfusion_torch.data.scene import mspan_scene
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.registry import (build_model, model_arity,
                                             model_map_programs)
@@ -58,13 +63,13 @@ from dmfusion_torch.train.checkpoint import (AsyncCheckpointWriter, exists,
                                              snapshot)
 from dmfusion_torch.train.optim import make_optimizer
 from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
-                                        DualPrograms, resolve_dense_epoch,
+                                        DualPrograms, TriPrograms,
+                                        resolve_dense_epoch,
                                         resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
 
 # Arity -> the ROADMAP item that ports its training.
-_UNPORTED_ARITY = {"tri": "A12", "single": "A12", "quad": "A11",
-                   "image": "A11"}
+_UNPORTED_ARITY = {"single": "A12", "quad": "A11", "image": "A11"}
 
 # The dense memory probes' decisions, per process.  dmfusion also keeps
 # them on disk, because each of its probes is an XLA compile that costs
@@ -194,7 +199,7 @@ class Solver(BaseSolver):
     def init_model(self) -> None:
         cfg = self.cfg
         arity = model_arity(cfg["model_name"])
-        if arity not in ("dual", "dense"):
+        if arity not in ("dual", "tri", "dense"):
             raise NotImplementedError(
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "
                 f"training is not ported to dmfusion_torch yet (ROADMAP "
@@ -207,6 +212,8 @@ class Solver(BaseSolver):
                 "(qua_loss is selected automatically by task 'dqtl')")
         if self.scene_args is None:
             self.scene_args = (self.scene.ms, self.scene.pan)
+            if arity == "tri":
+                self.scene_args += (mspan_scene(self.scene, cfg["seed"]),)
         streams = 0
         if arity == "dense":
             streams = resolve_dense_streams(cfg.get("dense_streams", "auto"),
@@ -242,9 +249,12 @@ class Solver(BaseSolver):
         else:
             # A model with a convolutional map route (gmfnet_conv) trains
             # per anchor and maps test and color in one pass.
-            cls = (ConvMapPrograms
-                   if model_map_programs(cfg["model_name"]) == "convmap"
-                   else DualPrograms)
+            if arity == "tri":
+                cls = TriPrograms
+            elif model_map_programs(cfg["model_name"]) == "convmap":
+                cls = ConvMapPrograms
+            else:
+                cls = DualPrograms
             self.programs = cls(model, self.optimizer, cfg, self.scene.width,
                                 self.scene.patch)
 

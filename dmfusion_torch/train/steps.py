@@ -21,24 +21,26 @@ owned output rows match the whole pass.  JAX's ``lax.scan`` over the
 bands, and over the batches, is a Python loop here.
 
 ``ConvMapPrograms`` is ``DualPrograms`` with the shift-and-stitch map
-route of gmfnet_conv for test and color.  The mesh routes and the
-tri/quad/h5 program families are not ported yet.
+route of gmfnet_conv for test and color.  ``TriPrograms`` is
+``DualPrograms`` over three streams (MS, PAN and the IHS-fused MSPAN at
+PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card.
+The mesh routes and the quad/h5 program families are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from dmfusion_torch.data.patches import gather_dual
+from dmfusion_torch.data.patches import gather_dual, gather_tri
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
                                                 phase_corner_sums, phase_sat,
                                                 sat_window_sums)
-from dmfusion_torch.ops.gather import gather_dual_fast
+from dmfusion_torch.ops.gather import gather_dual_fast, gather_tri_fast
 from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.train.losses import cross_entropy
 from dmfusion_torch.train.optim import reset_state
@@ -98,6 +100,8 @@ class DualPrograms:
 
     #: Per-anchor programs cannot render a whole-scene map.
     supports_map = False
+    #: The (plain, kernel) window gathers over ``scene_args``.
+    gathers = (gather_dual, gather_dual_fast)
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer | None,
@@ -122,21 +126,21 @@ class DualPrograms:
             reset_state(self.optimizer)
 
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
-                ) -> tuple[torch.Tensor, torch.Tensor]:
-        gather = gather_dual if self.plain_gather else gather_dual_fast
-        ms_b, pan_b = gather(scene_args[0], scene_args[1], ids_b, self.width,
-                             self.patch)
+                ) -> tuple[torch.Tensor, ...]:
+        gather = self.gathers[0 if self.plain_gather else 1]
+        windows = gather(*scene_args, ids_b, self.width, self.patch)
         # bf16 scenes widen exactly to the model's f32 inputs.
-        return ms_b.float(), pan_b.float()
+        return tuple(w.float() for w in windows)
 
     # -- one optimizer step ------------------------------------------------
-    def train_step(self, ms_b: torch.Tensor, pan_b: torch.Tensor,
+    def train_step(self, inputs: Sequence[torch.Tensor],
                    labels_b: torch.Tensor,
                    mask_b: torch.Tensor | None = None) -> torch.Tensor:
-        """One update on gathered windows; returns the loss, detached, on
+        """One update on gathered windows (``inputs``: the model's
+        arguments, e.g. ``(ms_b, pan_b)``); returns the loss, detached, on
         the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = cross_entropy(self.model(ms_b, pan_b), labels_b, mask_b)
+        loss = cross_entropy(self.model(*inputs), labels_b, mask_b)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
@@ -146,7 +150,7 @@ class DualPrograms:
                     labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """One update per batch; returns the (steps,) losses on the device."""
         self.model.train()
-        losses = [self.train_step(*self._gather(scene_args, ids[i]),
+        losses = [self.train_step(self._gather(scene_args, ids[i]),
                                   labels[i], mask[i])
                   for i in range(ids.shape[0])]
         return torch.stack(losses)
@@ -183,6 +187,15 @@ class DualPrograms:
                        ) -> torch.Tensor:
         """Confusion matrix of the test phase (loss discarded)."""
         return self.eval_epoch(scene_args, ids, labels, mask)[1]
+
+
+class TriPrograms(DualPrograms):
+    """Three-stream programs: ``scene_args`` is ``(ms, pan, mspan)``, the
+    IHS-fused MSPAN padded like PAN (reference dataset_tri,
+    train/dataset.py:248-282); every gather on the card launches the
+    window kernel three times (MS, PAN, MSPAN)."""
+
+    gathers = (gather_tri, gather_tri_fast)
 
 
 def resolve_dense_streams(value, ms_rows: int, ms_cols: int) -> int:

@@ -102,6 +102,39 @@ def test_gather_dual_kernel_bit_equal_patch47(cuda, dtype, batch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_tri_bucket_bit_equal(cuda, dtype):
+    """The tri arity's bucket of 4096 through B1: MS, PAN and MSPAN (a
+    second PAN-geometry scene), three launches, bit-equal to the plain
+    ``gather_tri``."""
+    ms, pan = _scene(dtype, cuda)
+    _, mspan = _scene(dtype, cuda, seed=1)
+    rng = np.random.default_rng(7)
+    ids_np = rng.integers(0, H * W, 4096).astype(np.int32)
+    ids_np[:2] = H * W - 1, 0
+    ids = torch.from_numpy(ids_np).to(cuda)
+    before = gather.gather_windows_cuda.launches
+    got = gather.gather_tri_fast(ms, pan, mspan, ids, W, PS)
+    assert gather.gather_windows_cuda.launches == before + 3
+    want = patches.gather_tri(ms, pan, mspan, ids, W, PS)
+    torch.cuda.synchronize()
+    assert got[2].shape == (4096, 4 * PS, 4 * PS, 1)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.equal(g, w)
+
+
+def test_gather_tri_cpu_takes_plain_version():
+    ms, pan = _scene()
+    _, mspan = _scene(seed=1)
+    ids = torch.tensor([0, H * W - 1, 5, 77], dtype=torch.int32)
+    before = gather.gather_windows_cuda.launches
+    got = gather.gather_tri_fast(ms, pan, mspan, ids, W, PS)
+    assert gather.gather_windows_cuda.launches == before
+    for g, w in zip(got, patches.gather_tri(ms, pan, mspan, ids, W, PS)):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
 def test_gather_kernel_clamps_like_plain(cuda):
     ms, pan = _scene(device=cuda)
     for view, patch, chans in ((ms.reshape(ms.shape[0], -1), PS, C),

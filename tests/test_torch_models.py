@@ -225,9 +225,13 @@ def test_converter_raises_on_unmatched():
 
 
 def test_registry():
-    assert available_models() == ["dense_fusion", "gmfnet", "gmfnet_conv"]
+    assert available_models() == [
+        "cross_net", "dense_fusion", "gmfnet", "gmfnet_conv", "resnet18",
+        "tri_net", "vision_transformer", "vit"]
     assert model_arity("gmfnet") == "dual" and model_arity("dqtl") == "quad"
     assert model_arity("gmfnet_conv") == "dual"
     assert model_arity("dense_fusion") == "dense"
-    with pytest.raises(ValueError, match="not ported.*gmfnet"):
-        build_model({"model_name": "resnet18"})
+    assert model_arity("tri_net") == "tri"
+    for name in ("swin_transformer", "ct_lstm"):
+        with pytest.raises(ValueError, match="not ported.*gmfnet"):
+            build_model({"model_name": name})

@@ -369,9 +369,9 @@ def test_unported_paths_raise(tmp_path):
         BaseSolver(_port_cfg(tmp_path, use_h5=1))
     with pytest.raises(NotImplementedError, match="A11"):
         build_solver(_port_cfg(tmp_path, solver="twostage"))
-    solver = build_solver(_port_cfg(tmp_path, model_name="tri_net"))
+    solver = build_solver(_port_cfg(tmp_path, model_name="dqtl"))
     solver.dataloader()
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A11"):
         solver.train()
     with pytest.raises(NotImplementedError, match="A15"):
         solver.proof()
