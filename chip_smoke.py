@@ -11,8 +11,10 @@ Phases; any failure exits non-zero before the result line:
                 window gather must be bit-equal for f32 and bf16 scenes, a
                 4096 bucket, an odd batch, corner and clamped anchors, as a
                 dual gather (MS, PAN), as a tri gather (MS, PAN and the
-                seeded IHS MSPAN scene, whose build on the card is timed)
-                and, at B 4096, as the single-stream wrapper;
+                seeded IHS MSPAN scene, whose build on the card is timed),
+                as a quad gather (the two-stage solver's four MS-geometry
+                streams, from seeded stage-1 scenes) and, at B 4096, as the
+                single-stream wrapper;
                 time the kernel, the plain version and one PyTorch indexing
                 call, and compute the bytes bound;
   4. serving  — gmfnet at width 64, bf16 compute, f32 scene, seeded
@@ -144,7 +146,37 @@ Phases; any failure exits non-zero before the result line:
                 test, color and the requests, a profile of the 20 steps, and
                 the tri bucket (3 launches) at B 4096 and B 256 beside its
                 bytes bound;
-  13. zoo     — resnet18 (width 32), cross_net and vision_transformer (the
+  13. train_quad — stage 2 of the two-stage solver through the CLI's
+                ``main`` as ``python -m dmfusion_torch.cli --solver twostage
+                --set model_name=dqtl dqtl.pre_trained=1 data_city=image6
+                epoch=2 time=1 color.index=1`` (dqtl w64, patch 16, batch
+                256, Adam, qua_loss, bf16 compute, four f32 image6 streams;
+                color over the labeled pixels), on seeded image6-shaped
+                stage-1 scenes written first (``msgan.npy`` near
+                pan2ms(PAN), ``pangan.npy`` near MS, each plus seeded noise):
+                two finite epoch losses, the second below the first; a fused
+                test matrix that sums to the test split with OA >= 0.5, and
+                four stream matrices that each sum to it; a ``streams``
+                sheet; every file written; B1 launched 4 times per gathered
+                batch (trimmed train batches, val, test and color), the
+                count computed from the split sizes; B1 bit-equal to
+                ``gather_quad`` at B 256 on a shuffled train batch and on the
+                padded last one; the five val confusions through B1 equal
+                to those through the plain gather; three Adam steps on
+                qua_loss from seeded weights: f32 card losses (TF32 off)
+                within 1e-3 of the CPU's, bf16 within QUAD_TRAIN_BF16_ATOL
+                of f32; ``python -m dmfusion_torch.export`` of the best
+                weights served by ``ScenePredictor`` with ``gan_dir`` (the
+                streams equal the solver's): 8 requests of 4096 labeled
+                anchors, 4 launches a request, labels equal to the solver's
+                color map and to the plain gather's on the card; the three
+                serving refusals (no ``gan_dir``, a missing GAN scene, one
+                of another shape); times of the epochs, 20 train steps (and
+                their profile), val, test, color and the requests, and the
+                quad bucket (4 launches) at B 4096 and B 256 beside its
+                bytes bound, by CUDA events and by the profiler's device
+                time of the launches;
+  14. zoo     — resnet18 (width 32), cross_net and vision_transformer (the
                 config's ``trans``: embed 96, depth 2, 3 heads, patch 1) at
                 bf16 from seeded weights: 20 train steps of 256 through
                 ``DualPrograms`` (B1 twice a step, counted; the loss falls),
@@ -175,8 +207,10 @@ import numpy as np
 import torch
 
 from dmfusion_torch.config import load_config, resolve_device
-from dmfusion_torch.data.patches import batched_ids, gather_dual, gather_one
-from dmfusion_torch.data.scene import mspan_scene, split_labels, synthetic_scene
+from dmfusion_torch.data.patches import (batched_ids, gather_dual, gather_one,
+                                         gather_quad)
+from dmfusion_torch.data.scene import (mspan_scene, quad_streams, split_labels,
+                                       synthetic_scene)
 from dmfusion_torch.export import load_artifact, save_artifact
 from dmfusion_torch.infer import ScenePredictor
 from dmfusion_torch.models import build_model
@@ -193,7 +227,7 @@ from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
                                   conv_kernel_probe, strip_gather_bench,
                                   time_in_turns)
 from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
-                                        TriPrograms)
+                                        QuadPrograms, TriPrograms)
 
 BUCKET = 4096
 REQUESTS = 32
@@ -264,6 +298,24 @@ CONV_BAND_AGREE_MIN = 0.999
 # its export, served by 8 requests of 4096 labeled anchors.
 TRI_TRAIN_SET = ["model_name=tri_net", *TRAIN_SET]
 TRI_REQUESTS = 8
+# The two-stage run: stage 2 of the DQTL solver, the tentpole command line
+# (dqtl w64, patch 16, batch 256, bf16, four f32 image6 streams) on seeded
+# stage-1 scenes, color over the labeled pixels; then its export, served by
+# 8 requests of 4096 labeled anchors with the GAN scenes.
+QUAD_TRAIN_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
+                  "dqtl.pre_trained=1", *TRAIN_SET]
+QUAD_REQUESTS = 8
+# Quad buckets in the profiled window that reads B1's device time.
+QUAD_PROFILED = 20
+# The seeded stage-1 scenes: msgan (the GAN's fake PAN) is pan2ms(PAN) and
+# pangan (its fake MS) is MS, each plus seeded normal noise of this scale
+# (the synthetic scene's own noise is 0.25).
+GAN_NOISE = 0.1
+# bf16 vs f32 per-step qua_loss, three Adam steps from the same seeded w64
+# dqtl weights: on the CPU 1.1e-4-3.0e-4 apart on two image6 draws, at a
+# loss of 0.09-0.11 (a KL, far smaller than a 12-class cross-entropy); a
+# wrong layer or a lost update moves the loss by a good part of its size.
+QUAD_TRAIN_BF16_ATOL = 0.003
 # The zoo: the config's baselines at its widths (resnet18's base 32; the
 # transformers take ``trans``: embed 96, depth 2, 3 heads, patch 1).
 ZOO = {"resnet18": {"model_width": 32}, "cross_net": {},
@@ -342,17 +394,16 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def time_gather(scene, streams: tuple, gathers: tuple, device, batch: int,
-                rng) -> tuple[dict, float]:
-    """Time one gather of ``batch`` anchors over ``streams`` (the MS scene,
-    then the PAN-geometry ones: PAN, MSPAN), one B1 launch a stream, f32
-    scene: the kernel, the plain version (``gathers``: the (plain, kernel)
-    pair, as ``DualPrograms.gathers``) and one indexing call per stream;
-    print them with the bytes bound; return the medians and the bound
-    (ms)."""
+                rng, at_ms: int = 1) -> tuple[dict, float]:
+    """Time one gather of ``batch`` anchors over ``streams`` (the first
+    ``at_ms`` at MS geometry: MS, or the quad's four; the rest at PAN
+    geometry: PAN, MSPAN), one B1 launch a stream, f32 scenes: the kernel,
+    the plain version (``gathers``: the (plain, kernel) pair, as
+    ``DualPrograms.gathers``) and one indexing call per stream; print them
+    with the bytes bound; return the medians and the bound (ms)."""
     plain_gather, fast_gather = gathers
     ps, w = scene.patch, scene.width
-    c = int(scene.ms.shape[-1])
-    ms2d = streams[0].reshape(streams[0].shape[0], -1)
+    c = int(streams[0].shape[-1])
     n = scene.num_pixels
     # Eight anchor sets in turn so consecutive calls do not reuse L2 lines.
     # The kernel and the indexing call get their anchors precomputed (int32
@@ -363,8 +414,9 @@ def time_gather(scene, streams: tuple, gathers: tuple, device, batch: int,
 
     def views(ids):
         x, y = ids // w, ids % w
-        return ([(ms2d, ps, c, x, y)]
-                + [(v, 4 * ps, 1, 4 * x, 4 * y) for v in streams[1:]])
+        return ([(v.reshape(v.shape[0], -1), ps, c, x, y)
+                 for v in streams[:at_ms]]
+                + [(v, 4 * ps, 1, 4 * x, 4 * y) for v in streams[at_ms:]])
 
     starts = [[(v, p, ch, xx.int().contiguous(), yy.int().contiguous())
                for v, p, ch, xx, yy in views(ids)] for ids in sets]
@@ -380,8 +432,9 @@ def time_gather(scene, streams: tuple, gathers: tuple, device, batch: int,
         "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]],
     }
     med, times = time_in_turns(runs, iters=50)
-    itemsize = scene.ms.element_size()
-    moved = (2 * batch * (ps * ps * c + (len(streams) - 1) * (4 * ps) ** 2)
+    itemsize = streams[0].element_size()
+    moved = (2 * batch * (at_ms * ps * ps * c
+                          + (len(streams) - at_ms) * (4 * ps) ** 2)
              * itemsize + 4 * batch)  # windows read + written, anchor ids
     bound = moved / HBM_BYTES_PER_S * 1e3
     tag = fast_gather.__name__.removesuffix("_fast")
@@ -392,9 +445,10 @@ def time_gather(scene, streams: tuple, gathers: tuple, device, batch: int,
     return med, bound
 
 
-def phase_kernels(scene, device, mspan) -> dict:
-    """gather_windows vs gather_windows_ref at image6 shapes, as dual and
-    as tri gathers (``mspan``: the seeded IHS MSPAN scene)."""
+def phase_kernels(scene, device, mspan, quad) -> dict:
+    """gather_windows vs gather_windows_ref at image6 shapes, as dual, tri
+    and quad gathers (``mspan``: the seeded IHS MSPAN scene; ``quad``: the
+    two-stage solver's four streams)."""
     ps, w = scene.patch, scene.width
     h, c = scene.height, int(scene.ms.shape[-1])
     ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
@@ -438,13 +492,16 @@ def phase_kernels(scene, device, mspan) -> dict:
     dual, tri = DualPrograms.gathers, TriPrograms.gathers
     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         streams = tuple(t.to(dt) for t in (scene.ms, scene.pan, mspan))
+        quads = tuple(t.to(dt) for t in quad)
         for batch in (BUCKET, BUCKET - 3):
             case(streams[:2], dual, ids[:batch], f"{tag} B={batch}")
             case(streams, tri, ids[:batch], f"{tag} B={batch}")
-        del streams
+            case(quads, QuadPrograms.gathers, ids[:batch], f"{tag} B={batch}")
+        del streams, quads
 
+    pan_ms2d = quad[1].reshape(quad[1].shape[0], -1)
     for view, patch, chans in ((ms2d, ps, c), (scene.pan, 4 * ps, 1),
-                               (mspan, 4 * ps, 1)):
+                               (mspan, 4 * ps, 1), (pan_ms2d, ps, c)):
         hi_r, hi_c = view.shape[0] + 5, view.shape[1] // chans + 5
         xs = torch.tensor([-1, -hi_r, 0, hi_r, 10**9, 3, -7], dtype=torch.int32,
                           device=device)
@@ -880,18 +937,24 @@ def _op_profile(fn, what: str, top_n: int) -> dict:
 def _parity_losses(scene, streams: tuple, device, rng) -> dict:
     """Three Adam steps from seeded w64 weights on three image6 batches of
     256: f32 on the card (TF32 off) and on the CPU, bf16 on the card;
-    gmfnet over ``streams`` (MS, PAN), or tri_net over (MS, PAN, MSPAN)."""
+    gmfnet over ``streams`` (MS, PAN), tri_net over (MS, PAN, MSPAN), or
+    dqtl over the two-stage solver's four streams (qua_loss)."""
     from dmfusion_torch.train.optim import make_optimizer
     labeled, _ = split_labels(scene.label)
     ids = torch.from_numpy(rng.choice(labeled, PARITY_STEPS * TRAIN_BATCH,
                                       replace=False).astype(np.int32))
     labels = torch.from_numpy(scene.label.reshape(-1)[ids.numpy()]
                               .astype(np.int64))
-    over, programs = ((CFG, DualPrograms) if len(streams) == 2 else
-                      ({**CFG, "model_name": "tri_net"}, TriPrograms))
+    over, programs, bf16_atol = {
+        2: (CFG, DualPrograms, TRAIN_BF16_ATOL),
+        3: ({**CFG, "model_name": "tri_net"}, TriPrograms, TRAIN_BF16_ATOL),
+        4: ({**CFG, "model_name": "dqtl"}, QuadPrograms,
+            QUAD_TRAIN_BF16_ATOL)}[len(streams)]
     windows = [programs.gathers[1](*streams, b.to(device), scene.width,
                                    scene.patch)
                for b in ids.split(TRAIN_BATCH)]
+    if programs is QuadPrograms:  # dqtl takes the four streams as one batch
+        windows = [(torch.cat(win),) for win in windows]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = {}
@@ -915,14 +978,14 @@ def _parity_losses(scene, streams: tuple, device, rng) -> dict:
     gap32 = float((out["f32_card"] - out["f32_cpu"]).abs().max())
     gap16 = float((out["bf16_card"] - out["f32_card"]).abs().max())
     check(gap32 <= 1e-3, f"f32 card vs CPU train losses differ by {gap32}")
-    check(gap16 <= TRAIN_BF16_ATOL, f"bf16 vs f32 train losses differ by "
-          f"{gap16} > {TRAIN_BF16_ATOL}")
+    check(gap16 <= bf16_atol, f"bf16 vs f32 train losses differ by "
+          f"{gap16} > {bf16_atol}")
     return {"model": over.get("model_name", "gmfnet"), "steps": PARITY_STEPS,
             "batch": TRAIN_BATCH,
             "losses": {k: v.tolist() for k, v in out.items()},
             "f32_card_vs_cpu_max_abs": gap32, "f32_tolerance": 1e-3,
             "bf16_vs_f32_card_max_abs": gap16,
-            "bf16_tolerance": TRAIN_BF16_ATOL}
+            "bf16_tolerance": bf16_atol}
 
 
 def phase_train(scene, device) -> int:
@@ -1785,6 +1848,262 @@ def phase_train_tri(scene, device, mspan) -> tuple[int, dict]:
     return launches["gather_windows"], tri
 
 
+def gan_scenes(scene) -> tuple[np.ndarray, np.ndarray]:
+    """Seeded stand-ins of stage 1's output at the scene's shape, float32:
+    msgan (the GAN's fake PAN) near pan2ms(PAN), pangan (its fake MS) near
+    MS, each plus ``GAN_NOISE`` times a seeded normal draw."""
+    size = (scene.height, scene.width, int(scene.raw_ms.shape[-1]))
+    rng = np.random.default_rng(CFG["seed"])
+    pms = ihs.pan2ms(torch.from_numpy(scene.raw_pan), size).numpy()
+    msgan = pms + GAN_NOISE * rng.standard_normal(size, dtype=np.float32)
+    pangan = scene.raw_ms + GAN_NOISE * rng.standard_normal(
+        size, dtype=np.float32)
+    return msgan.astype(np.float32), pangan.astype(np.float32)
+
+
+def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
+    """Stage 2 of the two-stage solver: dqtl w64 on image6 through ``python
+    -m dmfusion_torch.cli --solver twostage``'s ``main`` (2 epochs, test,
+    color) on the seeded stage-1 scenes ``gan`` (written first); check what
+    it writes and computes, hold the gather route and the card's losses
+    against their plain versions, export the best weights with ``python -m
+    dmfusion_torch.export`` and serve them with the GAN scenes; time it,
+    and the quad bucket on ``quad`` (the same four streams); returns B1's
+    launches over the CLI run and the quad bucket's times."""
+    from dmfusion_torch import cli
+    from dmfusion_torch import export as export_cli
+    from dmfusion_torch.report.excel import Workbook
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_quad_")
+    try:
+        gan_dir = os.path.join(tmp, "dqtl_weights")
+        os.makedirs(gan_dir)
+        for name, arr in zip(("msgan.npy", "pangan.npy"), gan):
+            np.save(os.path.join(gan_dir, name), arr)
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = cli.main([*QUAD_TRAIN_SET, f"expo_result={tmp}/"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        prog, model, sc = solver.programs, solver.model, solver.scene
+        log(f"train_quad: the CLI run took {run_s:.2f} s; epochs "
+            f"{rec['EpochTime']} s, losses {rec['Loss']}, val "
+            f"{rec['ValLoss']}, val OA {rec['ValOA']}")
+        check(isinstance(prog, QuadPrograms)
+              and model.blocks[0].conv.out_channels == 64
+              and cfg["patch_size"] == 16 and cfg["batchsize"] == TRAIN_BATCH
+              and model.compute_dtype == torch.bfloat16
+              and all(t.dtype == torch.float32 and t.is_cuda
+                      for t in solver.scene_args)
+              and solver.device.type == "cuda", "train_quad: not the w64, "
+              "patch 16, bf16, f32-stream run on the card")
+        for got, want in zip(solver.scene_args, quad, strict=True):
+            check(torch.equal(got, want), "train_quad: the solver's streams "
+                  "differ from the ones built from the same GAN scenes")
+        check(rec["Epoch"] == [0, 1], f"train_quad: epochs {rec['Epoch']}")
+        check(all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+              f"train_quad: non-finite losses {rec['Loss']} {rec['ValLoss']}")
+        check(rec["Loss"][1] < rec["Loss"][0],
+              f"train_quad: epoch 1 loss {rec['Loss'][1]} not below epoch "
+              f"0's {rec['Loss'][0]}")
+        n_test = len(split.test)
+        check(int(solver.test_matrix.sum()) == n_test,
+              "train_quad: test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        check(oa >= 0.5, f"train_quad: test OA {oa} < 0.5")
+        check(solver.stream_matrices.shape[0] == 4
+              and all(int(m.sum()) == n_test
+                      for m in solver.stream_matrices),
+              "train_quad: the four stream matrices do not each sum to the "
+              "test split")
+        stream_oa = [r[1] for r in solver.stream_results]
+        out = cfg["RESULT_output"]
+        for f in ("0_weights.pt", "0_curweights.pt", "0_matrix.npy",
+                  "0_records.json", "0_pic_1.png", "0_pic_2.png"):
+            check(os.path.isfile(os.path.join(out, f)), f"train_quad: no {f}")
+        sheet = Workbook.load(cfg["RESULT_excel"])["streams"]
+        check([sheet.cell(2 + i, 1) for i in range(4)]
+              == ["MS", "PAN", "GM", "GP"], "train_quad: no streams sheet")
+
+        # B1: four launches (MS, pan2ms(PAN), msgan, pangan) per gathered
+        # batch; the train batches are trimmed to whole ones.
+        ev = solver._eval_round_to()
+        batches = {"train": len(split.train) // TRAIN_BATCH * 2,
+                   "val": -(-len(split.valid) // ev) * 2,
+                   "test": -(-n_test // ev),
+                   "color": -(-len(split.labeled) // ev)}
+        want = 4 * sum(batches.values())
+        check(ev == EVAL_BATCH and launches["gather_windows"] == want,
+              f"train_quad: {launches['gather_windows']} B1 launches, the "
+              f"split sizes give {want} ({batches}, eval batches of {ev})")
+
+        # B1 at the train path's shape: a shuffled train batch and the
+        # last one, padded with masked anchor 0, against the plain gather.
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        real_last = int(tb[2][-1].sum())
+        check(0 < real_last < TRAIN_BATCH,
+              f"train_quad: the last train batch holds {real_last} anchors")
+        for tag, row in (("shuffled", 0), (f"last, {real_last} real", -1)):
+            got = gather_ops.gather_quad_fast(*solver.scene_args, tb[0][row],
+                                              sc.width, sc.patch)
+            want_w = gather_quad(*solver.scene_args, tb[0][row], sc.width,
+                                 sc.patch)
+            for g, r in zip(got, want_w, strict=True):
+                check(g.shape == r.shape and torch.equal(g, r),
+                      f"train_quad: B1 != plain on the {tag} train batch "
+                      f"(max {_max_err(g, r)})")
+            log(f"kernels: gather_quad B={TRAIN_BATCH} {tag} train batch: "
+                f"bit-equal 4 x {tuple(got[0].shape)}")
+
+        # The gather route: the five val confusions through B1 and the
+        # plain gather.
+        vb = solver.batches(split.valid, cfg["color_batchsize"], round_to=ev)
+        vb = (vb[0], vb[1], vb[2].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, conf_k = prog.eval_epoch(solver.scene_args, *vb)
+        conf_k = conf_k.cpu()
+        val_s = time.perf_counter() - t0
+        plain = QuadPrograms(model, None, cfg, sc.width, sc.patch,
+                             plain_gather=True)
+        _, conf_p = plain.eval_epoch(solver.scene_args, *vb)
+        check(conf_k.shape == (5, 12, 12) and torch.equal(conf_k,
+                                                          conf_p.cpu()),
+              "train_quad: val confusions with B1 != with the plain gather")
+        del plain
+
+        # Train-only time of 20 steps, then a profile of the same steps.
+        steps = (tb[0][:PROFILE_STEPS], tb[1][:PROFILE_STEPS],
+                 tb[2][:PROFILE_STEPS].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.train_epoch(solver.scene_args, *steps).mean())
+        train_steps_s = time.perf_counter() - t0
+        prof = _profile(lambda: prog.train_epoch(solver.scene_args, *steps),
+                        f"{PROFILE_STEPS} dqtl train steps, B "
+                        f"{TRAIN_BATCH}", 10)
+        log("profile train_quad: " + json.dumps(prof))
+
+        # Entry points 2 and 3: export the best weights, serve them with
+        # the GAN scenes.
+        art = os.path.join(tmp, "dqtl.zip")
+        weights = os.path.join(out, "0_weights.pt")
+        export_cli.main(["--set", "model_name=dqtl", *TRAIN_SET,
+                         "--weights", weights, "--out", art])
+        clf = load_artifact(art, device)
+        check(clf.manifest["arity"] == "quad"
+              and clf.manifest["input_shapes"] == [["4b", "16", "16", "4"]],
+              f"train_quad: artifact manifest {clf.manifest}")
+        pred = ScenePredictor(clf, scene, bucket=BUCKET, gan_dir=gan_dir)
+        for got, want_s in zip(pred.streams, solver.scene_args, strict=True):
+            check(torch.equal(got, want_s), "train_quad: the served streams "
+                  "!= the solver's")
+        rng = np.random.default_rng(14)
+        chunks = rng.choice(split.labeled, (1 + QUAD_REQUESTS) * BUCKET,
+                            replace=False).astype(np.int32).reshape(
+                                -1, BUCKET)
+        pred.predict_ids(chunks[0])
+        before = gather_ops.gather_windows_cuda.launches
+        request_ms, served = [], []
+        for c in chunks[1:]:
+            t0 = time.perf_counter()
+            served.append(pred.predict_ids(c))
+            request_ms.append((time.perf_counter() - t0) * 1e3)
+        req_launches = gather_ops.gather_windows_cuda.launches - before
+        check(req_launches == 4 * QUAD_REQUESTS,
+              f"train_quad: {req_launches} B1 launches for {QUAD_REQUESTS} "
+              "requests")
+        x, y = sc.ids_to_xy(chunks[1:].reshape(-1))
+        check(np.array_equal(np.concatenate(served),
+                             solver.color_maps[0][x, y]),
+              "train_quad: served labels != the solver's color map")
+        # The same requests with the plain gather on the card.
+        for c, p in zip(chunks[1:], served):
+            ids = torch.from_numpy(c).to(device)
+            win = gather_quad(*pred.streams, ids, sc.width, sc.patch)
+            plain_p = clf.predict(torch.cat(win).float()).cpu().numpy()
+            check(np.array_equal(plain_p, p), "train_quad: kernel-gather "
+                  "and plain-gather predictions differ")
+        req_prof = _profile(lambda: [pred.predict_ids(c)
+                                     for c in chunks[1:3]],
+                            "2 dqtl requests of 4096", 10)
+        log("profile train_quad requests: " + json.dumps(req_prof))
+
+        # The three serving refusals.
+        refusals = (("no gan_dir", {}, ValueError, "--gan-weights"),
+                    ("missing", {"gan_dir": tmp}, FileNotFoundError,
+                     "msgan.npy"),
+                    ("stale", {"gan_dir": os.path.join(tmp, "stale")},
+                     ValueError, "pangan.npy has shape"))
+        stale = refusals[2][1]["gan_dir"]
+        os.makedirs(stale)
+        np.save(os.path.join(stale, "msgan.npy"), gan[0])
+        np.save(os.path.join(stale, "pangan.npy"), gan[1][:-1])
+        for tag, kw, exc, words in refusals:
+            try:
+                ScenePredictor(clf, scene, bucket=BUCKET, **kw)
+                check(False, f"train_quad: serving with {tag} GAN scenes "
+                      "was not refused")
+            except exc as e:
+                check(words in str(e), f"train_quad: {tag}: {e}")
+        log(f"train_quad: served the exported weights: {QUAD_REQUESTS} "
+            f"requests equal to the color map and to the plain gather's, "
+            f"request ms {request_ms}; the three refusals raised")
+        test_s, color_s = solver.test_time, solver.color_time
+        n_train, n_val, n_lab = (len(split.train), len(split.valid),
+                                 len(split.labeled))
+        del solver, prog, model, clf, pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # The quad bucket, the losses' parity.  Four launches of about 10 us
+    # of device work each can take less time than their four wrapper
+    # calls on the host, so beside the CUDA-event time of a bucket the
+    # profiler's device time of its launches is read too.
+    rng = np.random.default_rng(15)
+    timed = {}
+    for batch in (BUCKET, TRAIN_BATCH):
+        med, bound = time_gather(scene, quad, QuadPrograms.gathers, device,
+                                 batch, rng, at_ms=4)
+        sets = [torch.from_numpy(rng.integers(0, scene.num_pixels, batch)
+                                 .astype(np.int32)).to(device)
+                for _ in range(QUAD_PROFILED)]
+        dev = _profile(lambda: [gather_ops.gather_quad_fast(
+            *quad, ids, scene.width, scene.patch) for ids in sets],
+            f"{QUAD_PROFILED} quad buckets, B {batch}", 2)
+        timed[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
+                              "library_ms": med["library"],
+                              "bound_ms": bound, "bound_by": "bytes",
+                              "device_ms": dev["gather_kernel_ms"]
+                              / QUAD_PROFILED}
+    parity = _parity_losses(scene, quad, device, rng)
+    result = {
+        "model": "dqtl", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
+        "run_s": run_s, "epoch_s": rec["EpochTime"], "loss": rec["Loss"],
+        "val_loss": rec["ValLoss"], "val_oa": rec["ValOA"],
+        "train_anchors": n_train, "val_anchors": n_val,
+        "test_anchors": n_test, "color_anchors": n_lab,
+        "epoch1_samples_per_s": n_train / rec["EpochTime"][1],
+        "train_steps": PROFILE_STEPS, "train_steps_s": train_steps_s,
+        "train_step_ms": train_steps_s / PROFILE_STEPS * 1e3,
+        "train_samples_per_s": PROFILE_STEPS * TRAIN_BATCH / train_steps_s,
+        "busy_share": prof["busy_share"], "val_s": val_s, "test_s": test_s,
+        "test_anchors_per_s": n_test / test_s, "color_s": color_s,
+        "test_oa": oa, "test_aa": aa, "test_kappa": kap,
+        "stream_oa_ms_pan_gm_gp": stream_oa,
+        "request_busy_share": req_prof["busy_share"],
+        "gather_batches": batches, "launches": launches,
+        "request_ms_median": statistics.median(request_ms),
+        "request_ms": request_ms, "quad_bucket": timed, "parity": parity}
+    log(f"train_quad: {json.dumps(result)}")
+    return launches["gather_windows"], timed
+
+
 def phase_zoo(scene, device) -> int:
     """resnet18, cross_net and vision_transformer at the config's widths,
     bf16, from seeded weights: 20 train steps through ``DualPrograms``,
@@ -2054,7 +2373,13 @@ def main() -> None:
     torch.cuda.synchronize()
     log(f"scene: MSPAN {tuple(mspan.shape)} {mspan.dtype} built in "
         f"{(time.perf_counter() - t0) * 1e3:.2f} ms (first build)")
-    timings = phase_kernels(scene, device, mspan)
+    t0 = time.perf_counter()
+    gan = gan_scenes(scene)
+    quad = quad_streams(scene, *gan, device)
+    torch.cuda.synchronize()
+    log(f"scene: seeded stage-1 scenes and the four quad streams "
+        f"{tuple(quad[0].shape)} built in {time.perf_counter() - t0:.2f} s")
+    timings = phase_kernels(scene, device, mspan, quad)
     # Each path is driven with every count set to 0 just before it and read
     # just after; a kernel's launches are those of its own path.
     by_path = {"serving": phase_serving(scene, device)["gather_windows"]}
@@ -2069,6 +2394,9 @@ def main() -> None:
     by_path["train_tri"], timings["gather_windows"]["tri"] = \
         phase_train_tri(scene, device, mspan)
     del mspan
+    by_path["train_quad"], timings["gather_windows"]["quad"] = \
+        phase_train_quad(scene, device, quad, gan)
+    del quad, gan
     by_path["zoo"] = phase_zoo(scene, device)
     launches["gather_windows"] = sum(by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
@@ -2090,7 +2418,7 @@ def main() -> None:
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "unit": spec["unit"],
-                     **({k: t[k] for k in ("one", "patch47", "tri")}
+                     **({k: t[k] for k in ("one", "patch47", "tri", "quad")}
                         if name == "gather_windows" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -8,4 +8,4 @@ from dmfusion_torch.data.scene import (  # noqa: F401
     synthetic_scene,
 )
 from dmfusion_torch.data.patches import (gather_dual, gather_one,  # noqa: F401
-                                         gather_tri)
+                                         gather_quad, gather_tri)

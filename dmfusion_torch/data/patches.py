@@ -56,6 +56,19 @@ def gather_tri(ms: torch.Tensor, pan: torch.Tensor, mspan: torch.Tensor,
     return ms_p, pan_p, mspan_p
 
 
+def gather_quad(ms: torch.Tensor, pan_ms: torch.Tensor, ms_gan: torch.Tensor,
+                pan_gan: torch.Tensor, ids: torch.Tensor, width: int,
+                patch: int) -> tuple[torch.Tensor, ...]:
+    """Four aligned ``(B, ps, ps, C)`` windows at the MS anchor, one per
+    MS-geometry stream of the two-stage (DQTL) classifier: MS,
+    ``pan2ms(PAN)``, the GAN's fake PAN (``msgan.npy``) and fake MS
+    (``pangan.npy``) (reference dataset_qua_dqtl,
+    train/dataset.py:191-224)."""
+    x, y = ids_to_xy(ids, width)
+    return tuple(gather_windows(img, x, y, patch)
+                 for img in (ms, pan_ms, ms_gan, pan_gan))
+
+
 def gather_one(img: torch.Tensor, ids: torch.Tensor, width: int,
                patch: int) -> torch.Tensor:
     """Single-modality windows (reference dataset_one)."""

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from dmfusion_torch.config import resolve_device
-from dmfusion_torch.ops.ihs import ihs_transform
+from dmfusion_torch.ops.ihs import ihs_transform, pan2ms
 
 
 def minmax_normalize(x: torch.Tensor) -> torch.Tensor:
@@ -62,6 +62,54 @@ def mspan_scene(scene: Scene, seed: int) -> torch.Tensor:
     if device.type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+GAN_FILES = ("msgan.npy", "pangan.npy")
+
+
+def load_gan_scenes(gan_dir: str, size: tuple[int, int, int]
+                    ) -> tuple[np.ndarray, np.ndarray]:
+    """The two-stage solver's stage-1 scenes, ``msgan.npy`` (the GAN's
+    fake PAN) and ``pangan.npy`` (its fake MS), from ``gan_dir``; a missing
+    file raises ``FileNotFoundError``, an array not of the scene's ``size``
+    ``ValueError``."""
+    arrays = []
+    for name in GAN_FILES:
+        path = os.path.join(gan_dir, name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"{path}: stage-1 GAN artifact missing (produced by the "
+                f"two-stage solver's stage 1)")
+        arr = np.load(path)
+        if tuple(arr.shape) != tuple(size):
+            # The weights dir is shared across runs: refuse another city's
+            # fakes rather than gather out-of-bounds windows from them.
+            raise ValueError(
+                f"dqtl.pre_trained: cached {name} has shape "
+                f"{tuple(arr.shape)} but this scene needs {tuple(size)}; "
+                f"re-run stage 1 (pre_trained: 0) or point dqtl.WEIGHTS at "
+                f"the right artifacts")
+        arrays.append(arr)
+    return arrays[0], arrays[1]
+
+
+def quad_streams(scene: Scene, ms_gan: np.ndarray, pan_gan: np.ndarray,
+                 device: torch.device) -> tuple[torch.Tensor, ...]:
+    """The dqtl arity's four MS-geometry streams (MS, ``pan2ms(PAN)``,
+    msgan, pangan), built from the raw scene and the stage-1 scenes as the
+    two-stage solver builds them: each normalized, padded like MS and
+    float32 (whatever ``precision.scene_dtype`` says), on ``device``."""
+    size = (scene.height, scene.width, int(scene.raw_ms.shape[-1]))
+
+    def prep(arr) -> torch.Tensor:
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.asarray(arr, np.float32))
+        return prep_scene(arr.to(device, torch.float32), scene.patch,
+                          torch.float32)
+
+    pan_ms = pan2ms(torch.from_numpy(np.asarray(scene.raw_pan, np.float32)
+                                     ).to(device), size)
+    return (prep(scene.raw_ms), prep(pan_ms), prep(ms_gan), prep(pan_gan))
 
 
 def split_labels(label: np.ndarray) -> tuple[np.ndarray, np.ndarray]:

@@ -18,9 +18,11 @@
 (``manifest.json`` + ``params.msgpack``; its ``program.bin`` is StableHLO
 for XLA and is ignored) and rebuilds the model from the manifest and the
 widths its param tree gives (a ``.dmx`` records ``model_width`` but no
-``trans``).  Per-anchor artifacts take arity ``dual`` (two inputs) or
+``trans``).  Per-anchor artifacts take arity ``dual`` (two inputs),
 ``tri`` (three: MS, PAN and the MSPAN stream that serving rebuilds from
-the manifest's ``seed``).
+the manifest's ``seed``) or ``quad`` (one: dqtl's four MS-geometry
+streams concatenated on the batch axis, served with the stage-1 GAN
+scenes).
 
     python -m dmfusion_torch.export --weights W.pt [--map] --out X.zip \
         [--config C] [--city CITY] [--model NAME] [--set key=value ...]
@@ -47,7 +49,7 @@ from dmfusion_torch.models.convert import load_flax_params, params_to_flax
 from dmfusion_torch.models.registry import (get_model_class,
                                             model_map_programs)
 from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
-                                        resolve_conv_streams,
+                                        fused_predict, resolve_conv_streams,
                                         resolve_dense_streams,
                                         resolve_dense_streams_infer)
 
@@ -94,6 +96,9 @@ def _manifest(cfg: Mapping[str, Any], map_route: bool) -> dict[str, Any]:
         "torch_version": torch.__version__,
         "activate": str(cfg["schedule"]["activate"]),
     }
+    if arity == "quad":
+        # One input: the four streams' windows concatenated on the batch.
+        manifest["input_shapes"] = [["4b", str(ps), str(ps), str(chans)]]
     if arity == "dense" or map_route:
         # The unit is the whole padded scene, as in dmfusion's export.
         manifest["batch"] = "scene"
@@ -181,7 +186,9 @@ class TorchClassifier:
     """A loaded artifact: ``manifest``, the config ``cfg`` it was rebuilt
     from, and the model on ``device``.  Per-anchor artifacts take NHWC
     window batches in ``logits(*inputs)`` and ``predict(*inputs)``: ``(ms,
-    pan)`` for arity ``dual``, ``(ms, pan, mspan)`` for ``tri``; map
+    pan)`` for arity ``dual``, ``(ms, pan, mspan)`` for ``tri``, and for
+    ``quad`` one ``(4b, ps, ps, C)`` batch of the four streams' windows,
+    predicted by the fused MS-plus-PAN rule (``(b,)`` labels); map
     artifacts (arity ``dense``, or ``serving: "map"``) take the padded
     scene in ``logits(ms, pan)`` (the (H, W, ncls) map) and
     ``class_map(ms, pan)``."""
@@ -213,6 +220,8 @@ class TorchClassifier:
         if self.is_map:
             raise ValueError("map artifacts classify whole scenes: call "
                              "class_map(ms, pan) with the padded scene")
+        if self.manifest["arity"] == "quad":
+            return fused_predict(self.logits(*inputs))
         return self.logits(*inputs).argmax(dim=-1).to(torch.int32)
 
     def class_map(self, ms: torch.Tensor, pan: torch.Tensor) -> torch.Tensor:
@@ -262,10 +271,10 @@ def load_artifact(path: str | os.PathLike,
         else:
             raise ValueError(f"{path}: no params.npz or params.msgpack")
     arity = manifest["arity"]
-    if arity not in ("dual", "tri", "dense"):
+    if arity not in ("dual", "tri", "quad", "dense"):
         raise ValueError(f"{path}: arity {arity!r} is not ported to "
                          f"dmfusion_torch yet (ported: 'dual', 'tri', "
-                         f"'dense')")
+                         f"'quad', 'dense')")
     act = manifest.get("activate") or (overrides or {}).get(
         "schedule", {}).get("activate")
     if act is None:

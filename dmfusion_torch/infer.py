@@ -1,16 +1,19 @@
 """Serving-side scene inference from an artifact.
 
-Port of ``dmfusion/infer.py`` for the ``dual``, ``tri`` and ``dense``
-arities.  ``ScenePredictor`` runs a loaded classifier over a
+Port of ``dmfusion/infer.py`` for the ``dual``, ``tri``, ``quad`` and
+``dense`` arities.  ``ScenePredictor`` runs a loaded classifier over a
 device-resident scene.  Per-anchor artifacts (``dual``; ``tri``, whose
 third stream, MSPAN, is rebuilt from the scene and the manifest's seed as
-the solver builds it) gather windows (the CUDA kernel on the card, the
+the solver builds it; ``quad``, whose four MS-geometry streams are built
+from the scene and the stage-1 GAN scenes in ``gan_dir`` as the two-stage
+solver builds them) gather windows (the CUDA kernel on the card, the
 plain gather on the CPU) into fixed-size ``bucket`` batches;
 map artifacts (``dense``, and a gmfnet_conv export with ``--map``) render
 the whole-scene class map once and index it.  Both give argmax labels,
 OA/AA/kappa against the scene labels and class maps.
 
-    python -m dmfusion_torch.infer --artifact m.dmx [--set device=cpu] [--no-maps]
+    python -m dmfusion_torch.infer --artifact m.dmx [--set device=cpu] \
+        [--gan-weights DIR] [--no-maps]
 
 reads the port's artifact or a ``dmfusion`` ``.dmx`` and prints one JSON
 line with metrics and wall times.  A ``.dmx`` does not record its
@@ -29,8 +32,10 @@ from typing import Any
 import numpy as np
 import torch
 
-from dmfusion_torch.data.scene import mspan_scene
-from dmfusion_torch.ops.gather import gather_dual_fast, gather_tri_fast
+from dmfusion_torch.data.scene import (load_gan_scenes, mspan_scene,
+                                       quad_streams)
+from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
+                                       gather_tri_fast)
 
 
 class ScenePredictor:
@@ -39,7 +44,10 @@ class ScenePredictor:
     ``dual``: the MS anchor (x, y) owns a ``ps`` window, the PAN anchor
     (4x, 4y) a ``4*ps`` window, as in training; ``tri`` adds the MSPAN
     window at the PAN anchor, from the MSPAN stream built with ``seed``
-    (default: the manifest's, as the artifact was trained with); every
+    (default: the manifest's, as the artifact was trained with); ``quad``
+    gathers four windows at the MS anchor from the streams built with the
+    GAN scenes in ``gan_dir`` (required; a missing file or an array of
+    another scene's shape raises) and predicts by the fused rule; every
     chunk of anchors is padded to the one ``bucket`` size, so the model
     always sees one batch shape.  Map artifacts (``clf.is_map``:
     ``dense``, or ``serving: "map"``): the first query renders the
@@ -48,12 +56,19 @@ class ScenePredictor:
     """
 
     def __init__(self, clf, scene, *, bucket: int = 4096,
-                 seed: int | None = None):
+                 seed: int | None = None, gan_dir: str | None = None):
         arity = clf.manifest["arity"]
-        if arity not in ("dual", "tri", "dense"):
+        if arity not in ("dual", "tri", "quad", "dense"):
             raise ValueError(f"arity {arity!r} is not ported to "
                              f"dmfusion_torch yet (ported: 'dual', 'tri', "
-                             f"'dense')")
+                             f"'quad', 'dense')")
+        if arity == "quad" and gan_dir is None:
+            raise ValueError(
+                "quad (DQTL) artifacts need the stage-1 GAN scene "
+                "artifacts: pass gan_dir / --gan-weights pointing at the "
+                "dir holding msgan.npy + pangan.npy (written by the "
+                "two-stage solver's stage 1), or run the two-stage solver "
+                "directly")
         if int(clf.manifest["patch_size"]) != int(scene.patch):
             raise ValueError(
                 f"scene was padded for patch_size={scene.patch} but the "
@@ -81,6 +96,11 @@ class ScenePredictor:
             self.mspan = mspan_scene(scene, seed)
             self.streams += (self.mspan,)
             self.gather = gather_tri_fast
+        elif arity == "quad":
+            size = (scene.height, scene.width, int(scene.raw_ms.shape[-1]))
+            self.streams = quad_streams(
+                scene, *load_gan_scenes(gan_dir, size), clf.device)
+            self.gather = gather_quad_fast
 
     def _map(self) -> np.ndarray:
         """Map artifacts: the whole-scene (H, W) class map from one
@@ -97,6 +117,9 @@ class ScenePredictor:
     def _gather(self, ids_b: torch.Tensor) -> tuple[torch.Tensor, ...]:
         windows = self.gather(*self.streams, ids_b, self.scene.width,
                               self.scene.patch)
+        if self.clf.manifest["arity"] == "quad":
+            # dqtl takes the four streams concatenated on the batch axis.
+            windows = (torch.cat(windows),)
         # bf16 scenes widen exactly to the model's f32 inputs.
         return tuple(w.float() for w in windows)
 
@@ -168,6 +191,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="default: the artifact's data_city")
     ap.add_argument("--set", nargs="*", default=[], metavar="KEY=VALUE")
     ap.add_argument("--bucket", type=int, default=4096)
+    ap.add_argument("--gan-weights", default=None, metavar="DIR",
+                    help="stage-1 GAN artifacts dir (msgan.npy + "
+                         "pangan.npy); required for quad artifacts")
     ap.add_argument("--no-maps", action="store_true",
                     help="metrics only, skip map rendering")
     ap.add_argument("--out", default=None,
@@ -195,7 +221,8 @@ def main(argv: list[str] | None = None) -> None:
 
     t0 = time.time()
     scene = load_scene(cfg, device)
-    pred = ScenePredictor(clf, scene, bucket=args.bucket)
+    pred = ScenePredictor(clf, scene, bucket=args.bucket,
+                          gan_dir=args.gan_weights)
     labeled, _ = split_labels(scene.label)
     result: dict[str, Any] = {
         "artifact": args.artifact,

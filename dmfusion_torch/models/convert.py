@@ -20,10 +20,10 @@ Conversion in either direction raises on anything left unmatched, so a
 tree of another model or width never loads in part.  The root scope is
 the model class's ``flax_root``: ``Net`` for gmfnet, ``DenseNet`` for
 dense_fusion, ``ConvNet`` for gmfnet_conv (whose tree names every layer
-explicitly), and ``TriNet``, ``ResNet18``, ``CrossNet`` and ``ViT`` for
-the tri_net, resnet18, cross_net and vit trees, each rooted at flax's
-``Net`` (tri_net's ``ResBlock_2`` is its MSPAN branch, gmfnet's the
-trunk's first block: one name, two layers).
+explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``, ``CrossNet`` and
+``ViT`` for the tri_net, dqtl, resnet18, cross_net and vit trees, each
+rooted at flax's ``Net`` (tri_net's ``ResBlock_2`` is its MSPAN branch,
+gmfnet's the trunk's first block: one name, two layers).
 
 The optimizer state goes across the same way (:func:`opt_state_from_optax`,
 :func:`opt_state_to_optax`): an optax Adam, SGD or RMSprop state, as
@@ -100,6 +100,10 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
                "ResBlock_3": ("trunk.0", "ResBlock"),
                "ResBlock_4": ("trunk.1", "ResBlock"),
                "MLPHead_0": ("head", "MLPHead")},
+    "DQTL": {"ConvBlock_0": ("stem", "ConvBlock"),
+             **{f"ResBlock_{i}": (f"blocks.{i}", "ResBlock")
+                for i in range(3)},
+             "MLPHead_0": ("head", "MLPHead")},
     "ResNet18": {"ms_branch": ("ms_branch", "Branch"),
                  "pan_branch": ("pan_branch", "Branch"),
                  "MLPHead_0": ("head", "MLPHead")},

@@ -123,6 +123,19 @@ def gather_one_fast(img: torch.Tensor, ids: torch.Tensor, width: int,
     return out.reshape(ids.shape[0], patch, patch, c)
 
 
+def gather_quad_fast(ms: torch.Tensor, pan_ms: torch.Tensor,
+                     ms_gan: torch.Tensor, pan_gan: torch.Tensor,
+                     ids: torch.Tensor, width: int, patch: int
+                     ) -> tuple[torch.Tensor, ...]:
+    """Same contract as :func:`dmfusion_torch.data.patches.gather_quad`:
+    four :func:`gather_one_fast` calls at the MS anchor, so four kernel
+    launches on the card.  Unlike dmfusion's ``_use_fast`` rule (batches
+    of 1024 or more, multiples of 64), the kernel takes every batch on the
+    card, the train batches of 256 included."""
+    return tuple(gather_one_fast(img, ids, width, patch)
+                 for img in (ms, pan_ms, ms_gan, pan_gan))
+
+
 def gather_dual_fast(ms: torch.Tensor, pan: torch.Tensor, ids: torch.Tensor,
                      width: int, patch: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Same contract as :func:`dmfusion_torch.data.patches.gather_dual`:

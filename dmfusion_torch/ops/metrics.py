@@ -56,6 +56,12 @@ def aa_oa(matrix) -> list:
     return [aa, oa, kappa(m), rows]
 
 
+def per_stream_results(matrices: list) -> list[list]:
+    """``aa_oa`` of each DQTL stream's confusion matrix, scored on its own
+    (the reference's ``indicator_SCLN``, indicators/kappa.py:211-213)."""
+    return [aa_oa(m) for m in matrices]
+
+
 def render_class_map(labels: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
     """(H, W) class ids + (C, 3) palette -> (H, W, 3) uint8 image."""
     return palette.to(torch.uint8)[labels.to(torch.int64)]

@@ -37,9 +37,10 @@ gmfnet_conv's (``ConvMapPrograms``, the shift-and-stitch route), which
 trains and validates per anchor like gmfnet.  The tri arity adds a third
 scene, MSPAN: the seeded IHS pansharpen of the raw scene (seed ``seed``,
 ``data/scene.py::mspan_scene``), built once on the device, normalized and
-padded like PAN, and gathered with MS and PAN by ``TriPrograms``.  Other
-arities, ``proof``, ``visualize`` and the two-stage solver are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+padded like PAN, and gathered with MS and PAN by ``TriPrograms``.  The
+quad arity (dqtl) trains under ``solvers/twostage.py``.  The single and
+image arities, ``proof`` and ``visualize`` are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -68,8 +69,14 @@ from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
                                         resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
 
-# Arity -> the ROADMAP item that ports its training.
-_UNPORTED_ARITY = {"single": "A12", "quad": "A11", "image": "A11"}
+# Arity -> where its training stands: the ROADMAP item that ports it, or
+# the solver that trains it.
+_UNPORTED_ARITY = {"single": "is not ported to dmfusion_torch yet (ROADMAP "
+                             "A12)",
+                   "quad": "trains under the two-stage solver: pass "
+                           "--solver twostage (ROADMAP A11)",
+                   "image": "is not ported to dmfusion_torch yet (ROADMAP "
+                            "A11, stage 1)"}
 
 # The dense memory probes' decisions, per process.  dmfusion also keeps
 # them on disk, because each of its probes is an XLA compile that costs
@@ -185,6 +192,9 @@ def dense_infer_band_probe(cfg: Mapping[str, Any], scene,
 
 
 class Solver(BaseSolver):
+    #: Trim the shuffled train ids to whole batches (the two-stage solver).
+    TRIM_TRAIN = False
+
     def __init__(self, cfg: Mapping[str, Any]):
         super().__init__(cfg)
         self.model: torch.nn.Module | None = None
@@ -202,8 +212,7 @@ class Solver(BaseSolver):
         if arity not in ("dual", "tri", "dense"):
             raise NotImplementedError(
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "
-                f"training is not ported to dmfusion_torch yet (ROADMAP "
-                f"{_UNPORTED_ARITY.get(arity, 'A')})")
+                f"training {_UNPORTED_ARITY[arity]}")
         loss_name = cfg["schedule"]["loss"]
         if loss_name != "Criterion":
             raise ValueError(
@@ -364,7 +373,8 @@ class Solver(BaseSolver):
 
         def build_train():
             ids, labels, mask, _ = self.batches(
-                self.split.train, cfg["batchsize"], shuffle=True)
+                self.split.train, cfg["batchsize"], shuffle=True,
+                trim=self.TRIM_TRAIN)
             return ids, labels, mask.float()
 
         nxt = build_train()
@@ -390,6 +400,8 @@ class Solver(BaseSolver):
                     val_batches = (vids, vlabels, vmask.float())
                 loss_sum, conf = self.programs.eval_epoch(self.scene_args,
                                                           *val_batches)
+                if conf.ndim == 3:  # quad: [0] scores the fused prediction
+                    conf = conf[0]
                 val_loss = float(loss_sum)
                 val_oa = float(aa_oa(conf.cpu().numpy())[1])
                 if val_loss < best_loss:

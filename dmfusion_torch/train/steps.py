@@ -23,8 +23,11 @@ bands, and over the batches, is a Python loop here.
 ``ConvMapPrograms`` is ``DualPrograms`` with the shift-and-stitch map
 route of gmfnet_conv for test and color.  ``TriPrograms`` is
 ``DualPrograms`` over three streams (MS, PAN and the IHS-fused MSPAN at
-PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card.
-The mesh routes and the quad/h5 program families are not ported yet.
+PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card;
+``QuadPrograms`` over the two-stage solver's four MS-geometry streams,
+gathered by ``gather_quad_fast``, with the quadruplet KL loss and the
+fused MS-plus-PAN prediction.  The mesh routes and the h5 program family
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -35,14 +38,15 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from dmfusion_torch.data.patches import gather_dual, gather_tri
+from dmfusion_torch.data.patches import gather_dual, gather_quad, gather_tri
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
                                                 phase_corner_sums, phase_sat,
                                                 sat_window_sums)
-from dmfusion_torch.ops.gather import gather_dual_fast, gather_tri_fast
+from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
+                                       gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
-from dmfusion_torch.train.losses import cross_entropy
+from dmfusion_torch.train.losses import cross_entropy, qua_loss
 from dmfusion_torch.train.optim import reset_state
 
 
@@ -108,6 +112,7 @@ class DualPrograms:
                  cfg: Mapping[str, Any], width: int, patch: int, *,
                  plain_gather: bool = False):
         check_eval_scan_anchors(cfg)
+        self.cfg = dict(cfg)
         self.model = model
         self.optimizer = optimizer
         self.width = int(width)
@@ -132,6 +137,11 @@ class DualPrograms:
         # bf16 scenes widen exactly to the model's f32 inputs.
         return tuple(w.float() for w in windows)
 
+    def loss(self, logits: torch.Tensor, labels_b: torch.Tensor,
+             mask_b: torch.Tensor | None) -> torch.Tensor:
+        """The train step's loss: the masked cross-entropy."""
+        return cross_entropy(logits, labels_b, mask_b)
+
     # -- one optimizer step ------------------------------------------------
     def train_step(self, inputs: Sequence[torch.Tensor],
                    labels_b: torch.Tensor,
@@ -140,7 +150,7 @@ class DualPrograms:
         arguments, e.g. ``(ms_b, pan_b)``); returns the loss, detached, on
         the device."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = cross_entropy(self.model(*inputs), labels_b, mask_b)
+        loss = self.loss(self.model(*inputs), labels_b, mask_b)
         loss.backward()
         self.optimizer.step()
         return loss.detach()
@@ -174,13 +184,19 @@ class DualPrograms:
                                      self.num_classes, mask[i])
         return loss_sum, conf
 
+    @staticmethod
+    def decide(logits: torch.Tensor) -> torch.Tensor:
+        """A batch's logits -> its int32 class ids: the argmax."""
+        return logits.argmax(dim=-1).to(torch.int32)
+
     @torch.inference_mode()
     def predict(self, scene_args: tuple, ids: torch.Tensor) -> torch.Tensor:
-        """(steps, B) anchor ids -> (steps, B) int32 argmax class ids."""
+        """(steps, B) anchor ids -> (steps, B) int32 class ids
+        (``decide``)."""
         self.model.eval()
         return torch.stack([
-            self.model(*self._gather(scene_args, ids[i])).argmax(dim=-1)
-            .to(torch.int32) for i in range(ids.shape[0])])
+            self.decide(self.model(*self._gather(scene_args, ids[i])))
+            for i in range(ids.shape[0])])
 
     def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
                        labels: torch.Tensor, mask: torch.Tensor
@@ -196,6 +212,70 @@ class TriPrograms(DualPrograms):
     window kernel three times (MS, PAN, MSPAN)."""
 
     gathers = (gather_tri, gather_tri_fast)
+
+
+class QuadPrograms(DualPrograms):
+    """Four-stream programs of the two-stage (DQTL) classifier:
+    ``scene_args`` is ``(ms, pan_ms, ms_gan, pan_gan)``, four MS-geometry
+    scenes; a batch's four windows go to the model concatenated along the
+    batch axis, one ``(4B, ps, ps, C)`` input (reference
+    tostagesolver.py:271), and every gather on the card launches the
+    window kernel four times.  The loss is the masked quadruplet KL
+    (``losses.py::qua_loss``) on the f32 logits; the prediction sums the
+    MS and PAN streams' logits before the softmax and argmax
+    (tostagesolver.py:337)."""
+
+    gathers = (gather_quad, gather_quad_fast)
+
+    def _gather(self, scene_args: tuple, ids_b: torch.Tensor
+                ) -> tuple[torch.Tensor]:
+        return (torch.cat(super()._gather(scene_args, ids_b)),)
+
+    def loss(self, logits: torch.Tensor, labels_b: torch.Tensor,
+             mask_b: torch.Tensor | None) -> torch.Tensor:
+        return qua_loss(logits, labels_b.shape[0], labels_b, self.cfg,
+                        mask_b)
+
+    @torch.inference_mode()
+    def eval_epoch(self, scene_args: tuple, ids: torch.Tensor,
+                   labels: torch.Tensor, mask: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """-> (loss sum, (5, C, C) confusions): the loss sum adds each
+        batch's masked ``qua_loss`` times its real anchors; confusion [0]
+        scores the fused prediction (the MS plus PAN logits' argmax),
+        [1..4] each stream on its own, the padding masked out."""
+        self.model.eval()
+        c = self.num_classes
+        loss_sum = torch.zeros((), dtype=torch.float32, device=ids.device)
+        confs = torch.zeros((5, c, c), dtype=torch.float32, device=ids.device)
+        for i in range(ids.shape[0]):
+            logits = self.model(*self._gather(scene_args, ids[i]))
+            b, m = labels.shape[1], mask[i].float()
+            loss_sum += self.loss(logits, labels[i], m) * m.sum()
+            parts = logits.split(b)
+            preds = [(parts[0] + parts[1]).argmax(dim=-1)]
+            preds += [p.argmax(dim=-1) for p in parts]
+            for k, p in enumerate(preds):
+                confs[k] += confusion_matrix(p, labels[i], c, m)
+        return loss_sum, confs
+
+    @staticmethod
+    def decide(logits: torch.Tensor) -> torch.Tensor:
+        return fused_predict(logits)
+
+    def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
+                       labels: torch.Tensor, mask: torch.Tensor
+                       ) -> torch.Tensor:
+        """The fused prediction's confusion."""
+        return self.eval_epoch(scene_args, ids, labels, mask)[1][0]
+
+
+def fused_predict(logits: torch.Tensor) -> torch.Tensor:
+    """(4B, C) quad logits -> (B,) int32: the argmax of the softmax of the
+    MS and PAN streams' summed logits."""
+    b = logits.shape[0] // 4
+    fused = torch.softmax(logits[:b] + logits[b:2 * b], dim=-1)
+    return fused.argmax(dim=-1).to(torch.int32)
 
 
 def resolve_dense_streams(value, ms_rows: int, ms_cols: int) -> int:
@@ -634,14 +714,6 @@ class ConvMapPrograms(DualPrograms):
     commutes exactly."""
 
     supports_map = True
-
-    def __init__(self, model: torch.nn.Module,
-                 optimizer: torch.optim.Optimizer | None,
-                 cfg: Mapping[str, Any], width: int, patch: int, *,
-                 plain_gather: bool = False):
-        super().__init__(model, optimizer, cfg, width, patch,
-                         plain_gather=plain_gather)
-        self.cfg = dict(cfg)
 
     # -- band geometry -----------------------------------------------------
     def band_plan(self, ms_rows: int, n: int):

@@ -54,6 +54,7 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
     "dmfusion_torch.export", "dmfusion_torch.models.gmfnet_conv",
     "dmfusion_torch.models.tri_net", "dmfusion_torch.models.resnet18",
     "dmfusion_torch.models.cross_net", "dmfusion_torch.models.vit",
+    "dmfusion_torch.models.dqtl", "dmfusion_torch.solvers.twostage",
     "dmfusion_torch.ops.ihs",
     "dmfusion_torch.tools.strip_gather_bench",
     "dmfusion_torch.tools.conv_kernel_probe",
