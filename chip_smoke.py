@@ -176,7 +176,38 @@ Phases; any failure exits non-zero before the result line:
                 quad bucket (4 launches) at B 4096 and B 256 beside its
                 bytes bound, by CUDA events and by the profiler's device
                 time of the launches;
-  14. zoo     — resnet18 (width 32), cross_net and vision_transformer (the
+  14. train_gan — stage 1 and stage 2 of the two-stage solver through the
+                CLI's ``main`` as ``python -m dmfusion_torch.cli --solver
+                twostage --set model_name=dqtl dqtl.pre_trained=0
+                dqtl.save_model=1 data_city=image6 epoch=2 time=1
+                color.index=0``: the GAN quartet at the config's stage-1
+                sizes (gan_width 32, pic 128, batch 4, 10 epochs of 68 steps
+                over image6's 272 tiles, bf16), then dqtl (w64, patch 16,
+                batch 256, bf16) for two epochs and its test on the four
+                streams built from stage 1's scenes: ten stage-1 epochs with
+                finite d and g losses; msgan.npy and pangan.npy of the
+                scene's shape, finite, within [0, 1], equal to the solver's
+                scenes; the four checkpoints, both renders and the four
+                sample grids written; the stage-2 streams built from them;
+                test matrices that sum to the test split, the fused test OA
+                above chance (1/11); B1 launched 4 times per gathered batch
+                (trimmed train batches, val and test), the count computed
+                from the split sizes, and bit-equal to ``gather_quad`` on the
+                stage-1 streams at a B 256 train and a B 4096 test batch; a
+                fresh solver with ``dqtl.load_model=1`` loads the four files,
+                whose state equals the live nets' and whose generators make
+                the same fakes; three GAN steps at gan_width 32 on tiles
+                cropped to 64, two a step, from seeded weights and noise:
+                f32 card losses (TF32 off) within 1e-3 of the CPU's, bf16
+                within GAN_BF16_RTOL of f32, relative; ``python -m
+                dmfusion_torch.export`` of the best weights served with
+                stage 1's own ``dqtl_weights/``: 2 requests of 4096, 4
+                launches each, equal to the solver's predictions; times of
+                stage 1's set-up (pan2ms and tiling, sample grids, scenes and
+                renders), its epochs, 20 more steps (ms a step, tiles/s, busy
+                share, a profile by operator), stage 2's epochs and test,
+                and the phase;
+  15. zoo     — resnet18 (width 32), cross_net and vision_transformer (the
                 config's ``trans``: embed 96, depth 2, 3 heads, patch 1) at
                 bf16 from seeded weights: 20 train steps of 256 through
                 ``DualPrograms`` (B1 twice a step, counted; the loss falls),
@@ -316,6 +347,23 @@ GAN_NOISE = 0.1
 # loss of 0.09-0.11 (a KL, far smaller than a 12-class cross-entropy); a
 # wrong layer or a lost update moves the loss by a good part of its size.
 QUAD_TRAIN_BF16_ATOL = 0.003
+# The stage-1 run: the two-stage solver with dqtl.pre_trained 0 at the
+# config's stage-1 sizes (gan_width 32, pic 128, batch 4, 10 epochs: 272
+# image6 tiles, 68 steps an epoch), then stage 2 (dqtl w64, patch 16,
+# batch 256, bf16) for two epochs and its test; color is off (train_quad
+# colors the quad path).
+GAN_TRAIN_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
+                 "dqtl.pre_trained=0", "dqtl.save_model=1", "data_city=image6",
+                 "epoch=2", "time=1", "color.index=0", "nohup=1"]
+GAN_WIDTH, GAN_PIC, GAN_BATCH, GAN_EPOCHS, GAN_STEPS = 32, 128, 4, 10, 68
+GAN_PROFILE_STEPS, GAN_REQUESTS = 20, 2
+# The GAN steps' card-vs-CPU parity: full width on tiles cropped to 64,
+# two a step.  bf16 vs f32 losses, relative: on the CPU 0.0025-0.0038 apart
+# at gan_width 32 (synth64 tiles, seeds 3407 and 1); the d loss (about 2-4)
+# and the g loss (about 11, mostly L1 terms times 10) move by their own
+# size under a wrong layer or a lost update.
+GAN_PARITY_PIC, GAN_PARITY_BATCH = 64, 2
+GAN_BF16_RTOL = 0.02
 # The zoo: the config's baselines at its widths (resnet18's base 32; the
 # transformers take ``trans``: embed 96, depth 2, 3 heads, patch 1).
 ZOO = {"resnet18": {"model_width": 32}, "cross_net": {},
@@ -2104,6 +2152,275 @@ def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
     return launches["gather_windows"], timed
 
 
+def _gan_parity(tiles_m, tiles_p, device) -> dict:
+    """Three ``GanPrograms`` steps at the full width (gan_width 32) from
+    the same seeded weights and the same noise (drawn on the CPU), on
+    ``GAN_PARITY_BATCH`` stage-1 tiles a step cropped to
+    ``GAN_PARITY_PIC``: f32 on the CPU and on the card (TF32 off), bf16 on
+    the card; the d and g losses of each step."""
+    from dmfusion_torch.train.gan import GanPrograms
+    pic, bs = GAN_PARITY_PIC, GAN_PARITY_BATCH
+    m = tiles_m[:PARITY_STEPS * bs, :pic, :pic].reshape(
+        PARITY_STEPS, bs, pic, pic, -1).cpu()
+    p = tiles_p[:PARITY_STEPS * bs, :pic, :pic].reshape(m.shape).cpu()
+    gen = torch.Generator().manual_seed(CFG["seed"])
+    noise = [(torch.randn(m.shape[1:], generator=gen),
+              torch.randn(p.shape[1:], generator=gen))
+             for _ in range(PARITY_STEPS)]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tag, dev, dtype in (("f32_cpu", torch.device("cpu"), "float32"),
+                            ("f32_card", device, "float32"),
+                            ("bf16_card", device, "bfloat16")):
+        cfg = load_config(overrides={**CFG, "gan_width": GAN_WIDTH,
+                                     "device": "cpu", "precision": {
+                                         "compute_dtype": dtype}})
+        nets = [build_model(cfg, n).to(dev) for n in (
+            "generator", "generator", "discriminator", "discriminator")]
+        if dev.type == "cuda":
+            nets = [n.to(memory_format=torch.channels_last) for n in nets]
+        prog = GanPrograms(*nets, cfg)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        losses = []
+        for i in range(PARITY_STEPS):
+            r = prog.step(m[i].to(dev), p[i].to(dev),
+                          *(n.to(dev) for n in noise[i]))
+            losses.append(torch.stack([r["d_loss"], r["g_loss"]]))
+        out[tag] = torch.stack(losses).cpu()
+    for t in out.values():
+        check(bool(torch.isfinite(t).all()), "train_gan parity: non-finite "
+              "loss")
+    gap32 = float((out["f32_card"] - out["f32_cpu"]).abs().max())
+    gap16 = float(((out["bf16_card"] - out["f32_card"]).abs()
+                   / out["f32_card"].abs()).max())
+    check(gap32 <= 1e-3, f"train_gan: f32 card vs CPU GAN losses differ by "
+          f"{gap32}")
+    check(gap16 <= GAN_BF16_RTOL, f"train_gan: bf16 vs f32 GAN losses differ "
+          f"by {gap16} relative > {GAN_BF16_RTOL}")
+    return {"gan_width": GAN_WIDTH, "pic": pic, "batch": bs,
+            "steps": PARITY_STEPS,
+            "losses_d_g": {k: v.tolist() for k, v in out.items()},
+            "f32_card_vs_cpu_max_abs": gap32, "f32_tolerance": 1e-3,
+            "bf16_vs_f32_card_max_rel": gap16,
+            "bf16_tolerance_rel": GAN_BF16_RTOL}
+
+
+def phase_train_gan(scene, device) -> int:
+    """Stage 1 and stage 2 of the two-stage solver through ``python -m
+    dmfusion_torch.cli --solver twostage``'s ``main`` with
+    ``dqtl.pre_trained=0``: the GAN quartet at the config's sizes writes
+    msgan/pangan, and dqtl trains and tests on them; check what stage 1
+    writes and computes, the GAN steps on the card against the CPU, the
+    checkpoints' round trip, B1 on the stage-1 streams, and serving with
+    stage 1's own scenes; time it.  Returns B1's launches over the CLI
+    run."""
+    from dmfusion_torch import cli
+    from dmfusion_torch import export as export_cli
+    from dmfusion_torch.solvers import TwoStageSolver
+    from dmfusion_torch.train.checkpoint import load_checkpoint
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_gan_")
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = cli.main([*GAN_TRAIN_SET, f"expo_result={tmp}/"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        d, s1 = cfg["dqtl"], solver.stage1_log
+        gans = solver.gan_programs
+        log(f"train_gan: the CLI run took {run_s:.2f} s; stage 1 tiles "
+            f"{s1['tiles_s']:.3f} s, epochs {s1['epoch_s']} s, sample grids "
+            f"{s1['samples_s']:.3f} s, scenes and renders "
+            f"{s1['scenes_s']:.3f} s; stage 2 epochs {rec['EpochTime']} s, "
+            f"losses {rec['Loss']}, val OA {rec['ValOA']}")
+
+        # Stage 1 at the config's sizes.
+        check(isinstance(solver, TwoStageSolver)
+              and isinstance(solver.programs, QuadPrograms)
+              and gans.nets["gP"].enc1.conv.out_channels == GAN_WIDTH
+              and gans.nets["dP"].blocks[0].conv.out_channels == GAN_WIDTH
+              and (d["pic_size"], d["batch_size"], d["epochs"], d["lr"])
+              == (GAN_PIC, GAN_BATCH, GAN_EPOCHS, 1e-4)
+              and not d["pre_trained"]
+              and all(p.is_cuda for p in gans._g_params)
+              and gans.nets["gP"].compute_dtype == torch.bfloat16,
+              "train_gan: not stage 1 at gan_width 32, pic 128, batch 4, 10 "
+              "epochs, bf16, on the card")
+        check(len(s1["epoch_s"]) == GAN_EPOCHS
+              and all(len(x) == GAN_STEPS for x in s1["d_loss"])
+              and bool(np.isfinite(s1["d_loss"] + s1["g_loss"]).all()),
+              f"train_gan: stage 1 ran {len(s1['epoch_s'])} epochs of "
+              f"{[len(x) for x in s1['d_loss']]} steps, or a loss is "
+              "not finite")
+        wdir = solver._weights_dir()
+        size = (scene.height, scene.width, 4)
+        scenes = {}
+        for name in ("msgan.npy", "pangan.npy"):
+            arr = np.load(os.path.join(wdir, name))
+            check(arr.shape == size and arr.dtype == np.float32
+                  and bool(np.isfinite(arr).all())
+                  and 0 <= arr.min() and arr.max() <= 1,
+                  f"train_gan: {name} {arr.shape} {arr.dtype}, range "
+                  f"[{arr.min()}, {arr.max()}]")
+            scenes[name] = arr
+        check(np.array_equal(scenes["msgan.npy"], solver.ms_gan)
+              and np.array_equal(scenes["pangan.npy"], solver.pan_gan),
+              "train_gan: the written GAN scenes are not the solver's")
+        files = [d[k] for k in ("check_gH", "check_gZ", "check_dH",
+                                "check_dZ")]
+        files += ["fake_ms.png", "fake_pan.png"] + [
+            os.path.join("saved_images", f) for f in (
+                "f_p_0.png", "f_m_0.png", "p.png", "m.png")]
+        for f in files:
+            check(os.path.isfile(os.path.join(wdir, f)), f"train_gan: no {f}")
+
+        # Stage 2 on the stage-1 scenes: the streams, the test, B1's count.
+        for got, want in zip(solver.scene_args, quad_streams(
+                scene, solver.ms_gan, solver.pan_gan, device), strict=True):
+            check(torch.equal(got, want), "train_gan: stage 2's streams are "
+                  "not built from stage 1's scenes")
+        check(rec["Epoch"] == [0, 1] and all(np.isfinite(rec["Loss"])),
+              f"train_gan: stage 2 epochs {rec['Epoch']}, losses "
+              f"{rec['Loss']}")
+        n_test = len(split.test)
+        check(int(solver.test_matrix.sum()) == n_test
+              and all(int(m.sum()) == n_test
+                      for m in solver.stream_matrices),
+              "train_gan: a test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        stream_oa = [r[1] for r in solver.stream_results]
+        chance = 1 / (cfg["Categories_Number"] - 1)
+        check(oa > chance, f"train_gan: fused test OA {oa} not above chance "
+              f"{chance}")
+        ev = solver._eval_round_to()
+        batches = {"train": len(split.train) // TRAIN_BATCH * 2,
+                   "val": -(-len(split.valid) // ev) * 2,
+                   "test": -(-n_test // ev)}
+        want = 4 * sum(batches.values())
+        check(ev == EVAL_BATCH and launches["gather_windows"] == want,
+              f"train_gan: {launches['gather_windows']} B1 launches, the "
+              f"split sizes give {want} ({batches}, eval batches of {ev})")
+        check(launches["phase_pool"] == launches["strip_gather"]
+              == launches["conv3x3"] == 0, f"train_gan: launches {launches}")
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        eb = solver.batches(split.test, EVAL_BATCH)
+        for tag, ids in ((f"B {TRAIN_BATCH} train", tb[0][0]),
+                         (f"B {EVAL_BATCH} test", eb[0][0])):
+            got = gather_ops.gather_quad_fast(*solver.scene_args, ids,
+                                              scene.width, scene.patch)
+            want_w = gather_quad(*solver.scene_args, ids, scene.width,
+                                 scene.patch)
+            for g, r in zip(got, want_w, strict=True):
+                check(g.shape == r.shape and torch.equal(g, r),
+                      f"train_gan: B1 != plain on the stage-1 streams, {tag} "
+                      f"batch (max {_max_err(g, r)})")
+        log(f"train_gan: B1 bit-equal to the plain gather on the stage-1 "
+            f"streams at a B {TRAIN_BATCH} train and a B {EVAL_BATCH} test "
+            f"batch; {launches['gather_windows']} launches = 4 x {batches}")
+
+        # The checkpoints' round trip: a fresh solver loads the four files.
+        fresh = TwoStageSolver(dict(cfg, dqtl=dict(d, load_model=1)))
+        fresh.init_stage1_model()
+        for which, net in gans.nets.items():
+            saved = load_checkpoint(solver._gan_ckpt(which), None,
+                                    strict=True)
+            for name, state in (("saved", net.state_dict()),
+                                ("loaded", fresh.gan_programs.nets[
+                                    which].state_dict())):
+                check(saved.keys() == state.keys() and all(
+                    torch.equal(saved[k], state[k].cpu()) for k in saved),
+                    f"train_gan: {which}'s {name} state != its file")
+        n = torch.randn((GAN_BATCH, GAN_PIC, GAN_PIC, 4),
+                        generator=torch.Generator().manual_seed(5)).to(device)
+        with torch.no_grad():
+            for which in ("gP", "gM"):
+                check(torch.equal(gans.nets[which](n),
+                                  fresh.gan_programs.nets[which](n)),
+                      f"train_gan: the reloaded {which}'s fakes differ")
+        del fresh
+
+        # 20 more stage-1 steps: time, busy share, operators.
+        ms_tiles, pan_tiles, _, _ = solver._stage1_tiles()
+        k = GAN_PROFILE_STEPS * GAN_BATCH
+        m_b = torch.from_numpy(ms_tiles[:k]).to(device).reshape(
+            GAN_PROFILE_STEPS, GAN_BATCH, GAN_PIC, GAN_PIC, 4)
+        p_b = torch.from_numpy(pan_tiles[:k]).to(device).reshape(m_b.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(gans.train_epoch(m_b, p_b, "none")["g_loss"].sum())
+        gan_steps_s = time.perf_counter() - t0
+        gan_prof = _profile(lambda: gans.train_epoch(m_b, p_b, "none"),
+                            f"{GAN_PROFILE_STEPS} GAN steps, batch "
+                            f"{GAN_BATCH}, pic {GAN_PIC}, w{GAN_WIDTH}", 10)
+        log("profile train_gan steps: " + json.dumps(gan_prof))
+        gan_ops = _op_profile(lambda: gans.train_epoch(m_b[:5], p_b[:5],
+                                                       "none"),
+                              f"5 GAN steps, batch {GAN_BATCH}", 10)
+        log("profile train_gan operators: " + json.dumps(gan_ops))
+        parity = _gan_parity(m_b.flatten(0, 1), p_b.flatten(0, 1), device)
+        log(f"train_gan: GAN step parity {json.dumps(parity)}")
+        del m_b, p_b
+
+        # Serving: the exported best weights with stage 1's own scenes.
+        art = os.path.join(tmp, "dqtl.zip")
+        export_cli.main(["--set", "model_name=dqtl", *TRAIN_SET, "--weights",
+                         os.path.join(cfg["RESULT_output"], "0_weights.pt"),
+                         "--out", art])
+        clf = load_artifact(art, device)
+        pred = ScenePredictor(clf, scene, bucket=BUCKET, gan_dir=wdir)
+        for got, want_s in zip(pred.streams, solver.scene_args, strict=True):
+            check(torch.equal(got, want_s), "train_gan: the served streams "
+                  "!= the solver's")
+        rng = np.random.default_rng(16)
+        chunks = rng.choice(split.labeled, GAN_REQUESTS * BUCKET,
+                            replace=False).astype(np.int32)
+        before = gather_ops.gather_windows_cuda.launches
+        t0 = time.perf_counter()
+        served = pred.predict_ids(chunks)
+        request_ms = (time.perf_counter() - t0) * 1e3 / GAN_REQUESTS
+        check(gather_ops.gather_windows_cuda.launches - before
+              == 4 * GAN_REQUESTS, "train_gan: not 4 B1 launches a request")
+        check(np.array_equal(served, solver._predict_ids(chunks, BUCKET)),
+              "train_gan: served predictions != the solver's")
+        log(f"train_gan: served {GAN_REQUESTS} requests of {BUCKET} with "
+            "stage 1's scenes, equal to the solver's predictions")
+        test_s = solver.test_time
+        result = {
+            "gan_width": GAN_WIDTH, "pic": GAN_PIC, "batch": GAN_BATCH,
+            "stage1_epochs": GAN_EPOCHS, "stage1_steps_an_epoch": GAN_STEPS,
+            "run_s": run_s, "stage1_tiles_s": s1["tiles_s"],
+            "stage1_samples_s": s1["samples_s"],
+            "stage1_scenes_s": s1["scenes_s"],
+            "stage1_epoch_s": s1["epoch_s"],
+            "stage1_epoch0_s": s1["epoch_s"][0],
+            "stage1_epoch1_9_mean_s": statistics.mean(s1["epoch_s"][1:]),
+            "stage1_last_d_g": [s1["d_loss"][-1][-1], s1["g_loss"][-1][-1]],
+            "gan_steps": GAN_PROFILE_STEPS, "gan_steps_s": gan_steps_s,
+            "gan_step_ms": gan_steps_s / GAN_PROFILE_STEPS * 1e3,
+            "gan_tiles_per_s": k / gan_steps_s,
+            "gan_busy_share": gan_prof["busy_share"],
+            "stage2_epoch_s": rec["EpochTime"], "stage2_loss": rec["Loss"],
+            "val_oa": rec["ValOA"], "test_s": test_s,
+            "test_anchors_per_s": n_test / test_s,
+            "test_oa": oa, "test_aa": aa, "test_kappa": kap,
+            "stream_oa_ms_pan_gm_gp": stream_oa,
+            "gather_batches": batches, "launches": launches,
+            "request_ms": request_ms, "parity": parity}
+        del solver, gans, clf, pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t_phase
+    log(f"train_gan: {json.dumps(result)}")
+    return launches["gather_windows"]
+
+
 def phase_zoo(scene, device) -> int:
     """resnet18, cross_net and vision_transformer at the config's widths,
     bf16, from seeded weights: 20 train steps through ``DualPrograms``,
@@ -2397,6 +2714,7 @@ def main() -> None:
     by_path["train_quad"], timings["gather_windows"]["quad"] = \
         phase_train_quad(scene, device, quad, gan)
     del quad, gan
+    by_path["train_gan"] = phase_train_gan(scene, device)
     by_path["zoo"] = phase_zoo(scene, device)
     launches["gather_windows"] = sum(by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,

@@ -109,17 +109,19 @@ def conv_block_groups(features: int) -> int:
 
 
 class ConvBlock(nn.Module):
-    """Conv -> GroupNorm -> activation."""
+    """Conv -> GroupNorm (unless ``norm`` is off) -> activation."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
-                 stride: int = 1, act: Callable = F.relu):
+                 stride: int = 1, act: Callable = F.relu, norm: bool = True):
         super().__init__()
         self.conv = SameConv2d(in_features, features, kernel, stride)
-        self.norm = GroupNorm(conv_block_groups(features), features)
+        self.norm = (GroupNorm(conv_block_groups(features), features)
+                     if norm else None)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.act(self.norm(self.conv(x)))
+        x = self.conv(x)
+        return self.act(x if self.norm is None else self.norm(x))
 
 
 class ResBlock(nn.Module):

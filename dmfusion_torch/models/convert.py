@@ -20,9 +20,10 @@ Conversion in either direction raises on anything left unmatched, so a
 tree of another model or width never loads in part.  The root scope is
 the model class's ``flax_root``: ``Net`` for gmfnet, ``DenseNet`` for
 dense_fusion, ``ConvNet`` for gmfnet_conv (whose tree names every layer
-explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``, ``CrossNet`` and
-``ViT`` for the tri_net, dqtl, resnet18, cross_net and vit trees, each
-rooted at flax's ``Net`` (tri_net's ``ResBlock_2`` is its MSPAN branch,
+explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``, ``CrossNet``,
+``ViT``, ``Generator`` and ``Discriminator`` for the tri_net, dqtl,
+resnet18, cross_net, vit, generator and discriminator trees, each rooted
+at flax's ``Net`` (tri_net's ``ResBlock_2`` is its MSPAN branch,
 gmfnet's the trunk's first block: one name, two layers).
 
 The optimizer state goes across the same way (:func:`opt_state_from_optax`,
@@ -30,7 +31,10 @@ The optimizer state goes across the same way (:func:`opt_state_from_optax`,
 ``flax.serialization.to_state_dict`` lays it out (``{"0": {"count", "mu",
 "nu"}, "1": {...}}``, numpy leaves), holds one param-shaped tree per
 moment, mapped leaf by leaf with the same transposes, and the update
-count.
+count.  One optimizer over a tree of models (the GAN's one Adam over both
+generators, ``{"gP", "gM"}``, and one over both discriminators) takes a
+mapping of modules in place of the model, and its moments are trees keyed
+the same way.
 """
 
 from __future__ import annotations
@@ -104,6 +108,13 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
              **{f"ResBlock_{i}": (f"blocks.{i}", "ResBlock")
                 for i in range(3)},
              "MLPHead_0": ("head", "MLPHead")},
+    "Generator": {"ConvBlock_0": ("enc1", "ConvBlock"),
+                  "ConvBlock_1": ("enc2", "ConvBlock"),
+                  "ResBlock_0": ("res.0", "ResBlock"),
+                  "ResBlock_1": ("res.1", "ResBlock"),
+                  "ConvBlock_2": ("dec", "ConvBlock"),
+                  "Conv_0": ("out", LEAF)},
+    "Discriminator": {**_conv_block(3, "blocks"), "Conv_0": ("out", LEAF)},
     "ResNet18": {"ms_branch": ("ms_branch", "Branch"),
                  "pan_branch": ("pan_branch", "Branch"),
                  "MLPHead_0": ("head", "MLPHead")},
@@ -306,19 +317,38 @@ def _opt_layout(optimizer: torch.optim.Optimizer):
     return name, *_OPT_LAYOUT[name]
 
 
-def opt_state_to_optax(model: nn.Module, optimizer: torch.optim.Optimizer
-                       ) -> dict[str, Any]:
+def _named(model: nn.Module | Mapping[str, nn.Module]
+           ) -> dict[str, tuple[str | None, str]]:
+    """Each parameter's (model key, name): the key is None for one model,
+    or the tree's key for a tree of models (the GAN's ``{"gP", "gM"}``)."""
+    if isinstance(model, nn.Module):
+        return {p: (None, n) for n, p in model.named_parameters()}
+    return {p: (k, n) for k, m in model.items()
+            for n, p in m.named_parameters()}
+
+
+def opt_state_to_optax(model: nn.Module | Mapping[str, nn.Module],
+                       optimizer: torch.optim.Optimizer) -> dict[str, Any]:
     """The port's optimizer state -> optax's, as ``to_state_dict`` lays it
     out: ``{"0": {moments (and Adam's count)}, "1": {"count"} when a
-    schedule is on else {}, ...}``, numpy leaves."""
+    schedule is on else {}, ...}``, numpy leaves.  ``model`` is the module
+    the optimizer updates, or a mapping of modules for one optimizer over
+    a tree of models (each moment is then a tree keyed the same way)."""
     name, moments, n_sub = _opt_layout(optimizer)
-    names = {p: n for n, p in model.named_parameters()}
+    names = _named(model)
     count = np.asarray(optimizer.param_groups[0]["count"], np.int32)
     first: dict[str, Any] = {"count": count} if name == "Adam" else {}
     for okey, tkey in moments:
-        first[okey] = params_to_flax(model, {
-            names[p]: optimizer.state[p][tkey]
-            for g in optimizer.param_groups for p in g["params"]})
+        values: dict[str | None, dict[str, torch.Tensor]] = {}
+        for g in optimizer.param_groups:
+            for p in g["params"]:
+                key, pname = names[p]
+                values.setdefault(key, {})[pname] = optimizer.state[p][tkey]
+        if isinstance(model, nn.Module):
+            first[okey] = params_to_flax(model, values[None])
+        else:
+            first[okey] = {k: params_to_flax(m, values[k])
+                           for k, m in model.items()}
     out: dict[str, Any] = {str(i): {} for i in range(n_sub)}
     out["0"] = first
     if getattr(optimizer, "schedule", None) is not None:
@@ -326,34 +356,43 @@ def opt_state_to_optax(model: nn.Module, optimizer: torch.optim.Optimizer
     return out
 
 
-def opt_state_from_optax(state: Mapping[str, Any], model: nn.Module,
+def opt_state_from_optax(state: Mapping[str, Any],
+                         model: nn.Module | Mapping[str, nn.Module],
                          optimizer: torch.optim.Optimizer,
                          count: int | None = None) -> torch.optim.Optimizer:
     """Load an optax state (the layout of :func:`opt_state_to_optax`) into
-    ``optimizer``, whose parameters are ``model``'s.  The update count
-    comes from the state; SGD and RMSprop keep none without a schedule, and
-    then ``count`` (default 0) is used."""
+    ``optimizer``, whose parameters are ``model``'s (one module, or a
+    mapping of modules whose keys the state's moment trees must match
+    exactly).  The update count comes from the state; SGD and RMSprop keep
+    none without a schedule, and then ``count`` (default 0) is used."""
     name, moments, _ = _opt_layout(optimizer)
-    root = getattr(model, "flax_root", "Net")
     first = state["0"]
     counts = [int(np.asarray(s["count"])) for s in state.values()
               if isinstance(s, Mapping) and "count" in s]
     n = counts[0] if counts else int(count or 0)
-    trees = {}
+    models = {None: model} if isinstance(model, nn.Module) else dict(model)
+    trees: dict[str, dict[tuple[str | None, str], np.ndarray]] = {}
     for okey, tkey in moments:
         if okey not in first:
             raise ValueError(f"optax state has no {okey!r}: not a {name} "
                              f"state")
-        trees[tkey] = params_from_flax(first[okey], root)
-    names = dict(model.named_parameters())
+        per_model = {None: first[okey]} if None in models else first[okey]
+        if set(per_model) != set(models):
+            raise ValueError(f"optax {okey} tree holds {sorted(per_model)}, "
+                             f"the optimizer's models are {sorted(models)}")
+        trees[tkey] = {(k, pname): arr for k, m in models.items()
+                       for pname, arr in params_from_flax(
+                           per_model[k], getattr(m, "flax_root", "Net")
+                       ).items()}
+    names = _named(model)
     for tkey, tree in trees.items():
-        if set(tree) != set(names):
+        if set(tree) != set(names.values()):
             raise ValueError(f"optax {tkey} tree does not cover the model's "
                              f"parameters")
     for group in optimizer.param_groups:
         group["count"] = n
-    for pname, p in names.items():
-        st = {tkey: torch.empty_like(p).copy_(tree[pname])
+    for p, key in names.items():
+        st = {tkey: torch.empty_like(p).copy_(tree[key])
               for tkey, tree in trees.items()}
         if name == "Adam":
             st["step"] = torch.tensor(float(n))

@@ -16,7 +16,8 @@ _EXPLICIT: dict[str, Callable] = {}
 _PORTED = {"gmfnet": "gmfnet", "gmfnet_conv": "gmfnet_conv",
            "dense_fusion": "dense_fusion", "tri_net": "tri_net",
            "resnet18": "resnet18", "cross_net": "cross_net",
-           "vision_transformer": "vit", "vit": "vit", "dqtl": "dqtl"}
+           "vision_transformer": "vit", "vit": "vit", "dqtl": "dqtl",
+           "generator": "generator", "discriminator": "discriminator"}
 
 # Model input contract (``dmfusion/models/registry.py``): how windows are
 # gathered and fed.  Names absent here are "dual": model(ms, pan).

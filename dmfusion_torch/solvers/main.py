@@ -38,8 +38,10 @@ trains and validates per anchor like gmfnet.  The tri arity adds a third
 scene, MSPAN: the seeded IHS pansharpen of the raw scene (seed ``seed``,
 ``data/scene.py::mspan_scene``), built once on the device, normalized and
 padded like PAN, and gathered with MS and PAN by ``TriPrograms``.  The
-quad arity (dqtl) trains under ``solvers/twostage.py``.  The single and
-image arities, ``proof`` and ``visualize`` are not ported yet and raise
+quad arity (dqtl) trains under ``solvers/twostage.py``, and so do the image
+arity's generator and discriminator, as its stage 1: this solver refuses
+them with a ``ValueError``, as dmfusion's does.  The single arity,
+``proof`` and ``visualize`` are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -74,9 +76,7 @@ from dmfusion_torch.utils.misc import parse_switch
 _UNPORTED_ARITY = {"single": "is not ported to dmfusion_torch yet (ROADMAP "
                              "A12)",
                    "quad": "trains under the two-stage solver: pass "
-                           "--solver twostage (ROADMAP A11)",
-                   "image": "is not ported to dmfusion_torch yet (ROADMAP "
-                            "A11, stage 1)"}
+                           "--solver twostage (ROADMAP A11)"}
 
 # The dense memory probes' decisions, per process.  dmfusion also keeps
 # them on disk, because each of its probes is an XLA compile that costs
@@ -209,6 +209,12 @@ class Solver(BaseSolver):
     def init_model(self) -> None:
         cfg = self.cfg
         arity = model_arity(cfg["model_name"])
+        if arity == "image":
+            raise ValueError(
+                f"unsupported model arity {arity!r} for the main solver: "
+                f"{cfg['model_name']!r} trains as stage 1 of the two-stage "
+                "solver (--solver twostage --set model_name=dqtl "
+                "dqtl.pre_trained=0)")
         if arity not in ("dual", "tri", "dense"):
             raise NotImplementedError(
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "

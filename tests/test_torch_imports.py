@@ -55,7 +55,9 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
     "dmfusion_torch.models.tri_net", "dmfusion_torch.models.resnet18",
     "dmfusion_torch.models.cross_net", "dmfusion_torch.models.vit",
     "dmfusion_torch.models.dqtl", "dmfusion_torch.solvers.twostage",
-    "dmfusion_torch.ops.ihs",
+    "dmfusion_torch.ops.ihs", "dmfusion_torch.ops.image",
+    "dmfusion_torch.models.generator", "dmfusion_torch.models.discriminator",
+    "dmfusion_torch.train.gan", "dmfusion_torch.report.viz",
     "dmfusion_torch.tools.strip_gather_bench",
     "dmfusion_torch.tools.conv_kernel_probe",
     "dmfusion_torch.tools.pool_probe", "dmfusion_torch.tools.convmap_ab"])

@@ -226,9 +226,11 @@ def test_converter_raises_on_unmatched():
 
 def test_registry():
     assert available_models() == [
-        "cross_net", "dense_fusion", "dqtl", "gmfnet", "gmfnet_conv",
-        "resnet18", "tri_net", "vision_transformer", "vit"]
+        "cross_net", "dense_fusion", "discriminator", "dqtl", "generator",
+        "gmfnet", "gmfnet_conv", "resnet18", "tri_net", "vision_transformer",
+        "vit"]
     assert model_arity("gmfnet") == "dual" and model_arity("dqtl") == "quad"
+    assert model_arity("generator") == model_arity("discriminator") == "image"
     assert model_arity("gmfnet_conv") == "dual"
     assert model_arity("dense_fusion") == "dense"
     assert model_arity("tri_net") == "tri"

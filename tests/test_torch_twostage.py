@@ -12,6 +12,7 @@ to the solver's) exactly.
 import json
 import os
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -22,18 +23,20 @@ from dmfusion.export import load_artifact as jax_load_artifact
 from dmfusion.export import save_artifact as jax_save_artifact
 from dmfusion.infer import ScenePredictor as JaxScenePredictor
 from dmfusion.solvers import build_solver as jax_build_solver
+from dmfusion.solvers.twostage import TwoStageSolver as JaxTwoStageSolver
 from dmfusion_torch import cli
 from dmfusion_torch import export as export_cli
 from dmfusion_torch.config import load_config
-from dmfusion_torch.data.scene import synthetic_scene
+from dmfusion_torch.data.scene import quad_streams, synthetic_scene
 from dmfusion_torch.export import _msgpack_restore, load_artifact
 from dmfusion_torch.infer import ScenePredictor
 from dmfusion_torch.infer import main as infer_main
 from dmfusion_torch.models.convert import params_from_flax
+from dmfusion_torch.ops.image import scene_to_tiles
 from dmfusion_torch.ops.ihs import pan2ms
 from dmfusion_torch.report.excel import Workbook
 from dmfusion_torch.solvers import TwoStageSolver, build_solver
-from dmfusion_torch.train.checkpoint import save_checkpoint
+from dmfusion_torch.train.checkpoint import load_checkpoint, save_checkpoint
 from dmfusion_torch.train.steps import QuadPrograms
 
 OVER = {"data_city": "synth64", "solver": "twostage", "model_name": "dqtl",
@@ -143,15 +146,163 @@ def test_stale_shape_refused_with_dmfusions_message(tmp_path, gan):
     assert str(got.value) == str(want.value)
 
 
-def test_stage1_not_ported_raises(tmp_path):
-    """``pre_trained: 0`` would train stage 1's GAN: refused, naming A11,
-    with no stand-in."""
-    solver = build_solver(_cfg(tmp_path, dqtl={"pre_trained": 0}))
-    with pytest.raises(NotImplementedError, match="A11"):
-        solver.run()
-    assert solver.scene_args is None
+def test_visualize_raises_naming_a15(tmp_path):
+    """The stream scatter (t-SNE, matplotlib) is not ported: refused,
+    naming A15."""
+    solver = build_solver(_cfg(tmp_path))
     with pytest.raises(NotImplementedError, match="A15"):
         solver.visualize()
+
+
+# -- stage 1 -----------------------------------------------------------------
+
+# One device: on the test suite's 8-device CPU mesh dmfusion would round
+# the stage-1 batch up to a multiple of 8.
+S1 = {"gan_width": 8, "mesh": {"data": 1, "model": 1},
+      "dqtl": {"pre_trained": 0, "pic_size": 32, "epochs": 1,
+               "batch_size": 2, "save_model": 1}}
+GAN_ROOTS = {"gP": "Generator", "gM": "Generator", "dP": "Discriminator",
+             "dM": "Discriminator"}
+
+
+def _jax_noise(seed, epochs, steps, shape):
+    """dmfusion's stage-1 noise draws in its order: ``PRNGKey(seed + 1)``
+    split per epoch, then per step, then into the MS and PAN draws."""
+    rng = jax.random.PRNGKey(seed + 1)
+    draws = []
+    for _ in range(epochs):
+        rng, sub = jax.random.split(rng)
+        for key in jax.random.split(sub, steps):
+            km, kp = jax.random.split(key)
+            draws.append(tuple(torch.from_numpy(np.array(
+                jax.random.normal(k, shape))) for k in (km, kp)))
+    it = iter(draws)
+    return lambda m, p: next(it)
+
+
+@pytest.fixture(scope="module")
+def stage1(tmp_path_factory):
+    """dmfusion's ``train_stage1`` (1 epoch, 3 steps of 2 tiles of 32),
+    then the port's from dmfusion's initial params (written as the port's
+    checkpoints, loaded with ``dqtl.load_model``) with dmfusion's noise."""
+    tmp = tmp_path_factory.mktemp("s1")
+    jsolver = JaxTwoStageSolver(jax_load_config(overrides={
+        **OVER, **S1, "expo_result": f"{tmp}/j/"}, prepare=True))
+    jsolver.train_stage1()
+    jsolver.init_stage1_model()  # the initial params again, for the port
+    solver = build_solver(_cfg(f"{tmp}/t", **{
+        **S1, "dqtl": {**S1["dqtl"], "load_model": 1}}))
+    for which, root in GAN_ROOTS.items():
+        save_checkpoint(solver._gan_ckpt(which), params_from_flax(
+            jsolver.gan_state["params"][which], root),
+            meta=solver._gan_meta(which))
+    solver.gan_noise = _jax_noise(0, 1, 3, (2, 32, 32, 4))
+    solver.train_stage1()
+    return jsolver, solver
+
+
+def test_stage1_scenes_match_dmfusion(stage1):
+    """msgan.npy and pangan.npy against dmfusion's ``train_stage1``: the
+    first batch's tiles, made before any update, within 1e-5 (reading
+    7.7e-7); the later ones, made after one and two Adam steps, within 1e-3
+    (readings 1.1e-4 with one torch thread, 3.4e-4 with eight).  Each step
+    moves an element whose gradient is rounding noise by up to ``lr``
+    (1e-4) in either package (``test_torch_gan.py`` holds each step from
+    JAX's own state), and the next fakes carry that.  The tiles equal
+    dmfusion's."""
+    jsolver, solver = stage1
+    wdir = solver._weights_dir()
+    for name, got, want in (("msgan.npy", solver.ms_gan, jsolver.ms_gan),
+                            ("pangan.npy", solver.pan_gan, jsolver.pan_gan)):
+        assert got.shape == SIZE and got.dtype == np.float32, name
+        assert np.array_equal(np.load(os.path.join(wdir, name)), got)
+        assert 0 <= got.min() and got.max() <= 1
+        gt = scene_to_tiles(got, 32)[0]
+        wt = scene_to_tiles(np.asarray(want), 32)[0]
+        np.testing.assert_allclose(gt[:2], wt[:2], rtol=0, atol=1e-5,
+                                   err_msg=name)
+        np.testing.assert_allclose(gt, wt, rtol=0, atol=1e-3, err_msg=name)
+    got, want = solver._stage1_tiles(), jsolver._stage1_tiles()
+    assert got[2:] == want[2:] == (2, 3)
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == np.float32 and g.shape == (6, 32, 32, 4)
+        assert np.array_equal(g, w)
+    log = solver.stage1_log
+    assert len(log["epoch_s"]) == 1 and len(log["d_loss"][0]) == 3
+    assert np.isfinite(log["d_loss"] + log["g_loss"]).all()
+
+
+def test_stage1_artifacts(stage1):
+    """The files of dmfusion's ``test_stage1_artifacts`` and
+    ``test_stage1_visual_artifacts``, the PNGs at their sizes; the real
+    tiles' grids equal dmfusion's pixels."""
+    jsolver, solver = stage1
+    wdir, jdir = solver._weights_dir(), jsolver._weights_dir()
+    for f in ("msgan.npy", "pangan.npy", "gen_p.ckpt", "gen_m.ckpt",
+              "disc_p.ckpt", "disc_m.ckpt", "fake_ms.png", "fake_pan.png"):
+        assert os.path.isfile(os.path.join(wdir, f)), f
+    for f in ("fake_ms.png", "fake_pan.png"):
+        assert _png(os.path.join(wdir, f)).shape == (64, 72, 3)
+    for f in ("f_p_0.png", "f_m_0.png", "p.png", "m.png"):
+        got = _png(os.path.join(wdir, "saved_images", f))
+        want = _png(os.path.join(jdir, "saved_images", f))
+        assert got.shape == want.shape == (32, 64, 3), f
+        if f in ("p.png", "m.png"):
+            assert np.array_equal(got, want), f
+    tree = load_checkpoint(solver._gan_ckpt("dP"), None, strict=True)
+    assert set(tree) == {k for k, _ in solver.gan_programs.nets[
+        "dP"].named_parameters()}
+
+
+def _png(path):
+    from PIL import Image
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def test_stage1_stale_caches(stage1, capsys):
+    """A ``pan.npy`` of another shape is recomputed, with dmfusion's
+    message; a GAN checkpoint of another width is refused."""
+    _, solver = stage1
+    pan_npy = os.path.join(solver._weights_dir(), "pan.npy")
+    good = np.load(pan_npy)
+    np.save(pan_npy, np.zeros((5, 7, 4), np.float32))
+    tiles = solver._stage1_tiles()
+    assert ("[stage1] ignoring stale pan.npy cache (5, 7, 4) != (64, 72, 4)"
+            in capsys.readouterr().out)
+    assert tiles[1].shape == (6, 32, 32, 4)
+    assert np.array_equal(np.load(pan_npy), good)
+    wide = TwoStageSolver(dict(solver.cfg, gan_width=16))
+    with pytest.raises(ValueError, match="different configuration"):
+        wide.init_stage1_model()
+
+
+def test_cli_runs_stage1_then_stage2(tmp_path, capsys):
+    """``python -m dmfusion_torch.cli --solver twostage --set
+    dqtl.pre_trained=0 ...``: stage 1 (2 epochs), then stage 2 on its
+    scenes, then test."""
+    solver = cli.main([
+        "--solver", "twostage", "--city", "synth64", "--set", "device=cpu",
+        "model_name=dqtl", "dqtl.pre_trained=0", "gan_width=8",
+        "dqtl.pic_size=32", "dqtl.epochs=2", "dqtl.batch_size=2",
+        "dqtl.save_model=1", "patch_size=8", "model_width=8",
+        "batchsize=32", "test_batchsize=32", "color_batchsize=32", "epoch=1",
+        "time=1", "train_rate=0.1", "verify_rate=0.05", "seed=0",
+        "color.index=0", "precision.compute_dtype=float32",
+        f"expo_result={tmp_path}/"])
+    out = capsys.readouterr().out
+    assert "[stage1] epoch 0 d_loss" in out and "[stage1] epoch 1" in out
+    assert isinstance(solver, TwoStageSolver)
+    wdir = solver._weights_dir()
+    msgan = np.load(os.path.join(wdir, "msgan.npy"))
+    pangan = np.load(os.path.join(wdir, "pangan.npy"))
+    assert msgan.shape == pangan.shape == SIZE
+    scene = synthetic_scene(load_config(overrides=OVER), device="cpu")
+    for got, want in zip(solver.scene_args, quad_streams(
+            scene, msgan, pangan, torch.device("cpu")), strict=True):
+        assert torch.equal(got, want)
+    assert solver.records["Epoch"] == [0]
+    assert solver.test_matrix.sum() == len(solver.split.test)
+    assert solver.stream_matrices.shape == (4, 5, 5)
 
 
 @pytest.fixture(scope="module")
