@@ -208,16 +208,35 @@ Phases; any failure exits non-zero before the result line:
                 share, a profile by operator), stage 2's epochs and test,
                 and the phase;
   15. zoo     — resnet18 (width 32), cross_net and vision_transformer (the
-                config's ``trans``: embed 96, depth 2, 3 heads, patch 1) at
-                bf16 from seeded weights: 20 train steps of 256 through
-                ``DualPrograms`` (B1 twice a step, counted; the loss falls),
-                then a ``save_artifact`` -> ``load_artifact`` ->
+                config's ``trans``: embed 96, depth 2, 3 heads, patch 1),
+                swin_transformer and swin_T_dual (``trans``: embed 96,
+                window 2, depths [2, 4], heads [3, 3]) and ct_lstm (width
+                64) at bf16 from seeded weights: 20 train steps of 256
+                through ``DualPrograms`` (B1 twice a step, counted; the loss
+                falls), then a ``save_artifact`` -> ``load_artifact`` ->
                 ``ScenePredictor`` round trip serving 8 requests of 4096
-                (B1 twice a request); with the trained weights, on 256
+                (B1 twice a request; the widths read back from the
+                artifact's tree); with the trained weights, on 256
                 anchors, bf16 card logits within ZOO_BF16_ATOL of f32 CPU
                 logits and f32 card logits (TF32 off) within 1e-3; bf16 vs
-                f32 card argmax agreement at least ZOO_AGREE_MIN over a
-                request of 4096; times of a step and a request.
+                f32 card argmax agreement at least ZOO_AGREE_MIN (a floor
+                of its own for swin_transformer, whose logits still sit at
+                the class prior) over a request of 4096; times of a step
+                and a request, peak memory;
+  16. train_ct — ct_lstm trained through the CLI's ``main`` as ``python -m
+                dmfusion_torch.cli --set model_name=ct_lstm epoch=2 time=1
+                color.index=0 proof.index=1`` (w64, patch 16, batch 256,
+                Adam, bf16 compute, f32 image6 scene; the contourlet
+                transform in f32 inside the model): epochs [0, 1] with
+                finite losses; a test matrix that sums to the test split and
+                OA >= CT_OA_MIN; the checkpoints, matrix, records,
+                workbook and the four proof grids written; B1 launched twice
+                per gathered batch (train, val and test; color is off), the
+                count computed from the split sizes; the contourlet of a
+                request batch's windows (4096 MS and PAN) on the card within
+                1e-5 of the CPU's with TF32 off, the gap with TF32 on
+                recorded; times of the epochs, 20 train steps and their
+                profile, and the test.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
 ``nvcc`` per source.
@@ -365,18 +384,38 @@ GAN_PROFILE_STEPS, GAN_REQUESTS = 20, 2
 GAN_PARITY_PIC, GAN_PARITY_BATCH = 64, 2
 GAN_BF16_RTOL = 0.02
 # The zoo: the config's baselines at its widths (resnet18's base 32; the
-# transformers take ``trans``: embed 96, depth 2, 3 heads, patch 1).
+# transformers take ``trans``: embed 96, depth 2, 3 heads, patch 1; the
+# Swin models its ``window_size`` 2, ``depths`` [2, 4], ``num_heads`` [3,
+# 3]; ct_lstm ``model_width`` 64).
 ZOO = {"resnet18": {"model_width": 32}, "cross_net": {},
-       "vision_transformer": {}}
+       "vision_transformer": {}, "swin_transformer": {}, "swin_T_dual": {},
+       "ct_lstm": {"model_width": 64}}
 ZOO_STEPS, ZOO_REQUESTS = 20, 8
 # bf16 vs f32 logits of the zoo after 20 Adam steps, on the CPU over 256
-# image6 anchors: 0.0116 (resnet18), 0.0377 (cross_net), 0.0283 (vit), at
-# logit scales of 4.1-4.7; at init 0.024-0.037.  A skipped or wrong layer
+# image6 anchors: 0.0116 (resnet18), 0.0377 (cross_net), 0.0283 (vit),
+# 0.0077 (swin_transformer), 0.0177 (swin_T_dual), 0.0081 (ct_lstm), at
+# logit scales of 1.4-4.7; at init 0.0028-0.037.  A skipped or wrong layer
 # moves them by the logits' own scale.
 ZOO_BF16_ATOL = 0.12
 # bf16 vs f32 argmax agreement over a request: the reference flips 0.4-0.5
-# % of near-tie argmaxes between the two (BENCH_NOTES.md).
+# % of near-tie argmaxes between the two (BENCH_NOTES.md).  After 20 steps
+# swin_transformer still predicts the class prior (its loss is ln 11, as
+# dmfusion's from the same start: 1.3e-4 apart over the 20 f32 steps on
+# the CPU): its logits part by about 0.002 between anchors, its top two
+# classes by a median of 0.004, under its bf16 gap, so bf16 flips ties
+# (0.79 agreement over 256 anchors on the CPU, 1.0 over 4096 on the H100);
+# its floor is half, the share of a coin flip between the two.
 ZOO_AGREE_MIN = 0.99
+ZOO_AGREE_MIN_BY = {"swin_transformer": 0.5}
+# The contourlet training run: ``python -m dmfusion_torch.cli --set
+# model_name=ct_lstm epoch=2 time=1 color.index=0 proof.index=1`` on image6
+# (w64, patch 16, batch 256, bf16, f32 scene): train, val, test and the
+# four proof grids.  Its test OA is held to 0.5, as every training cell's:
+# on the card it scores 0.964 after 2 epochs (on the CPU drive, synth64 at
+# patch 8 and width 8, only 0.25, the majority class).
+CT_TRAIN_SET = ["model_name=ct_lstm", "data_city=image6", "epoch=2",
+                "time=1", "color.index=0", "proof.index=1", "nohup=1"]
+CT_OA_MIN = 0.5
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -2422,11 +2461,10 @@ def phase_train_gan(scene, device) -> int:
 
 
 def phase_zoo(scene, device) -> int:
-    """resnet18, cross_net and vision_transformer at the config's widths,
-    bf16, from seeded weights: 20 train steps through ``DualPrograms``,
-    then an artifact round trip serving 8 requests; logits against f32 on
-    the card and the CPU; returns B1's launches over the steps and
-    requests."""
+    """The dual zoo models (``ZOO``) at the config's widths, bf16, from
+    seeded weights: 20 train steps through ``DualPrograms``, then an
+    artifact round trip serving 8 requests; logits against f32 on the card
+    and the CPU; returns B1's launches over the steps and requests."""
     from dmfusion_torch.train.optim import make_optimizer
     from dmfusion_torch.train.steps import DualPrograms
     labeled, _ = split_labels(scene.label)
@@ -2521,8 +2559,9 @@ def phase_zoo(scene, device) -> int:
               f"{err32}")
         check(err16 <= ZOO_BF16_ATOL, f"zoo {name}: bf16 card vs f32 CPU "
               f"logits differ by {err16} > {ZOO_BF16_ATOL}")
-        check(agree >= ZOO_AGREE_MIN, f"zoo {name}: bf16 vs f32 argmax "
-              f"agreement {agree} < {ZOO_AGREE_MIN}")
+        agree_min = ZOO_AGREE_MIN_BY.get(name, ZOO_AGREE_MIN)
+        check(agree >= agree_min, f"zoo {name}: bf16 vs f32 argmax "
+              f"agreement {agree} < {agree_min}")
         results[name] = {
             "params": sum(p.numel() for p in model.parameters()),
             "loss_first_last": [float(losses[0]), float(losses[-1])],
@@ -2541,6 +2580,144 @@ def phase_zoo(scene, device) -> int:
         del model, prog, clf, pred, card32, cpu32, on_card, served16
         torch.cuda.empty_cache()
     return total
+
+
+def _ct_card_vs_cpu(scene, ids) -> dict:
+    """The contourlet transform of one request batch's MS and PAN windows
+    (f32) on the card against the CPU: within 1e-5 with TF32 off; the gap
+    with TF32 on is recorded, and each pass timed."""
+    from dmfusion_torch.ops.contourlet import contourlet_decompose
+    ms_b, pan_b = gather_ops.gather_dual_fast(
+        scene.ms, scene.pan, torch.from_numpy(ids).to(scene.ms.device),
+        scene.width, scene.patch)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    out: dict = {"anchors": len(ids)}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.allow_tf32 = tf32
+            errs, secs = [], []
+            for x in (ms_b, pan_b):
+                x = x.permute(0, 3, 1, 2)
+                want = contourlet_decompose(x.cpu())
+                contourlet_decompose(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = contourlet_decompose(x)
+                torch.cuda.synchronize()
+                secs.append((time.perf_counter() - t0) * 1e3)
+                errs += [_max_err(g.cpu(), w) for g, w in zip(got, want)]
+            out["tf32" if tf32 else "f32"] = {
+                "max_abs_err_low_sub_ms_pan": errs,
+                "ms_ms_pan": secs}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    err = max(out["f32"]["max_abs_err_low_sub_ms_pan"])
+    check(err <= 1e-5, f"train_ct: contourlet card vs CPU (TF32 off) "
+          f"{err} > 1e-5")
+    return out
+
+
+def phase_train_ct(device) -> int:
+    """Train ct_lstm w64 on image6 through ``python -m
+    dmfusion_torch.cli``'s ``main`` (2 epochs, test, the proof grids), check
+    what it writes and computes, time 20 more steps and profile them, and
+    hold the contourlet transform on the card against the CPU; returns B1's
+    launches over the CLI run."""
+    from dmfusion_torch import cli
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_ct_")
+    torch.cuda.reset_peak_memory_stats(device)
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver = cli.main(["--set", *CT_TRAIN_SET, f"expo_result={tmp}/"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        cfg, split, rec = solver.cfg, solver.split, solver.records
+        prog, model, sc = solver.programs, solver.model, solver.scene
+        log(f"train_ct: the CLI run took {run_s:.2f} s; epochs "
+            f"{rec['EpochTime']} s, losses {rec['Loss']}, val "
+            f"{rec['ValLoss']}")
+        check(type(prog) is DualPrograms and model.lstm.features == 64
+              and cfg["model_name"] == "ct_lstm"
+              and cfg["patch_size"] == 16 and cfg["batchsize"] == TRAIN_BATCH
+              and model.compute_dtype == torch.bfloat16
+              and sc.ms.dtype == torch.float32
+              and solver.device.type == "cuda", "train_ct: not the w64, "
+              "patch 16, bf16, f32-scene ct_lstm run on the card")
+        check(rec["Epoch"] == [0, 1], f"train_ct: epochs {rec['Epoch']}")
+        check(all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+              f"train_ct: non-finite losses {rec['Loss']} {rec['ValLoss']}")
+        check(int(solver.test_matrix.sum()) == len(split.test),
+              "train_ct: test matrix does not sum to the test split")
+        aa, oa, kap, _ = solver.last_result
+        check(oa >= CT_OA_MIN, f"train_ct: test OA {oa} < {CT_OA_MIN}")
+        out = cfg["RESULT_output"]
+        proof = [f"0_ct_{t}_{b}.png" for t in ("ms", "pan")
+                 for b in ("low", "dfb")]
+        for f in ("0_weights.pt", "0_curweights.pt", "0_matrix.npy",
+                  "0_records.json", *proof):
+            check(os.path.isfile(os.path.join(out, f)), f"train_ct: no {f}")
+        check(os.path.isfile(cfg["RESULT_excel"]), "train_ct: no workbook")
+
+        # B1: two launches (MS, PAN) per gathered batch; color is off and
+        # proof gathers its few windows with the plain gather.
+        ev = solver._eval_round_to()
+        batches = {"train": -(-len(split.train) // TRAIN_BATCH) * 2,
+                   "val": -(-len(split.valid) // ev) * 2,
+                   "test": -(-len(split.test) // ev)}
+        want = 2 * sum(batches.values())
+        check(ev == EVAL_BATCH and launches["gather_windows"] == want,
+              f"train_ct: {launches['gather_windows']} B1 launches, the "
+              f"split sizes give {want} ({batches}, eval batches of {ev})")
+
+        # Train-only time of 20 steps, then a profile of the same steps.
+        tb = solver.batches(split.train, TRAIN_BATCH, shuffle=True)
+        steps = (tb[0][:PROFILE_STEPS], tb[1][:PROFILE_STEPS],
+                 tb[2][:PROFILE_STEPS].float())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(prog.train_epoch(solver.scene_args, *steps).mean())
+        train_steps_s = time.perf_counter() - t0
+        prof = _profile(lambda: prog.train_epoch(solver.scene_args, *steps),
+                        f"{PROFILE_STEPS} ct_lstm train steps, B "
+                        f"{TRAIN_BATCH}", 10)
+        log("profile train_ct: " + json.dumps(prof))
+        rng = np.random.default_rng(14)
+        ct_check = _ct_card_vs_cpu(sc, rng.choice(
+            split.test, BUCKET, replace=False).astype(np.int32))
+        log(f"train_ct: contourlet card vs CPU {json.dumps(ct_check)}")
+        test_s = solver.test_time
+        n_train, n_val, n_test = (len(split.train), len(split.valid),
+                                  len(split.test))
+        peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+        del solver, prog, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    result = {
+        "model": "ct_lstm", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
+        "run_s": run_s, "epoch_s": rec["EpochTime"], "loss": rec["Loss"],
+        "val_loss": rec["ValLoss"], "val_oa": rec["ValOA"],
+        "train_anchors": n_train, "val_anchors": n_val,
+        "test_anchors": n_test,
+        "epoch1_samples_per_s": n_train / rec["EpochTime"][1],
+        "train_steps": PROFILE_STEPS, "train_steps_s": train_steps_s,
+        "train_step_ms": train_steps_s / PROFILE_STEPS * 1e3,
+        "train_samples_per_s": PROFILE_STEPS * TRAIN_BATCH / train_steps_s,
+        "busy_share": prof["busy_share"], "test_s": test_s,
+        "test_anchors_per_s": n_test / test_s, "test_oa": oa,
+        "test_aa": aa, "test_kappa": kap, "peak_mem_gb": peak_gb,
+        "gather_batches": batches, "launches": launches,
+        "contourlet": ct_check, "proof_pngs": proof}
+    log(f"train_ct: {json.dumps(result)}")
+    return launches["gather_windows"]
 
 
 def phase_strip(scene, device) -> tuple[int, dict]:
@@ -2716,6 +2893,7 @@ def main() -> None:
     del quad, gan
     by_path["train_gan"] = phase_train_gan(scene, device)
     by_path["zoo"] = phase_zoo(scene, device)
+    by_path["train_ct"] = phase_train_ct(device)
     launches["gather_windows"] = sum(by_path.values())
     launches["strip_gather"], timings["strip_gather"] = phase_strip(scene,
                                                                     device)

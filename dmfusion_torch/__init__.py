@@ -15,7 +15,10 @@ checkpoints, the train/test/color solver, xlsx reports and class-map
 PNGs; and the whole-scene class map of the dense flagship, dense_fusion,
 with its phase window-pool as a second hand-written CUDA kernel; dense
 and gmfnet_conv training; the tri arity (tri_net with its seeded IHS
-MSPAN stream) and the resnet18, cross_net and vit baselines.
+MSPAN stream); the two-stage DQTL solver; and the rest of the zoo —
+resnet18, cross_net, vit, swin_transformer, swin_T_dual and ct_lstm
+(with the contourlet transform, which the ``proof`` phase renders).
+Every model of dmfusion's zoo trains on the card.
 """
 
 __version__ = "0.1.0"

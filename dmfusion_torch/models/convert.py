@@ -16,15 +16,20 @@ attention layer's ``query``/``key``/``value`` kernels are ``DenseGeneral``
 ``out`` kernel is ``(heads, head_dim, dim)``: torch ``nn.Linear`` layers
 over the flattened head axes, heads major (leaf kinds ``HEADS_IN`` and
 ``HEADS_OUT``; the head count is the attention module's ``heads``).
-Conversion in either direction raises on anything left unmatched, so a
-tree of another model or width never loads in part.  The root scope is
-the model class's ``flax_root``: ``Net`` for gmfnet, ``DenseNet`` for
-dense_fusion, ``ConvNet`` for gmfnet_conv (whose tree names every layer
-explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``, ``CrossNet``,
-``ViT``, ``Generator`` and ``Discriminator`` for the tri_net, dqtl,
-resnet18, cross_net, vit, generator and discriminator trees, each rooted
-at flax's ``Net`` (tri_net's ``ResBlock_2`` is its MSPAN branch,
-gmfnet's the trunk's first block: one name, two layers).
+ct_lstm's ``OptimizedLSTMCell_0`` holds one kernel per gate and side
+(``ii`` ... ``io``, ``(in, h)``, no bias; ``hi`` ... ``ho``, ``(h, h)``
+with a bias): the port's LSTM stacks them, gates i, f, g, o, into one
+input and one hidden ``nn.Linear``-layout weight and one bias (kind
+``LSTM_CELL``).  Conversion in either direction raises on anything left
+unmatched, so a tree of another model or width never loads in part.  The
+root scope is the model class's ``flax_root``: ``Net`` for gmfnet,
+``DenseNet`` for dense_fusion, ``ConvNet`` for gmfnet_conv (whose tree
+names every layer explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``,
+``CrossNet``, ``ViT``, ``Swin``, ``SwinDual``, ``CTLSTM``, ``Generator``
+and ``Discriminator`` for the tri_net, dqtl, resnet18, cross_net, vit,
+swin_transformer, swin_T_dual, ct_lstm, generator and discriminator
+trees, each rooted at flax's ``Net`` (tri_net's ``ResBlock_2`` is its
+MSPAN branch, gmfnet's the trunk's first block: one name, two layers).
 
 The optimizer state goes across the same way (:func:`opt_state_from_optax`,
 :func:`opt_state_to_optax`): an optax Adam, SGD or RMSprop state, as
@@ -49,16 +54,21 @@ LEAF = "leaf"    # a module whose params are kernel/bias/scale/gain leaves
 PARAM = "param"  # a raw parameter, same array in both frameworks
 HEADS_IN = "heads_in"    # DenseGeneral dim -> (heads, head_dim)
 HEADS_OUT = "heads_out"  # DenseGeneral (heads, head_dim) -> dim
+LSTM_CELL = "lstm_cell"  # OptimizedLSTMCell's 8 gate kernels -> 3 tensors
 _LEAVES = (LEAF, HEADS_IN, HEADS_OUT)
+# OptimizedLSTMCell's gate order, as the port's LSTM stacks its gates.
+_GATES = "ifgo"
 
 
 def _conv_block(n: int, path: str) -> dict[str, tuple[str, str]]:
     return {f"ConvBlock_{i}": (f"{path}.{i}", "ConvBlock") for i in range(n)}
 
 
-# The transformer scopes list blocks up to this depth; a deeper model's
-# extra blocks are refused as unmatched.
+# The transformer scopes list blocks up to this depth, and the Swin
+# encoder stages up to this count; a deeper model's extra blocks or stages
+# are refused as unmatched.
 _DEPTHS = 32
+_STAGES = 8
 
 # Per scope: flax child name -> (torch attribute path, child scope or kind).
 _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
@@ -137,6 +147,35 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
                for i in range(_DEPTHS)},
             "LayerNorm_0": ("norm", LEAF),
             "MLPHead_0": ("head", "MLPHeadOut")},
+    "Swin": {"PanPyramid_0": ("pan", "PanPyramid"),
+             "encoder": ("encoder", "SwinEncoder"),
+             "MLPHead_0": ("head", "MLPHead")},
+    "SwinDual": {"PanPyramid_0": ("pan", "PanPyramid"),
+                 "ms_encoder": ("ms_encoder", "SwinEncoder"),
+                 "pan_encoder": ("pan_encoder", "SwinEncoder"),
+                 "gate": ("gate", LEAF),
+                 "MLPHead_0": ("head", "MLPHead")},
+    "SwinEncoder": {
+        "embed": ("embed", LEAF), "pos": ("pos", PARAM),
+        **{f"stage{s}_block{i}": (f"stages.{s}.{i}", "SwinBlock")
+           for s in range(_STAGES) for i in range(_DEPTHS)},
+        **{f"merge{s}": (f"merges.{s}", "PatchMerge")
+           for s in range(_STAGES)},
+        "LayerNorm_0": ("norm", LEAF)},
+    "SwinBlock": {"LayerNorm_0": ("norm1", LEAF),
+                  "WindowAttention_0": ("attn", "WindowAttention"),
+                  "LayerNorm_1": ("norm2", LEAF),
+                  "Dense_0": ("fc1", LEAF), "Dense_1": ("fc2", LEAF)},
+    "WindowAttention": {"qkv": ("qkv", LEAF), "proj": ("proj", LEAF),
+                        "rel_bias": ("rel_bias", PARAM)},
+    "PatchMerge": {"LayerNorm_0": ("norm", LEAF),
+                   "Dense_0": ("reduce", LEAF)},
+    "CTLSTM": {**{f"pan_level{i}": (f"pan_levels.{i}", "LevelEmbed")
+                  for i in range(3)},
+               "ms_level": ("ms_level", "LevelEmbed"),
+               "OptimizedLSTMCell_0": ("lstm", LSTM_CELL),
+               "MLPHead_0": ("head", "MLPHead")},
+    "LevelEmbed": _conv_block(2, "blocks"),
     # flax's MLPHead without a hidden layer names its one Dense "Dense_0".
     "MLPHeadOut": {"Dense_0": ("out", LEAF)},
     "SelfAttnBlock": {"LayerNorm_0": ("ln_0", LEAF),
@@ -189,6 +228,43 @@ def _leaf_to_torch(name: str, arr: np.ndarray, where: str, kind: str = LEAF
     raise ValueError(f"flax leaf {where}/{name} has no torch counterpart")
 
 
+def _lstm_to_torch(cell: Mapping[str, Any], where: str
+                   ) -> dict[str, torch.Tensor]:
+    """OptimizedLSTMCell's ``i{g}`` kernels ``(in, h)`` and ``h{g}``
+    kernels ``(h, h)`` and biases, gates i, f, g, o, -> the port's LSTM's
+    ``input_weight`` ``(4h, in)``, ``hidden_weight`` ``(4h, h)`` and
+    ``hidden_bias`` ``(4h,)``."""
+    want = {f"i{g}": {"kernel"} for g in _GATES}
+    want.update({f"h{g}": {"kernel", "bias"} for g in _GATES})
+    got = {k: set(v) for k, v in cell.items()}
+    if got != want:
+        raise ValueError(f"flax entry {where} is not an OptimizedLSTMCell: "
+                         f"{sorted(got)}")
+
+    def stack(prefix, leaf):
+        return torch.cat([_f32(cell[f"{prefix}{g}"][leaf]) for g in _GATES],
+                         dim=-1)
+
+    return {"input_weight": stack("i", "kernel").t().contiguous(),
+            "hidden_weight": stack("h", "kernel").t().contiguous(),
+            "hidden_bias": stack("h", "bias")}
+
+
+def _lstm_to_flax(weights: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of :func:`_lstm_to_torch`."""
+    def split(name):
+        a = weights[name].detach().to("cpu", torch.float32).numpy()
+        return np.split(a.T if a.ndim == 2 else a, len(_GATES), axis=-1)
+
+    tree: dict[str, Any] = {}
+    for prefix, name in (("i", "input_weight"), ("h", "hidden_weight")):
+        for g, k in zip(_GATES, split(name)):
+            tree[f"{prefix}{g}"] = {"kernel": np.ascontiguousarray(k)}
+    for g, b in zip(_GATES, split("hidden_bias")):
+        tree[f"h{g}"]["bias"] = np.ascontiguousarray(b)
+    return tree
+
+
 def params_from_flax(tree: Mapping[str, Any], root: str = "Net"
                      ) -> dict[str, torch.Tensor]:
     """flax param tree (numpy leaves) -> torch ``state_dict``."""
@@ -205,6 +281,9 @@ def params_from_flax(tree: Mapping[str, Any], root: str = "Net"
             tname = f"{tpath}.{attr}" if tpath else attr
             if kind == PARAM:
                 out[tname] = _f32(value)
+            elif kind == LSTM_CELL:
+                out.update({f"{tname}.{k}": v for k, v in
+                            _lstm_to_torch(value, where).items()})
             elif kind in _LEAVES:
                 for leaf, arr in value.items():
                     pname, tensor = _leaf_to_torch(leaf, arr, where, kind)
@@ -280,6 +359,12 @@ def params_to_flax(model: nn.Module,
             try:
                 child = module.get_submodule(attr)
             except AttributeError:  # an absent optional layer (shortcut)
+                continue
+            if kind == LSTM_CELL:
+                params = dict(child.named_parameters(recurse=False))
+                node[fname] = _lstm_to_flax({
+                    n: value(f"{tname}.{n}", p) for n, p in params.items()})
+                seen += len(params)
                 continue
             if kind not in _LEAVES:
                 # The class check picks gmfnet's PAN variant.

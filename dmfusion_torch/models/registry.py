@@ -1,8 +1,8 @@
 """Model registry: ``Net(cfg)`` by config name.
 
-Port of ``dmfusion/models/registry.py`` for the models ported so far.
-A name the JAX package knows but the port does not yet raises a
-``ValueError`` that lists what is ported.
+Port of ``dmfusion/models/registry.py``: every model of dmfusion's zoo,
+and ``vit`` as a second name of vision_transformer.  An unknown name
+raises a ``ValueError`` that lists the known ones.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ _PORTED = {"gmfnet": "gmfnet", "gmfnet_conv": "gmfnet_conv",
            "dense_fusion": "dense_fusion", "tri_net": "tri_net",
            "resnet18": "resnet18", "cross_net": "cross_net",
            "vision_transformer": "vit", "vit": "vit", "dqtl": "dqtl",
-           "generator": "generator", "discriminator": "discriminator"}
+           "swin_transformer": "swin", "swin_t_dual": "swin_dual",
+           "ct_lstm": "ct_lstm", "generator": "generator",
+           "discriminator": "discriminator"}
 
 # Model input contract (``dmfusion/models/registry.py``): how windows are
 # gathered and fed.  Names absent here are "dual": model(ms, pan).
@@ -41,8 +43,8 @@ def get_model_class(name: str):
     key = name.lower()
     if key not in _EXPLICIT:
         if key not in _PORTED:
-            raise ValueError(f"model {name!r} is not ported to dmfusion_torch "
-                             f"yet; ported: {available_models()}")
+            raise ValueError(f"unknown model {name!r}; available: "
+                             f"{available_models()}")
         importlib.import_module(f"dmfusion_torch.models.{_PORTED[key]}")
     return _EXPLICIT[key]
 

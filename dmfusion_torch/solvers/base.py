@@ -173,9 +173,7 @@ class BaseSolver:
         raise NotImplementedError
 
     def proof(self):
-        raise NotImplementedError(
-            "proof: contourlet diagnostics are not ported to dmfusion_torch "
-            "yet (ROADMAP A15)")
+        raise NotImplementedError
 
     def visualize(self):
         raise NotImplementedError(

@@ -1,8 +1,8 @@
 """Solver: the train, test and color phases of a classifier.
 
 Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet,
-gmfnet_conv, resnet18, cross_net, vit), ``tri`` (tri_net) and ``dense``
-(dense_fusion).
+gmfnet_conv, resnet18, cross_net, vit, swin_transformer, swin_T_dual,
+ct_lstm), ``tri`` (tri_net) and ``dense`` (dense_fusion).
 Semantics kept:
   * the model comes from the registry by ``model_name``, seeded with
     ``seed + repeat``; the optimizer counts ``ceil(len(train) / batchsize)``
@@ -40,8 +40,10 @@ scene, MSPAN: the seeded IHS pansharpen of the raw scene (seed ``seed``,
 padded like PAN, and gathered with MS and PAN by ``TriPrograms``.  The
 quad arity (dqtl) trains under ``solvers/twostage.py``, and so do the image
 arity's generator and discriminator, as its stage 1: this solver refuses
-them with a ``ValueError``, as dmfusion's does.  The single arity,
-``proof`` and ``visualize`` are not ported yet and raise
+them with a ``ValueError``, as dmfusion's does.  ``proof`` (the
+contourlet diagnostics) renders the lowband and the four directional
+subbands of ``proof.samples`` labeled anchors' MS and PAN windows.  The
+single arity and ``visualize`` are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
 
@@ -54,12 +56,15 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from dmfusion_torch.data.patches import gather_dual
 from dmfusion_torch.data.scene import mspan_scene
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.registry import (build_model, model_arity,
                                             model_map_programs)
+from dmfusion_torch.ops.contourlet import contourlet_decompose
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
 from dmfusion_torch.report.png import write_png
+from dmfusion_torch.report.viz import channel_grid
 from dmfusion_torch.solvers.base import BaseSolver
 from dmfusion_torch.train.checkpoint import (AsyncCheckpointWriter, exists,
                                              load_checkpoint, save_checkpoint,
@@ -539,3 +544,29 @@ class Solver(BaseSolver):
                                    f"{self.time}_pic_{tag}.png"), img)
         self.color_maps = (label_np1, label_np2)
         self.color_time = self.now() - t0
+
+    def proof(self) -> None:
+        """Contourlet band diagnostics (the reference's ``proof()`` /
+        ``visualize_channels``, solver/mainsolver.py:245-431): decompose the
+        MS and PAN windows of the first ``proof.samples`` labeled anchors
+        into the lowband and 4 directional subbands (the transform ct_lstm
+        consumes) and write the first window's channels as grids:
+        ``{time}_ct_{ms,pan}_{low,dfb}.png`` (at most 16 subband
+        channels)."""
+        cfg = self.cfg
+        n = int(cfg.get("proof", {}).get("samples", 4))
+        ids = (self.split.labeled if self.split is not None
+               else self.labeled_ids)[:n]
+        ids = torch.from_numpy(np.asarray(ids, np.int32)).to(self.device)
+        windows = gather_dual(self.scene.ms, self.scene.pan, ids,
+                              self.scene.width, self.scene.patch)
+        out_dir = cfg["RESULT_output"]
+        os.makedirs(out_dir, exist_ok=True)
+        for tag, batch in zip(("ms", "pan"), windows):
+            low, sub = contourlet_decompose(batch.permute(0, 3, 1, 2))
+            for band, x, most in (("low", low, low.shape[1]),
+                                  ("dfb", sub, 16)):
+                channel_grid(x.permute(0, 2, 3, 1).cpu().numpy(),
+                             os.path.join(out_dir,
+                                          f"{self.time}_ct_{tag}_{band}.png"),
+                             num_channels=min(most, x.shape[1]))

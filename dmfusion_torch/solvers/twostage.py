@@ -255,10 +255,7 @@ class TwoStageSolver(Solver):
             self.train_stage1()
         self.scene_args = quad_streams(s, self.ms_gan, self.pan_gan,
                                        self.device)
-        # Keep MS only for the proof phase (dual contourlet diagnostics).
-        if not cfg.get("proof", {}).get("index"):
-            s.ms = None
-        s.pan = None
+        s.ms = s.pan = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self._stage2_ready = True
@@ -305,6 +302,15 @@ class TwoStageSolver(Solver):
             self.stream_results = per_stream_results(
                 list(self.stream_matrices))
             expo_stream_results(self.stream_results, self.cfg, self.time)
+
+    def proof(self) -> None:
+        """Not a phase of this solver: stage 2 frees the dual scene, as
+        dmfusion's does (whose inherited ``proof`` then fails on the freed
+        PAN)."""
+        raise NotImplementedError(
+            "proof: the two-stage solver frees the MS and PAN scenes for "
+            "stage 2 and renders no contourlet bands; run proof with the "
+            "main solver")
 
     def run(self) -> None:
         """Stage-2 setup once, then the repeat loop."""

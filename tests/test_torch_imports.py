@@ -60,7 +60,9 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
     "dmfusion_torch.train.gan", "dmfusion_torch.report.viz",
     "dmfusion_torch.tools.strip_gather_bench",
     "dmfusion_torch.tools.conv_kernel_probe",
-    "dmfusion_torch.tools.pool_probe", "dmfusion_torch.tools.convmap_ab"])
+    "dmfusion_torch.tools.pool_probe", "dmfusion_torch.tools.convmap_ab",
+    "dmfusion_torch.ops.contourlet", "dmfusion_torch.models.swin",
+    "dmfusion_torch.models.swin_dual", "dmfusion_torch.models.ct_lstm"])
 def test_entry_point_alone_imports_without_jax(module):
     """Each entry point, imported alone in a fresh interpreter."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "

@@ -19,6 +19,7 @@ from flax import serialization
 from dmfusion.config import load_config as jax_load_config
 from dmfusion.models import build_model as jax_build_model
 from dmfusion.models import common as jcommon
+from dmfusion.models.registry import available_models as jax_available_models
 from dmfusion_torch.config import load_config
 from dmfusion_torch.models import available_models, build_model, model_arity
 from dmfusion_torch.models import common as tcommon
@@ -225,15 +226,15 @@ def test_converter_raises_on_unmatched():
 
 
 def test_registry():
-    assert available_models() == [
-        "cross_net", "dense_fusion", "discriminator", "dqtl", "generator",
-        "gmfnet", "gmfnet_conv", "resnet18", "tri_net", "vision_transformer",
-        "vit"]
+    """The port knows dmfusion's whole zoo, and ``vit`` besides; a name
+    neither package knows is refused with the list."""
+    assert available_models() == sorted(jax_available_models() + ["vit"])
     assert model_arity("gmfnet") == "dual" and model_arity("dqtl") == "quad"
     assert model_arity("generator") == model_arity("discriminator") == "image"
     assert model_arity("gmfnet_conv") == "dual"
     assert model_arity("dense_fusion") == "dense"
     assert model_arity("tri_net") == "tri"
-    for name in ("swin_transformer", "ct_lstm"):
-        with pytest.raises(ValueError, match="not ported.*gmfnet"):
-            build_model({"model_name": name})
+    for name in ("swin_transformer", "swin_T_dual", "ct_lstm"):
+        assert model_arity(name) == "dual"
+    with pytest.raises(ValueError, match="unknown model 'nope'.*gmfnet"):
+        build_model({"model_name": "nope"})

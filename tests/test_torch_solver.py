@@ -377,8 +377,9 @@ def test_unported_paths_raise(tmp_path):
     solver.dataloader()
     with pytest.raises(NotImplementedError, match="--solver twostage"):
         solver.train()
+    # proof is ported (tests/test_torch_contourlet.py); visualize is not.
     with pytest.raises(NotImplementedError, match="A15"):
-        solver.proof()
+        solver.visualize()
     solver = build_solver(_port_cfg(tmp_path, schedule={"loss": "MSE"}))
     solver.dataloader()
     with pytest.raises(ValueError, match="not usable with the main solver"):
