@@ -237,6 +237,32 @@ Phases; any failure exits non-zero before the result line:
                 1e-5 of the CPU's with TF32 off, the gap with TF32 on
                 recorded; times of the epochs, 20 train steps and their
                 profile, and the test.
+  17. train_dp — (run after train) the mesh's data axis: DP_RANKS ranks
+                share the one card over gloo (NCCL takes one rank a
+                device).  Ranks spawned by ``torch.multiprocessing`` join
+                through ``parallel.maybe_initialize_distributed`` with
+                torchrun's variables: ``gather_dual_sharded`` launches B1
+                twice a call and both ranks' rows are bit-equal to one
+                process's ``gather_dual_fast`` and to the plain
+                ``gather_dual`` (f32 and bf16 scenes; B 4096 with corner
+                anchors, B 4160, B 1025, the train batch 256, anchors past
+                the scene); the wrapper timed on each rank in turn at B 4096 and
+                4160 beside the plain route, one indexing call a stream on
+                the shard and the shard's bytes bound; three f32 SGD steps
+                (TF32 off) of gmfnet w64 from seeded weights, a padded
+                batch first and two full ones of 256, through the two ranks
+                and through one process: losses within DP_LOSS_ATOL,
+                parameters within DP_PARAM_ATOL, and a mean of the ranks'
+                own means (DDP's rule) outside them; 20 timed steps a rank and a profile of
+                5 on rank 0 (the all-reduce's share).  Then ``python -m
+                torch.distributed.run --standalone --nproc-per-node 2 -m
+                dmfusion_torch.cli --set mesh.distributed=1 <TRAIN_SET>
+                epoch=1`` as a subprocess: one ``gmfnet__0_output/`` and one
+                workbook, one finite epoch loss, a test matrix that sums to
+                the test split with OA >= 0.5, and each rank's report
+                (device ``cuda:0``, backend gloo) with B1 launched twice per
+                gathered batch, the count computed from the split sizes;
+                the kernels line counts both ranks' launches.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
 ``nvcc`` per source.
@@ -247,7 +273,9 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import socket
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -256,9 +284,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from dmfusion_torch import parallel
 from dmfusion_torch.config import load_config, resolve_device
-from dmfusion_torch.data.patches import (batched_ids, gather_dual, gather_one,
-                                         gather_quad)
+from dmfusion_torch.data.patches import (batched_ids, batched_ids_np,
+                                         gather_dual, gather_one, gather_quad)
 from dmfusion_torch.data.scene import (mspan_scene, quad_streams, split_labels,
                                        synthetic_scene)
 from dmfusion_torch.export import load_artifact, save_artifact
@@ -416,6 +445,22 @@ ZOO_AGREE_MIN_BY = {"swin_transformer": 0.5}
 CT_TRAIN_SET = ["model_name=ct_lstm", "data_city=image6", "epoch=2",
                 "time=1", "color.index=0", "proof.index=1", "nohup=1"]
 CT_OA_MIN = 0.5
+# The data axis on the card: DP_RANKS ranks share the one H100 over gloo
+# (NCCL takes one rank a device).  The sharded gather at a bucket, at
+# unequal shards, at the count where dmfusion's shard padding fails and
+# at the train batch (128 rows a rank on every train step).
+DP_RANKS = 2
+DP_GATHER_B = (4096, 4160, 1025, 256)
+# Three SGD steps in f32 (TF32 off), two ranks against one process: the
+# two differ only in the order of the sums (a rank's partial sums, then
+# the all-reduce of the gradients).  Measured with the padded batch last:
+# parameters 3e-8 to 2.4e-7 apart (H100 80GB HBM3, 700.00 W).
+DP_LOSS_ATOL, DP_PARAM_ATOL = 1e-5, 1e-6
+DP_PROFILE_STEPS = 5
+# The CLI under torchrun: the train phase's run, cut to one epoch.
+DP_TRAIN_SET = [*TRAIN_SET, "epoch=1"]
+DP_TIMEOUT = 400
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # One entry per CUDA source of the driven paths.
 KERNELS = {
     "gather_windows": {
@@ -1222,6 +1267,405 @@ def phase_train(scene, device) -> int:
         "parity": parity}
     log(f"train: {json.dumps(result)}")
     return launches["gather_windows"]
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_env(rank: int, port: int) -> None:
+    """What ``torchrun`` sets for a rank of DP_RANKS on this host."""
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
+                      WORLD_SIZE=str(DP_RANKS), MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+
+
+def _dp_rows(mesh, t: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``t``, in rank order, moved as bytes, so the
+    comparison holds the kernel's bits and not the collective's types."""
+    return mesh.rows(t.view(torch.uint8)).view(t.dtype)
+
+
+def _dp_gather(scene, mesh) -> dict:
+    """``gather_dual_sharded`` on this rank: two B1 launches a call, both
+    ranks' rows bit-equal to one process's ``gather_dual_fast`` of the
+    whole batch and to the plain ``gather_dual`` (``gather_windows_ref``)
+    on the same ids (f32 and bf16 scenes; B 4096 with corner anchors,
+    B 4160, B 1025, B 256, and anchors past the scene, clamped); then the wrapper timed
+    at B 4096 and 4160 on each rank in turn, beside the plain route (the
+    same shard through the plain gather), one indexing call a stream on
+    the shard, and the bytes bound of the shard."""
+    w, ps, n, h = scene.width, scene.patch, scene.num_pixels, scene.height
+    c = int(scene.ms.shape[-1])
+    rng = np.random.default_rng(11)  # the same draws on every rank
+    base = rng.integers(0, n, max(DP_GATHER_B)).astype(np.int32)
+    base[:6] = [0, w - 1, (h - 1) * w, n - w, 2 * w - 1, n - 1]
+    cases = {f"B={b}": base[:b] for b in DP_GATHER_B}
+    cases["clamped"] = np.array([n - 1, n, n + w + 3, 10 * n, 2**30, 7] * 11,
+                                np.int32)
+    worst = 0.0
+    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        ms, pan = scene.ms.to(dt), scene.pan.to(dt)
+        for name, ids_np in cases.items():
+            ids = torch.from_numpy(ids_np).to(mesh.device)
+            b = ids.shape[0]
+            before = gather_ops.gather_windows_cuda.launches
+            ms_p, pan_p = gather_ops.gather_dual_sharded(
+                ms, pan, ids, w, ps, mesh)
+            check(gather_ops.gather_windows_cuda.launches == before + 2,
+                  f"train_dp: {tag} {name}: not 2 B1 launches on rank "
+                  f"{mesh.rank}")
+            check(ms_p.shape[0] == pan_p.shape[0] == mesh.per_rank(b),
+                  f"train_dp: {tag} {name}: shard {tuple(ms_p.shape)}")
+            rows = [_dp_rows(mesh, t)[:b] for t in (ms_p, pan_p)]
+            for how, want in (
+                    ("plain gather_dual", gather_dual(ms, pan, ids, w, ps)),
+                    ("gather_dual_fast",
+                     gather_ops.gather_dual_fast(ms, pan, ids, w, ps))):
+                for got, ref in zip(rows, want, strict=True):
+                    worst = max(worst, _max_err(got, ref))
+                    check(got.shape == ref.shape and torch.equal(got, ref),
+                          f"train_dp: {tag} {name}: the ranks' rows != one "
+                          f"process's {how} on rank {mesh.rank}")
+        del ms, pan
+    out = {"max_abs_err": worst, "cases": sorted(cases)}
+    for b in DP_GATHER_B[:2]:
+        sets = [torch.from_numpy(rng.integers(0, n, b).astype(np.int32)
+                                 ).to(mesh.device) for _ in range(8)]
+        grids = []
+        for ids in sets:
+            loc = mesh.shard(ids).long()
+            x, y = loc // w, loc % w
+            grids.append([
+                (v, (xx[:, None] + torch.arange(p, device=mesh.device)
+                     )[:, :, None],
+                 (yy[:, None] * ch + torch.arange(p * ch, device=mesh.device)
+                  )[:, None, :])
+                for v, p, ch, xx, yy in (
+                    (scene.ms.reshape(scene.ms.shape[0], -1), ps, c, x, y),
+                    (scene.pan, 4 * ps, 1, 4 * x, 4 * y))])
+        runs = {
+            "plain": lambda i: gather_dual(scene.ms, scene.pan,
+                                           mesh.shard(sets[i % 8]), w, ps),
+            "kernel": lambda i: gather_ops.gather_dual_sharded(
+                scene.ms, scene.pan, sets[i % 8], w, ps, mesh),
+            "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]]}
+        per = mesh.per_rank(b)
+        moved = 2 * per * (ps * ps * c + 16 * ps * ps) * 4 + 4 * per
+        timed = {}
+        for r in range(mesh.data):  # one rank at a time on the card
+            mesh.barrier()
+            if r == mesh.rank:
+                timed, _ = time_in_turns(runs, iters=50)
+            mesh.barrier()
+        out[f"B{b}"] = {"ms": timed["kernel"], "plain_ms": timed["plain"],
+                        "library_ms": timed["library"], "per_rank": per,
+                        "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                        "bound_by": "bytes", "bytes": moved}
+    return out
+
+
+class _LocalMeans(DualPrograms):
+    """The control of :func:`_dp_parity`: DDP's rule, each rank's own
+    masked mean with the ranks' gradients averaged, which weighs the rows
+    of a shard with fewer real rows more."""
+
+    def loss(self, logits, labels_b, mask_b, count=None):
+        from dmfusion_torch.train.losses import cross_entropy
+        return cross_entropy(logits, labels_b, mask_b) / self.mesh.data
+
+
+def _dp_parity(scene, mesh) -> dict:
+    """Three SGD steps of gmfnet w64 in f32 (TF32 off) from seeded weights,
+    the padded batch first (200 real: 128 on rank 0, 72 on rank 1) so that
+    the next two losses see its update, then two full batches of 256,
+    through the mesh and through one process on the card: losses within
+    DP_LOSS_ATOL, parameters within DP_PARAM_ATOL.  The same steps under a
+    mean of the ranks' own means must fall outside one of the two."""
+    from dmfusion_torch.train.optim import make_optimizer
+    cfg = load_config(overrides={**CFG, "schedule": {"optimizer": "SGD"},
+                                 "precision": {"compute_dtype": "float32",
+                                               "scene_dtype": "float32"}})
+    labeled, _ = split_labels(scene.label)
+    ids = np.random.default_rng(5).choice(labeled, 2 * TRAIN_BATCH + 200,
+                                          replace=False).astype(np.int32)
+    chunks, mask, _ = batched_ids_np(ids, TRAIN_BATCH)
+    first = [2, 0, 1]  # batched_ids_np pads the last batch
+    chunks, mask = chunks[first], mask[first]
+    labels = scene.label.reshape(-1)[chunks].astype(np.int32)
+    batches = [torch.from_numpy(a).to(mesh.device)
+               for a in (chunks, labels, mask.astype(np.float32))]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for tag, cls, m in (("one_process", DualPrograms, None),
+                        ("two_ranks", DualPrograms, mesh),
+                        ("local_means", _LocalMeans, mesh)):
+        model = build_model(cfg).to(mesh.device,
+                                    memory_format=torch.channels_last)
+        prog = cls(model, make_optimizer(cfg, model.parameters(),
+                                         PARITY_STEPS),
+                   cfg, scene.width, scene.patch, mesh=m)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        losses = prog.train_epoch((scene.ms, scene.pan), *batches)
+        out[tag] = (losses.cpu(), torch.cat(
+            [p.detach().reshape(-1) for p in model.parameters()]).cpu())
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+    def gaps(tag):
+        return [float((out["one_process"][i] - out[tag][i]).abs().max())
+                for i in (0, 1)]
+    gap_loss, gap_param = gaps("two_ranks")
+    check(gap_loss <= DP_LOSS_ATOL, f"train_dp: two ranks' SGD losses "
+          f"{gap_loss} from one process's on rank {mesh.rank}")
+    check(gap_param <= DP_PARAM_ATOL, f"train_dp: two ranks' parameters "
+          f"{gap_param} from one process's on rank {mesh.rank}")
+    control = gaps("local_means")
+    check(control[0] > DP_LOSS_ATOL or control[1] > DP_PARAM_ATOL,
+          f"train_dp: a mean of the ranks' own means passes the parity "
+          f"check ({control}): the check cannot see a wrong reduction")
+    return {"steps": PARITY_STEPS, "batch": TRAIN_BATCH,
+            "padded_batch_real": 200, "padded_batch_step": 0, "losses": {
+                k: v[0].tolist() for k, v in out.items()},
+            "loss_max_abs": gap_loss, "loss_atol": DP_LOSS_ATOL,
+            "param_max_abs": gap_param, "param_atol": DP_PARAM_ATOL,
+            "local_means_loss_max_abs": control[0],
+            "local_means_param_max_abs": control[1]}
+
+
+def _dp_steps(scene, mesh) -> dict:
+    """The default run's steps on this rank (gmfnet w64, Adam, bf16, 128 of
+    each batch of 256): 20 timed, after 3; then on rank 0 a profile of 5,
+    with the share of its wall time spent in the gradients' all-reduce."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmfusion_torch.train.optim import make_optimizer
+    cfg = load_config(overrides=CFG)
+    labeled, _ = split_labels(scene.label)
+    n = (3 + PROFILE_STEPS + DP_PROFILE_STEPS) * TRAIN_BATCH
+    ids = np.random.default_rng(6).choice(labeled, n, replace=False)
+    chunks = ids.astype(np.int32).reshape(-1, TRAIN_BATCH)
+    batches = [torch.from_numpy(a).to(mesh.device) for a in (
+        chunks, scene.label.reshape(-1)[chunks].astype(np.int32),
+        np.ones(chunks.shape, np.float32))]
+    model = build_model(cfg).to(mesh.device,
+                                memory_format=torch.channels_last)
+    prog = DualPrograms(model, make_optimizer(cfg, model.parameters(),
+                                              chunks.shape[0]),
+                        cfg, scene.width, scene.patch, mesh=mesh)
+    prog.init(torch.Generator().manual_seed(cfg["seed"]))
+    args = (scene.ms, scene.pan)
+    float(prog.train_epoch(args, *(t[:3] for t in batches)).sum())
+    mesh.barrier()
+    t0 = time.perf_counter()
+    losses = prog.train_epoch(args, *(t[3:3 + PROFILE_STEPS]
+                                      for t in batches))
+    check(bool(torch.isfinite(losses).all()), "train_dp: non-finite loss")
+    steps_s = time.perf_counter() - t0
+    window = [t[3 + PROFILE_STEPS:] for t in batches]
+    out = {"steps": PROFILE_STEPS, "rank_batch": mesh.per_rank(TRAIN_BATCH),
+           "step_ms": steps_s / PROFILE_STEPS * 1e3,
+           "samples_per_s": PROFILE_STEPS * TRAIN_BATCH / steps_s}
+    mesh.barrier()
+    if not mesh.is_main:
+        prog.train_epoch(args, *window)
+        torch.cuda.synchronize()
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prog.train_epoch(args, *window)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    reduce = [e for e in events if e.device_type ==
+              torch.autograd.DeviceType.CPU and "allreduce" in
+              e.key.replace("_", "").lower()]
+    reduce_ms = max((e.cpu_time_total for e in reduce), default=0.0) / 1e3
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out.update({"profile_steps": DP_PROFILE_STEPS, "profile_wall_ms": wall_ms,
+                "allreduce_ms": reduce_ms,
+                "allreduce_share": reduce_ms / wall_ms,
+                "allreduce_ops": [[e.key, e.cpu_time_total / 1e3, e.count]
+                                  for e in reduce],
+                "device_busy_share": busy_ms / wall_ms})
+    return out
+
+
+def _dp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of phase train_dp's spawned ranks: join the group through
+    ``maybe_initialize_distributed`` (gloo: the ranks share the card),
+    build the image6 scene, and write what :func:`_dp_gather`,
+    :func:`_dp_parity` and :func:`_dp_steps` found to ``rank{r}.json``."""
+    _dp_env(rank, port)
+    cfg = load_config(overrides={**CFG, "mesh": {"distributed": 1}})
+    check(parallel.maybe_initialize_distributed(cfg),
+          "train_dp: the rank did not join")
+    try:
+        mesh = parallel.get_mesh(cfg)
+        check(mesh is not None and mesh.data == DP_RANKS
+              and mesh.rank == rank and mesh.backend == "gloo"
+              and mesh.device == torch.device("cuda", 0),
+              f"train_dp: rank {rank}'s mesh {mesh}")
+        scene = synthetic_scene(load_config(overrides=CFG),
+                                device=mesh.device)
+        result = {"rank": rank, "device": str(mesh.device),
+                  "backend": mesh.backend, "gather": _dp_gather(scene, mesh),
+                  "parity": _dp_parity(scene, mesh),
+                  "steps": _dp_steps(scene, mesh)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        parallel.shutdown()
+
+
+def _dp_cli(tmp: str) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+    dmfusion_torch.cli --set mesh.distributed=1 <TRAIN_SET> epoch=1``, as a
+    user starts it; returns its seconds, output and the ranks' reports."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DP_RANKS), "-m", "dmfusion_torch.cli",
+           "--set", "mesh.distributed=1", *DP_TRAIN_SET,
+           f"expo_result={tmp}/"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=DP_TIMEOUT)
+    run_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"train_dp: torchrun exit {proc.returncode}"
+          f"\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    tag = "[dmfusion] rank report "
+    reports = sorted((json.loads(line.split(tag, 1)[1])
+                      for line in proc.stdout.splitlines() if tag in line),
+                     key=lambda r: r["rank"])
+    joined = [line for line in proc.stdout.splitlines()
+              if line.startswith("[dmfusion] rank ") and tag not in line]
+    return {"run_s": run_s, "reports": reports, "joined": joined}
+
+
+def phase_train_dp() -> tuple[int, dict]:
+    """The mesh's data axis on the card: two ranks on ``cuda:0`` over gloo.
+    Spawned ranks hold the sharded gather, SGD parity and the step times;
+    then gmfnet is trained, tested and colored by ``torchrun`` through the
+    CLI.  Returns B1's launches in the CLI run (both ranks) and the
+    wrapper's times on rank 0."""
+    import torch.multiprocessing as mp
+
+    from dmfusion_torch.config import parse_overrides
+    from dmfusion_torch.solvers import BaseSolver
+    log(f"train_dp: {DP_RANKS} ranks share one card ({card_line()}) over "
+        "gloo: NCCL takes one rank a device.  These numbers hold the path's "
+        "correctness and say nothing of scaling across cards.")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_dp_")
+    try:
+        ctx = mp.start_processes(_dp_rank, args=(_free_port(), tmp),
+                                 nprocs=DP_RANKS, join=False,
+                                 start_method="spawn")
+        deadline = time.perf_counter() + DP_TIMEOUT
+        try:
+            while not ctx.join(timeout=5):
+                check(time.perf_counter() < deadline,
+                      "train_dp: the spawned ranks ran past DP_TIMEOUT")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        for r in ranks:
+            log(f"train_dp: rank {r['rank']} on {r['device']} over "
+                f"{r['backend']}: sharded gather bit-equal "
+                f"({', '.join(r['gather']['cases'])}, f32 and bf16); "
+                f"{json.dumps({k: r['gather'][k] for k in ('B4096', 'B4160')})}")
+
+        # The CLI under torchrun, then its split, as the CLI drew it.
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        cli_run = _dp_cli(tmp)
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        check(not any(launches.values()),
+              f"train_dp: the parent launched {launches}")
+        for line in cli_run["joined"]:
+            log(f"train_dp: {line}")
+        reports = cli_run["reports"]
+        check([r["rank"] for r in reports] == list(range(DP_RANKS)),
+              f"train_dp: rank reports {reports}")
+        for r in reports:
+            check(r["device"] == "cuda:0" and r["backend"] == "gloo"
+                  and r["world"] == r["mesh_data"] == DP_RANKS,
+                  f"train_dp: rank {r['rank']} ran on {r}")
+        cfg = load_config(overrides=parse_overrides(DP_TRAIN_SET))
+        base = BaseSolver({**cfg, "RESULT_output": tmp})
+        base.dataloader()
+        split = base.split
+        del base
+        root = os.path.join(tmp, f"image6_tr{cfg['train_rate']}_ep1_bs"
+                                 f"{TRAIN_BATCH}")
+        check(sorted(os.listdir(root)) == ["gmfnet__0_output",
+                                           "gmfnet__0_result.xlsx"],
+              f"train_dp: result tree {sorted(os.listdir(root))}")
+        out = os.path.join(root, "gmfnet__0_output")
+        files = ["0_curweights.pt", "0_matrix.npy", "0_pic_1.png",
+                 "0_pic_2.png", "0_records.json", "0_weights.pt"]
+        check(sorted(os.listdir(out)) == files,
+              f"train_dp: output files {sorted(os.listdir(out))}")
+        with open(os.path.join(out, "0_records.json")) as f:
+            rec = json.load(f)
+        check(rec["Epoch"] == [0] and all(np.isfinite(rec["Loss"]
+                                                      + rec["ValLoss"])),
+              f"train_dp: records {rec}")
+        matrix = np.load(os.path.join(out, "0_matrix.npy"))
+        check(int(matrix.sum()) == len(split.test),
+              "train_dp: test matrix does not sum to the test split")
+        aa, oa, kap, _ = aa_oa(matrix)
+        check(oa >= 0.5, f"train_dp: test OA {oa} < 0.5")
+
+        def nb(n, b):
+            return -(-n // b)
+        batches = {"train": nb(len(split.train), TRAIN_BATCH),
+                   "val": nb(len(split.valid), EVAL_BATCH),
+                   "test": nb(len(split.test), EVAL_BATCH),
+                   "color": nb(len(split.labeled), EVAL_BATCH)}
+        want = 2 * sum(batches.values())
+        for r in reports:
+            check(r["gather_windows_launches"] == want,
+                  f"train_dp: rank {r['rank']} launched B1 "
+                  f"{r['gather_windows_launches']} times, the split sizes "
+                  f"give {want} ({batches})")
+        b1 = sum(r["gather_windows_launches"] for r in reports)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    test_s = max(r["test_s"] for r in reports)
+    result = {
+        "ranks": DP_RANKS, "card": card_line(), "backend": "gloo",
+        "model": "gmfnet", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
+        "rank_batch": -(-TRAIN_BATCH // DP_RANKS),
+        "cli_run_s": cli_run["run_s"], "epoch_s": rec["EpochTime"],
+        "loss": rec["Loss"], "val_loss": rec["ValLoss"],
+        "val_oa": rec["ValOA"], "test_oa": oa, "test_aa": aa,
+        "test_kappa": kap, "test_anchors": len(split.test),
+        "test_s": test_s, "test_anchors_per_s": len(split.test) / test_s,
+        "gather_batches_per_rank": batches, "b1_launches_per_rank": want,
+        "b1_launches": b1, "reports": reports,
+        "gather": {r["rank"]: r["gather"] for r in ranks},
+        "parity": ranks[0]["parity"],
+        "steps": {r["rank"]: r["steps"] for r in ranks},
+        "phase_s": time.perf_counter() - t_phase}
+    log(f"train_dp: {json.dumps(result)}")
+    g = ranks[0]["gather"]
+    return b1, {"max_abs_err": max(r["gather"]["max_abs_err"]
+                                   for r in ranks),
+                **{k: g[k] for k in ("B4096", "B4160")}}
 
 
 def _dense_crop(scene, rows: int):
@@ -2880,6 +3324,8 @@ def main() -> None:
     timings["phase_pool"] = phase_pool(scene, device)
     launches = {"phase_pool": phase_dense(scene, device)["phase_pool"]}
     by_path["train"] = phase_train(scene, device)
+    by_path["train_dp"], timings["gather_windows"]["sharded"] = \
+        phase_train_dp()
     pool_by_path = {"dense": launches["phase_pool"],
                     "train_dense": phase_train_dense(scene, device)}
     launches["phase_pool"] = sum(pool_by_path.values())
@@ -2914,7 +3360,8 @@ def main() -> None:
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "unit": spec["unit"],
-                     **({k: t[k] for k in ("one", "patch47", "tri", "quad")}
+                     **({k: t[k] for k in ("one", "patch47", "tri", "quad",
+                                           "sharded")}
                         if name == "gather_windows" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -10,6 +10,18 @@ the solver and runs its repeat loop.  ``--config`` needs PyYAML; without
 it, pass everything through ``--set``.  The run is on ``cuda:0`` unless
 ``--set device=cpu``, and raises without a card.  ``debug.nans`` turns on
 autograd's anomaly detection.  ``main(argv)`` returns the solver.
+
+Data-parallel ranks (the mesh's ``data`` axis, ``parallel/mesh.py``):
+
+    torchrun --standalone --nproc-per-node N -m dmfusion_torch.cli \
+        --set mesh.distributed=1 ...
+
+(or ``python -m torch.distributed.run``).  The process group comes up
+before the solver exists, which allocates the run slot (under a mesh
+rank 0 allocates it and the others receive it), and goes down at the
+end, also on an error.  Each rank prints its backend and device when it joins, and one
+``[dmfusion] rank report {...}`` JSON line at the end: its rank, device,
+backend, the window kernel's launches and the phases' seconds.
 """
 
 from __future__ import annotations
@@ -37,16 +49,44 @@ def main(argv: list[str] | None = None):
         overrides["model_name"] = args.model
     if args.city:
         overrides["data_city"] = args.city
-    cfg = load_config(args.config, overrides=overrides, prepare=True)
+    cfg = load_config(args.config, overrides=overrides)
 
     if cfg.get("debug", {}).get("nans"):
         import torch
         torch.autograd.set_detect_anomaly(True)
 
-    from dmfusion_torch.solvers import build_solver
-    solver = build_solver(cfg)
-    solver.run()
+    from dmfusion_torch import parallel
+    owned = not parallel.is_distributed()
+    ranks = parallel.maybe_initialize_distributed(cfg)
+    try:
+        from dmfusion_torch.solvers import build_solver
+        solver = build_solver(cfg)
+        solver.run()
+        if ranks:
+            _report(solver)
+    finally:
+        if ranks and owned:
+            parallel.shutdown()
     return solver
+
+
+def _report(solver) -> None:
+    """One JSON line per rank: what it ran on and what it launched."""
+    import json
+
+    import torch
+
+    from dmfusion_torch.ops.gather import gather_windows_cuda
+    mesh = solver.mesh
+    print("[dmfusion] rank report " + json.dumps({
+        "rank": torch.distributed.get_rank(),
+        "world": torch.distributed.get_world_size(),
+        "device": str(solver.device),
+        "backend": str(torch.distributed.get_backend()),
+        "mesh_data": mesh.data if mesh is not None else 1,
+        "gather_windows_launches": gather_windows_cuda.launches,
+        "train_s": solver.train_time, "test_s": solver.test_time,
+        "color_s": getattr(solver, "color_time", 0.0)}), flush=True)
 
 
 if __name__ == "__main__":

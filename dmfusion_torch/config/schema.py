@@ -5,8 +5,9 @@ than importing the JAX package (whose ``__init__`` imports jax).  The
 values of :data:`DATA_DICT` and :data:`DEFAULTS` are identical to the JAX
 package's, key for key, so one config renders to the same dict in both
 packages (``tests/test_torch_config.py``).  Knobs that only the JAX
-package reads (mesh, Pallas pool, ...) are kept so that configs stay
-interchangeable; the port ignores them.  Of the dense knobs it reads
+package reads (Pallas pool, ...) are kept so that configs stay
+interchangeable; the port ignores them.  ``mesh`` is read by
+:mod:`dmfusion_torch.parallel` (the ``data`` axis).  Of the dense knobs it reads
 ``dense_streams`` and ``dense_streams_infer`` (band counts), and
 ``train.dense_epoch``, ``train.dense_remat`` and
 ``train.dense_hbm_budget``; not ``dense_stream_unroll`` or

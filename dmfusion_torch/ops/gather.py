@@ -11,7 +11,9 @@ contiguous run of ``patch*C`` elements — and place each start as
 ``jax.lax.dynamic_slice`` does: a negative start counts from the end,
 then the start is clamped so the window fits.  :func:`gather_windows`
 picks the plain version for a CPU tensor and the kernel for a CUDA
-tensor; there is no fallback from the kernel.
+tensor; there is no fallback from the kernel.  The wrappers over it
+follow dmfusion's: one stream, dual (MS and PAN), tri, quad, and the
+mesh's sharded dual gather (:func:`gather_dual_sharded`).
 """
 
 from __future__ import annotations
@@ -167,3 +169,19 @@ def gather_tri_fast(ms: torch.Tensor, pan: torch.Tensor, mspan: torch.Tensor,
                              4 * patch, mc)
     return ms_p, pan_p, mspan_p.reshape(ids.shape[0], 4 * patch, 4 * patch,
                                         mc)
+
+
+def gather_dual_sharded(ms: torch.Tensor, pan: torch.Tensor, ids: torch.Tensor,
+                        width: int, patch: int, mesh
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mesh route of :func:`gather_dual_fast` (port of dmfusion's
+    ``gather_dual_sharded``): every rank holds the scene and the global
+    ``ids``, and gathers its own contiguous shard, ``mesh.shard(ids)``,
+    with :func:`gather_dual_fast` (two kernel launches on the card, the
+    plain gather on the CPU).  Returns this rank's windows,
+    ``mesh.per_rank(b)`` rows; its real rows are ``mesh.bounds(b)`` of
+    ``ids``, and the rows past them gather the batch's first anchor again
+    and are to be masked.  The windows stay on the rank, as dmfusion's
+    ``out_specs`` keep them sharded: the forward runs on the shard.  No
+    padding to 64 anchors: the kernel takes any batch."""
+    return gather_dual_fast(ms, pan, mesh.shard(ids), width, patch)

@@ -1,0 +1,293 @@
+"""The mesh's ``data`` axis over ``torch.distributed``.
+
+Port of ``dmfusion/parallel/mesh.py``.  dmfusion lays a ``('data',
+'model')`` mesh over every device of every process and lets XLA insert
+the collectives.  Here each rank is one process started by ``torchrun``:
+every rank holds the scene, the weights and the same seeded ``(steps, B)``
+id, label and mask arrays, gathers and runs its contiguous shard of each
+batch, and the collectives are explicit (:class:`Mesh`'s methods).  A step
+sums the ranks' gradients, so it equals one step on the whole batch, as
+dmfusion's does.
+
+What has no counterpart: ``batch_sharding``, ``replicate`` and
+``shard_batch`` place arrays and constrain shardings inside jitted
+code, and eager torch has no sharding constraint; a rank simply holds its
+rows (:meth:`Mesh.shard`).  ``make_global_batches`` assembles one global
+array from every process's copy; here every rank keeps the global arrays
+and takes its rows.  The ``model`` axis (Megatron splits,
+``dmfusion/parallel/partition.py``) is not ported (:data:`A14_ITEMS`).
+
+Shards: a batch of ``b`` rows gives every rank ``ceil(b / world)`` rows,
+contiguous and in rank order; the rows past ``b`` (on the last ranks)
+repeat the batch's first row and are masked out.  dmfusion pads its
+shards to a multiple of 64 anchors for its DMA groups, after flooring
+``b / data`` (``pallas_gather.py:254-256``), which fails at b = 1025 on
+8 devices; the card's window kernel takes any batch, so the port does
+not pad to 64 (ROADMAP §C records the deviation).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable, Iterable, Mapping
+
+import torch
+import torch.distributed as dist
+
+#: The variables ``torchrun`` sets for every rank.
+TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT")
+
+#: What still waits under a mesh, by the ROADMAP A14 item that ports it.
+A14_ITEMS = {
+    "tri_quad": "ROADMAP A14 item 1: the tri and quad arities under a mesh",
+    "gan": "ROADMAP A14 item 2: stage-1 GAN data parallelism",
+    "dense": "ROADMAP A14 item 3: dense bands with halos",
+    "convmap": "ROADMAP A14 item 4: the gmfnet_conv banded map",
+    "batchnorm": "ROADMAP A14 item 5: SyncBatchNorm",
+    "model": "ROADMAP A14 item 6: the model axis (tensor parallelism)",
+}
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    """The error of a path that is not ported under a mesh yet."""
+    return NotImplementedError(
+        f"{what} under a mesh is not ported to dmfusion_torch yet "
+        f"({A14_ITEMS[item]}); run it on one rank")
+
+
+def wants_distributed(cfg: Mapping[str, Any] | None) -> bool:
+    """``mesh.distributed`` is set, or ``DMFUSION_DISTRIBUTED=1``."""
+    return bool(cfg and cfg.get("mesh", {}).get("distributed")) or \
+        os.environ.get("DMFUSION_DISTRIBUTED") == "1"
+
+
+def is_distributed() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def choose_backend(on_cpu: bool, world: int) -> tuple[str, str]:
+    """-> (backend, why).  NCCL when every rank has a card of its own;
+    gloo when ranks share a card (NCCL refuses two ranks on one device),
+    and always on the CPU."""
+    if on_cpu:
+        return "gloo", "CPU ranks"
+    cards = torch.cuda.device_count()
+    if world <= cards:
+        return "nccl", f"{world} ranks on {cards} cards, one each"
+    return "gloo", f"{world} ranks share {cards} card(s)"
+
+
+def maybe_initialize_distributed(cfg: Mapping[str, Any] | None = None
+                                 ) -> bool:
+    """Join the ranks' process group when the run asks for it.
+
+    Engages on ``mesh.distributed`` or ``DMFUSION_DISTRIBUTED=1``, reading
+    ``torchrun``'s ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR`` and ``MASTER_PORT``.  Returns True when running
+    distributed; a group already up is left as it is; without the request
+    it does nothing.  The backend follows :func:`choose_backend`; each
+    rank then makes ``cuda:(LOCAL_RANK % device_count())`` its current
+    card, which :func:`get_mesh` hands to the run as ``Mesh.device``
+    (ranks beyond the cards share them), and prints its rank, backend and
+    device (the CPU under ``device: cpu``).
+
+    Failing, when asked, is fatal, as in dmfusion: N processes that each
+    carried on alone would train unsynchronized on 1/N of the work and
+    report success.  A rank that finds no card raises too.
+    """
+    if not wants_distributed(cfg):
+        return False
+    if is_distributed():
+        return True
+    missing = [k for k in TORCHRUN_ENV if k not in os.environ]
+    on_cpu = str((cfg or {}).get("device", "")).lower() == "cpu"
+    try:
+        if missing:
+            raise RuntimeError(f"{', '.join(missing)} not set")
+        if not on_cpu and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device on this rank")
+        rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+        backend, why = choose_backend(on_cpu, world)
+        dist.init_process_group(
+            backend, rank=rank, world_size=world,
+            init_method=(f"tcp://{os.environ['MASTER_ADDR']}:"
+                         f"{os.environ['MASTER_PORT']}"))
+    except (RuntimeError, ValueError) as e:
+        raise RuntimeError(
+            "distributed initialization was explicitly requested "
+            "(mesh.distributed / DMFUSION_DISTRIBUTED) but "
+            f"torch.distributed.init_process_group failed: {e}.  Refusing "
+            "to continue single-process: each process would otherwise "
+            "train unsynchronized and report success.  Start the ranks "
+            "with torchrun (RANK/WORLD_SIZE/LOCAL_RANK/MASTER_ADDR/"
+            "MASTER_PORT), or unset the flag for a single-process run."
+        ) from e
+    device = torch.device("cpu")
+    if not on_cpu:
+        device = torch.device(
+            "cuda", int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    print(f"[dmfusion] rank {rank}/{world}: backend {backend} ({why}), "
+          f"device {device}", flush=True)
+    return True
+
+
+def shutdown() -> None:
+    """Destroy the process group, if one is up."""
+    if is_distributed():
+        dist.destroy_process_group()
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """The ranks of the ``data`` axis (``data``: every rank of the default
+    process group): this process's rank, its device and the group's
+    backend.  Every method that communicates is a collective: every rank
+    calls it, in the same order."""
+
+    data: int
+    rank: int
+    device: torch.device
+    backend: str
+
+    @property
+    def is_main(self) -> bool:
+        return self.rank == 0
+
+    # -- shards --------------------------------------------------------------
+    def per_rank(self, b: int) -> int:
+        """Rows a rank holds of a batch of ``b``: ``ceil(b / data)``."""
+        return -(-b // self.data)
+
+    def bounds(self, b: int) -> tuple[int, int]:
+        """This rank's real rows ``[lo, hi)`` of a batch of ``b``."""
+        per = self.per_rank(b)
+        lo = min(self.rank * per, b)
+        return lo, min(lo + per, b)
+
+    def shard(self, x: torch.Tensor, fill: float | None = None
+              ) -> torch.Tensor:
+        """This rank's ``per_rank(b)`` entries of ``x`` along its last axis
+        (``b`` long), the counterpart of ``make_global_batches``: entries
+        past ``b`` are ``fill``, or the first entry when ``fill`` is None
+        (a valid anchor id, as dmfusion pads its shards)."""
+        b = x.shape[-1]
+        per = self.per_rank(b)
+        lo, hi = self.bounds(b)
+        rows = x[..., lo:hi]
+        if hi - lo == per:
+            return rows
+        pad = (x[..., :1] if fill is None
+               else torch.full_like(x[..., :1], fill))
+        return torch.cat([rows, pad.expand(*x.shape[:-1], per - (hi - lo))],
+                         dim=-1)
+
+    # -- collectives ---------------------------------------------------------
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum ``t`` over the ranks, in place; returns it."""
+        dist.all_reduce(t)
+        return t
+
+    def sum_all_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Sum same-dtype tensors over the ranks in place, as one flat
+        collective (a step's gradients)."""
+        self._flat(list(tensors), self.sum_)
+
+    def broadcast_all_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Overwrite same-dtype tensors with rank 0's, as one collective."""
+        self._flat(list(tensors), lambda flat: dist.broadcast(flat, 0))
+
+    @staticmethod
+    def _flat(tensors: list[torch.Tensor], op) -> None:
+        if not tensors:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        op(flat)
+        for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+            t.copy_(part.view_as(t))
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``t`` (the same shape on each) stacked along axis 0
+        in rank order: ``(data * n, ...)``.  ``all_gather_single`` where
+        torch has it (torch 2.13 deprecates ``all_gather_into_tensor`` for
+        it), else ``all_gather_into_tensor``; gloo takes CUDA tensors for
+        either."""
+        out = t.new_empty((self.data * t.shape[0], *t.shape[1:]))
+        gather = getattr(dist, "all_gather_single", None) \
+            or dist.all_gather_into_tensor
+        gather(out, t.contiguous())
+        return out
+
+    def broadcast(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` (any picklable value) on every rank."""
+        box = [obj if self.is_main else None]
+        dist.broadcast_object_list(box, 0)
+        return box[0]
+
+    def from_rank0(self, fn: Callable[[], Any]) -> Any:
+        """``fn()`` run on rank 0, and its result, or its error, on every
+        rank: one rank touches the file system (the run slot, a checkpoint
+        read back), and no rank reads what rank 0 has not finished."""
+        out = None
+        if self.is_main:
+            try:
+                out = (True, fn())
+            except Exception as e:  # raised on every rank below
+                out = (False, e)
+        ok, value = self.broadcast(out)
+        if not ok:
+            raise value
+        return value
+
+    def barrier(self) -> None:
+        dist.barrier()
+
+
+def get_mesh(cfg: Mapping[str, Any] | None = None) -> Mesh | None:
+    """The run's mesh over the process group's ranks, or None on one rank
+    (as ``dmfusion/solvers/base.py:81-82`` drops a one-device mesh).
+
+    ``mesh.data: -1`` means every rank; an explicit ``mesh.data`` must
+    equal the world size (dmfusion's ``devices[:n]`` would leave ranks
+    idle, which no run here wants).  ``mesh.model > 1`` raises.  A run
+    that asked for ``mesh.distributed`` without a process group raises:
+    :func:`maybe_initialize_distributed` comes first (the CLI calls it).
+    The mesh's device is the CPU under ``device: cpu``, else the current
+    card, which :func:`maybe_initialize_distributed` chose for the rank.
+    """
+    m = (cfg or {}).get("mesh", {})
+    if int(m.get("model", 1)) > 1:
+        raise unported(f"mesh.model {m.get('model')}", "model")
+    if wants_distributed(cfg) and not is_distributed():
+        raise RuntimeError(
+            "mesh.distributed is set but no process group is up: call "
+            "dmfusion_torch.parallel.maybe_initialize_distributed(cfg) "
+            "first (python -m dmfusion_torch.cli does), under torchrun")
+    world = dist.get_world_size() if is_distributed() else 1
+    data = int(m.get("data", -1))
+    if data not in (-1, world):
+        raise NotImplementedError(
+            f"mesh.data {data} with {world} rank(s): the port's data axis "
+            "is every rank (mesh.data: -1, or the world size); start as "
+            "many ranks as the axis needs with torchrun --nproc-per-node")
+    if world == 1:
+        return None
+    on_cpu = str((cfg or {}).get("device", "")).lower() == "cpu"
+    return Mesh(data=world, rank=dist.get_rank(),
+                device=torch.device("cpu") if on_cpu
+                else torch.device("cuda", torch.cuda.current_device()),
+                backend=str(dist.get_backend()))
+
+
+def check_model(model: torch.nn.Module) -> None:
+    """Refuse a model whose layers couple the rows of a batch: a BatchNorm
+    layer on a rank would normalise over its shard, where dmfusion's mesh
+    normalises over the whole batch.  No model of the zoo has one (every
+    model, resnet18 included, normalises per sample: GroupNorm or
+    LayerNorm, as in dmfusion)."""
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            raise unported(f"a model with BatchNorm ({name or 'root'}: "
+                           f"{type(m).__name__})", "batchnorm")

@@ -1,14 +1,22 @@
 """BaseSolver: scene residency, splits, batches, the repeat loop, records.
 
 Port of ``dmfusion/solvers/base.py``.  The scene lives on the run's device
-(``resolve_device``: ``cuda:0`` unless ``device: cpu``).  Splits and
+(``resolve_device``: ``cuda:0`` unless ``device: cpu``; under a mesh the
+rank's card, ``Mesh.device``).  Splits and
 shuffles are numpy draws from ``default_rng(seed + repeat)``, made in the
 same order as dmfusion's, so both packages give identical train, test and
 valid ids and identical per-epoch batches.  Batches are (steps, B) id,
 label and mask tensors, moved to the device once per call.
 
-Not ported yet: the device mesh (ROADMAP A14) and the ``use_h5`` patch
-cache (A13); a config that asks for either raises ``NotImplementedError``.
+Under ``torchrun`` with ``mesh.distributed`` (the process group already
+up: the CLI starts it) the solver holds the ``data`` axis's
+:class:`~dmfusion_torch.parallel.Mesh`, built from the config as
+dmfusion's ``get_mesh`` builds its mesh.  Every rank draws the same
+splits and batches, as every dmfusion process does; the programs shard
+them.  Only rank 0 (``is_main``) writes: the run slot, checkpoints,
+records, the matrix, the workbook, PNGs and profiles.  Not ported yet:
+the ``use_h5`` patch cache (ROADMAP A13), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from dmfusion_torch.data.patches import batched_ids_np
 from dmfusion_torch.data.scene import (Scene, load_scene, split_labels,
                                        split_labels_masked)
 from dmfusion_torch.ops.metrics import aa_oa
+from dmfusion_torch.parallel import get_mesh
 from dmfusion_torch.report.excel import expo_result
 
 
@@ -43,12 +52,6 @@ class Split:
 
 
 def _refuse_unported(cfg: Mapping[str, Any]) -> None:
-    mesh = cfg.get("mesh", {})
-    if (int(mesh.get("model", 1)) != 1 or int(mesh.get("data", -1)) not in
-            (-1, 1) or mesh.get("distributed")):
-        raise NotImplementedError(
-            f"mesh {dict(mesh)}: the device mesh is not ported to "
-            "dmfusion_torch yet (ROADMAP A14); the port trains on one device")
     if cfg.get("use_h5"):
         raise NotImplementedError(
             "use_h5: the patch cache is not ported to dmfusion_torch yet "
@@ -59,20 +62,25 @@ class BaseSolver:
     def __init__(self, cfg: Mapping[str, Any]):
         cfg = dict(cfg)
         _refuse_unported(cfg)
+        self.mesh = get_mesh(cfg)
+        self.is_main = self.mesh is None or self.mesh.is_main
         if "RESULT_output" not in cfg:
-            cfg = prepare_run(cfg)
+            # Ranks probing the result tree at once could pick two slots.
+            cfg = (prepare_run(cfg) if self.mesh is None
+                   else self.mesh.from_rank0(lambda: prepare_run(cfg)))
         self.cfg = cfg
         self.TIME = cfg["time"]
         self.time = cfg["index"]
         self.EPOCH = cfg["epoch"]
         self.epoch = 0
         self.num_classes = cfg["Categories_Number"]
-        self.device = resolve_device(cfg)
+        self.device = (resolve_device(cfg) if self.mesh is None
+                       else self.mesh.device)
 
         self.scene: Scene = load_scene(cfg, self.device)
         self.labels_flat = self.scene.label.reshape(-1).astype(np.int32)
         self.labeled_ids, self.unlabeled_ids = split_labels(self.scene.label)
-        if not cfg.get("nohup"):
+        if not cfg.get("nohup") and self.is_main:
             from dmfusion_torch.utils import data_show
             data_show(self.scene.label)
 
@@ -144,15 +152,16 @@ class BaseSolver:
     # -- reporting ---------------------------------------------------------
     def indicator(self) -> None:
         """Save the confusion matrix and write OA/AA/kappa and per-class
-        accuracy into the run workbook."""
+        accuracy into the run workbook (rank 0 writes)."""
         cfg = self.cfg
+        self.last_result = result = aa_oa(self.test_matrix)
+        if not self.is_main:
+            return
         if cfg["test"].get("save_matrix"):
             os.makedirs(cfg["RESULT_output"], exist_ok=True)
             np.save(os.path.join(cfg["RESULT_output"],
                                  f"{self.time}_matrix.npy"), self.test_matrix)
-        result = aa_oa(self.test_matrix)
         expo_result(result, cfg, [self.train_time, self.test_time], self.time)
-        self.last_result = result
 
     # -- paths -------------------------------------------------------------
     def best_weights_path(self) -> str:
@@ -198,7 +207,9 @@ class BaseSolver:
 
     def save_records(self) -> None:
         """Write this repeat's per-epoch records as JSON next to the
-        checkpoints."""
+        checkpoints (rank 0)."""
+        if not self.is_main:
+            return
         os.makedirs(self.cfg["RESULT_output"], exist_ok=True)
         path = os.path.join(self.cfg["RESULT_output"],
                             f"{self.time}_records.json")
@@ -232,9 +243,9 @@ class BaseSolver:
     def profile_start(self, tag: str) -> None:
         """Begin a ``torch.profiler`` trace when ``profile.enabled`` is set;
         :meth:`profile_stop` writes it as a Chrome trace under
-        ``profile.dir``."""
+        ``profile.dir`` (rank 0 only, under a mesh)."""
         prof = self.cfg.get("profile", {})
-        if prof.get("enabled"):
+        if prof.get("enabled") and self.is_main:
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU]
             if self.device.type == "cuda":

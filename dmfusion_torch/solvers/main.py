@@ -45,6 +45,16 @@ contourlet diagnostics) renders the lowband and the four directional
 subbands of ``proof.samples`` labeled anchors' MS and PAN windows.  The
 single arity and ``visualize`` are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
+
+Under a mesh (``torchrun``, ``mesh.distributed``; ``solvers/base.py``)
+the dual arity trains, validates, tests and colors on every rank through
+``DualPrograms``' mesh route: the val loss and every confusion and class
+map are the whole batch's on every rank, so every rank keeps the same
+best parameters.  Rank 0 alone writes; a checkpoint that a phase reads
+back (``train.resume``, a test- or color-only run) is read by rank 0 and
+broadcast.  The tri and dense arities, gmfnet_conv's map route and models
+with BatchNorm raise ``NotImplementedError`` naming their ROADMAP A14
+item.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from dmfusion_torch.models.registry import (build_model, model_arity,
                                             model_map_programs)
 from dmfusion_torch.ops.contourlet import contourlet_decompose
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
+from dmfusion_torch.parallel import check_model, unported
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import channel_grid
 from dmfusion_torch.solvers.base import BaseSolver
@@ -224,6 +235,13 @@ class Solver(BaseSolver):
             raise NotImplementedError(
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "
                 f"training {_UNPORTED_ARITY[arity]}")
+        if self.mesh is not None:
+            if arity != "dual":
+                raise unported(f"{cfg['model_name']!r} (arity {arity!r})",
+                               "tri_quad" if arity == "tri" else "dense")
+            if model_map_programs(cfg["model_name"]) == "convmap":
+                raise unported(f"{cfg['model_name']!r}'s map route",
+                               "convmap")
         loss_name = cfg["schedule"]["loss"]
         if loss_name != "Criterion":
             raise ValueError(
@@ -248,6 +266,8 @@ class Solver(BaseSolver):
                       "full is the intended mode at this scale.")
             cfg = dict(cfg, train=dict(cfg["train"], dense_epoch=mode))
         model = build_model(cfg)
+        if self.mesh is not None:
+            check_model(model)
         if self.device.type == "cuda":
             model = model.to(self.device, memory_format=torch.channels_last)
         init_params(model, torch.Generator().manual_seed(
@@ -276,7 +296,7 @@ class Solver(BaseSolver):
             else:
                 cls = DualPrograms
             self.programs = cls(model, self.optimizer, cfg, self.scene.width,
-                                self.scene.patch)
+                                self.scene.patch, mesh=self.mesh)
 
     def _resolve_dense_memory(self, cfg: dict, streams: int,
                               n_train: int) -> dict:
@@ -322,17 +342,18 @@ class Solver(BaseSolver):
             self.init_model()
         best_loss = float("inf")
         self.epoch = 0
-        if cfg["train"].get("resume") and exists(self.cur_weights_path()):
-            ckpt = load_checkpoint(
+        if cfg["train"].get("resume") and self._on_main(
+                lambda: exists(self.cur_weights_path())):
+            ckpt = self._on_main(lambda: load_checkpoint(
                 self.cur_weights_path(),
                 {"params": self.model.state_dict(),
                  "opt_state": self.optimizer.state_dict(), "epoch": 0},
-                expect=self._ckpt_meta(), lenient=self._ckpt_lenient())
+                expect=self._ckpt_meta(), lenient=self._ckpt_lenient()))
             self.model.load_state_dict(ckpt["params"])
             self.optimizer.load_state_dict(ckpt["opt_state"])
             self.epoch = int(ckpt["epoch"]) + 1
             self.load_records()
-            if not cfg.get("nohup"):
+            if not cfg.get("nohup") and self.is_main:
                 print(f"[repeat {self.time}] resumed at epoch {self.epoch}")
         saver = self._make_saver()
         try:
@@ -345,6 +366,11 @@ class Solver(BaseSolver):
         self.epoch = 0
         self.save_records()
 
+    def _on_main(self, fn: Callable[[], Any]) -> Any:
+        """``fn()``, or under a mesh rank 0's ``fn()`` on every rank
+        (``Mesh.from_rank0``)."""
+        return fn() if self.mesh is None else self.mesh.from_rank0(fn)
+
     def _make_saver(self) -> AsyncCheckpointWriter | None:
         """Per-epoch checkpoint writer: a worker thread by default
         (``train.async_save``), synchronous under 'off'."""
@@ -354,6 +380,8 @@ class Solver(BaseSolver):
         return AsyncCheckpointWriter()
 
     def _save_best(self, saver) -> None:
+        if not self.is_main:
+            return
         if saver is not None:
             saver.save(self.best_weights_path(), self.best_params,
                        copy=False, meta=self._ckpt_meta())
@@ -362,6 +390,8 @@ class Solver(BaseSolver):
                             meta=self._ckpt_meta())
 
     def _save_current(self, saver) -> None:
+        if not self.is_main:
+            return
         tree = {"params": self.model.state_dict(),
                 "opt_state": self.optimizer.state_dict(), "epoch": self.epoch}
         if saver is not None:
@@ -431,12 +461,12 @@ class Solver(BaseSolver):
                 round(self.now() - ep_t0, 4))
             self.save_records()
             if stop_early:
-                if not cfg.get("nohup"):
+                if not cfg.get("nohup") and self.is_main:
                     print(f"[repeat {self.time}] early stop at epoch "
                           f"{self.epoch}: val {val_loss:.4f} > best "
                           f"{best_loss:.4f} (ep {best_epoch})")
                 break
-            if not cfg.get("nohup"):
+            if not cfg.get("nohup") and self.is_main:
                 msg = (f"[repeat {self.time}] epoch {self.epoch} "
                        f"loss {train_loss:.4f}")
                 if val_loss is not None:
@@ -458,6 +488,10 @@ class Solver(BaseSolver):
             path = self.best_weights_path()
         else:
             path = self.cur_weights_path()
+        return self._on_main(lambda: self._read_eval_params(path))
+
+    def _read_eval_params(self, path: str) -> dict[str, torch.Tensor]:
+        cfg = self.cfg
         if not exists(path):
             raise FileNotFoundError(
                 f"eval weights not found at {path} (train.index="
@@ -535,14 +569,16 @@ class Solver(BaseSolver):
             preds = predict(ids)
             x, y = self.scene.ids_to_xy(ids)
             label_np2[x, y] = preds
-        palette = torch.tensor(cfg["DATA_DICT"][cfg["data_city"]]["color"],
-                               dtype=torch.uint8)
-        os.makedirs(cfg["RESULT_output"], exist_ok=True)
-        for tag, lab in (("1", label_np1), ("2", label_np2)):
-            img = render_class_map(torch.from_numpy(lab), palette).numpy()
-            write_png(os.path.join(cfg["RESULT_output"],
-                                   f"{self.time}_pic_{tag}.png"), img)
         self.color_maps = (label_np1, label_np2)
+        if self.is_main:
+            palette = torch.tensor(
+                cfg["DATA_DICT"][cfg["data_city"]]["color"],
+                dtype=torch.uint8)
+            os.makedirs(cfg["RESULT_output"], exist_ok=True)
+            for tag, lab in (("1", label_np1), ("2", label_np2)):
+                img = render_class_map(torch.from_numpy(lab), palette).numpy()
+                write_png(os.path.join(cfg["RESULT_output"],
+                                       f"{self.time}_pic_{tag}.png"), img)
         self.color_time = self.now() - t0
 
     def proof(self) -> None:
@@ -552,7 +588,9 @@ class Solver(BaseSolver):
         into the lowband and 4 directional subbands (the transform ct_lstm
         consumes) and write the first window's channels as grids:
         ``{time}_ct_{ms,pan}_{low,dfb}.png`` (at most 16 subband
-        channels)."""
+        channels).  Under a mesh rank 0 renders them alone."""
+        if not self.is_main:
+            return
         cfg = self.cfg
         n = int(cfg.get("proof", {}).get("samples", 4))
         ids = (self.split.labeled if self.split is not None

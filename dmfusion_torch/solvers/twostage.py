@@ -42,6 +42,7 @@ from dmfusion_torch.ops.ihs import pan2ms
 from dmfusion_torch.ops.image import (render_tensor, scene_to_tiles,
                                       tiles_to_scene)
 from dmfusion_torch.ops.metrics import per_stream_results
+from dmfusion_torch.parallel import A14_ITEMS, get_mesh
 from dmfusion_torch.report.excel import expo_stream_results
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import save_image_grid
@@ -60,6 +61,14 @@ class TwoStageSolver(Solver):
     TRIM_TRAIN = True
 
     def __init__(self, cfg):
+        if get_mesh(cfg) is not None:
+            raise NotImplementedError(
+                "the two-stage solver under a mesh is not ported to "
+                f"dmfusion_torch yet ({A14_ITEMS['tri_quad']}; "
+                f"{A14_ITEMS['gan']}): stage 2 trains the quad arity, and "
+                "stage 1's data parallelism (dmfusion/solvers/twostage.py:"
+                "138-141, train/gan.py:95-105) waits for both; run it on "
+                "one rank")
         super().__init__(cfg)
         self.ms_gan: np.ndarray | None = None
         self.pan_gan: np.ndarray | None = None

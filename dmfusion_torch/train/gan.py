@@ -46,6 +46,7 @@ import torch
 from torch import nn
 
 from dmfusion_torch.models.common import init_params
+from dmfusion_torch.parallel.mesh import Mesh, unported
 from dmfusion_torch.train.losses import l1, mse
 from dmfusion_torch.train.optim import adam_beta, reset_state
 
@@ -75,7 +76,10 @@ def _params(nets: Mapping[str, nn.Module]) -> list[nn.Parameter]:
 class GanPrograms:
     def __init__(self, gen_p: nn.Module, gen_m: nn.Module,
                  disc_p: nn.Module, disc_m: nn.Module,
-                 cfg: Mapping[str, Any], noise: NoiseFn | None = None):
+                 cfg: Mapping[str, Any], noise: NoiseFn | None = None,
+                 mesh: Mesh | None = None):
+        if mesh is not None:
+            raise unported("GanPrograms", "gan")
         self.gens = {"gP": gen_p, "gM": gen_m}
         self.discs = {"dP": disc_p, "dM": disc_m}
         self.nets = {**self.gens, **self.discs}

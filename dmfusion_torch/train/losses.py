@@ -4,7 +4,8 @@ Port of ``dmfusion/train/losses.py``.  ``make_loss`` selects MSE / L1 /
 Criterion (cross-entropy) / KL / qua_loss by the ``schedule.loss``
 string.  The semantics kept:
   * the masked cross-entropy is ``(per * m).sum() / max(m.sum(), 1)`` on
-    float32 logits, so padded rows of a static-shape batch weigh nothing,
+    float32 logits, so padded rows of a static-shape batch weigh nothing;
+    under a mesh ``m.sum()`` is the whole batch's count, not the shard's,
   * ``_kl_batchmean`` is ``kl_div(..., reduction='batchmean')`` with
     ``0 log 0 := 0`` (the target's log is taken only where it is > 0), and
     its optional ``weights`` make the batch mean a weighted mean,
@@ -35,13 +36,21 @@ def _kl_batchmean(log_input: torch.Tensor, target: torch.Tensor,
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean integer-label CE; with ``mask`` the mean over the real rows."""
+                  mask: torch.Tensor | None = None,
+                  count: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean integer-label CE; with ``mask`` the mean over the real rows.
+
+    ``count`` replaces the mask's own count as the denominator: a rank's
+    shard of a batch divides by the whole batch's real rows, so the ranks'
+    losses, and their gradients, sum to the whole batch's.  A mean of the
+    ranks' own means would weigh a row of a shard with fewer real rows
+    (the padded last batch's) more."""
     per = F.cross_entropy(logits.float(), labels.long(), reduction="none")
     if mask is None:
         return per.mean()
     m = mask.to(per.dtype)
-    return (per * m).sum() / m.sum().clamp(min=1.0)
+    n = m.sum() if count is None else count.to(per.dtype)
+    return (per * m).sum() / n.clamp(min=1.0)
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

@@ -26,8 +26,16 @@ route of gmfnet_conv for test and color.  ``TriPrograms`` is
 PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card;
 ``QuadPrograms`` over the two-stage solver's four MS-geometry streams,
 gathered by ``gather_quad_fast``, with the quadruplet KL loss and the
-fused MS-plus-PAN prediction.  The mesh routes and the h5 program family
-are not ported yet.
+fused MS-plus-PAN prediction.
+
+Under a mesh (``parallel/mesh.py``) ``DualPrograms`` runs the ``data``
+axis: every rank holds the global (steps, B) batches, gathers its
+contiguous shard of each batch through
+``ops/gather.py::gather_dual_sharded`` (the kernel on every batch on the
+card), and sums what the ranks computed: a step's gradients (its loss
+divides by the whole batch's real rows), an eval's loss sum and
+confusion, a prediction's class ids in rank order.  The other program
+families, and the h5 one, are not ported under a mesh and raise.
 """
 
 from __future__ import annotations
@@ -43,9 +51,10 @@ from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
                                                 phase_corner_sums, phase_sat,
                                                 sat_window_sums)
-from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
-                                       gather_tri_fast)
+from dmfusion_torch.ops.gather import (gather_dual_fast, gather_dual_sharded,
+                                       gather_quad_fast, gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
+from dmfusion_torch.parallel.mesh import Mesh, unported
 from dmfusion_torch.train.losses import cross_entropy, qua_loss
 from dmfusion_torch.train.optim import reset_state
 
@@ -99,18 +108,29 @@ class DualPrograms:
     ``labels`` and ``mask`` are (steps, B) tensors on the same device, the
     mask zero on the padding of the last partial batch.
     ``plain_gather=True`` gathers with the plain version even on the card
-    (for checks that hold the kernel against it).
+    (for checks that hold the kernel against it; not with a mesh).  With a
+    ``mesh`` the
+    programs run this rank's shard of every batch (module docstring) and
+    start from rank 0's parameters, as DDP does.
     """
 
     #: Per-anchor programs cannot render a whole-scene map.
     supports_map = False
     #: The (plain, kernel) window gathers over ``scene_args``.
     gathers = (gather_dual, gather_dual_fast)
+    #: The ``A14_ITEMS`` key of a family not ported under a mesh.
+    mesh_item: str | None = None
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer | None,
                  cfg: Mapping[str, Any], width: int, patch: int, *,
-                 plain_gather: bool = False):
+                 plain_gather: bool = False, mesh: Mesh | None = None):
+        if mesh is not None and self.mesh_item:
+            raise unported(type(self).__name__, self.mesh_item)
+        if mesh is not None and plain_gather:
+            raise ValueError("plain_gather holds the kernel against its plain "
+                             "version in one process; a mesh gathers through "
+                             "gather_dual_sharded")
         check_eval_scan_anchors(cfg)
         self.cfg = dict(cfg)
         self.model = model
@@ -119,69 +139,117 @@ class DualPrograms:
         self.patch = int(patch)
         self.num_classes = int(cfg["Categories_Number"])
         self.plain_gather = plain_gather
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         #: The card's eval/predict batches are rounded up to 4096 anchors.
         self.on_card = self.device.type == "cuda"
+        self._take_rank0_params()
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded parameters (flax's default initializers' distributions)
         and a zeroed optimizer state."""
         init_params(self.model, generator)
+        self._take_rank0_params()
         if self.optimizer is not None:
             reset_state(self.optimizer)
 
+    @torch.no_grad()
+    def _take_rank0_params(self) -> None:
+        if self.mesh is not None:
+            self.mesh.broadcast_all_(self.model.parameters())
+
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
                 ) -> tuple[torch.Tensor, ...]:
-        gather = self.gathers[0 if self.plain_gather else 1]
-        windows = gather(*scene_args, ids_b, self.width, self.patch)
+        """The model's inputs at ``ids_b``: every anchor, or under a mesh
+        this rank's shard (``mesh.shard``)."""
+        if self.mesh is None:
+            gather = self.gathers[0 if self.plain_gather else 1]
+            windows = gather(*scene_args, ids_b, self.width, self.patch)
+        else:
+            windows = gather_dual_sharded(*scene_args, ids_b, self.width,
+                                          self.patch, self.mesh)
         # bf16 scenes widen exactly to the model's f32 inputs.
         return tuple(w.float() for w in windows)
 
+    def _shard(self, labels_b: torch.Tensor, mask_b: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """A batch's labels and mask, or under a mesh this rank's shard of
+        them (the padding past the batch masked out)."""
+        if self.mesh is None:
+            return labels_b, mask_b
+        return self.mesh.shard(labels_b, 0), self.mesh.shard(mask_b, 0)
+
     def loss(self, logits: torch.Tensor, labels_b: torch.Tensor,
-             mask_b: torch.Tensor | None) -> torch.Tensor:
-        """The train step's loss: the masked cross-entropy."""
-        return cross_entropy(logits, labels_b, mask_b)
+             mask_b: torch.Tensor | None,
+             count: torch.Tensor | None = None) -> torch.Tensor:
+        """The train step's loss: the masked cross-entropy (over ``count``
+        real rows when given)."""
+        return cross_entropy(logits, labels_b, mask_b, count)
 
     # -- one optimizer step ------------------------------------------------
     def train_step(self, inputs: Sequence[torch.Tensor],
                    labels_b: torch.Tensor,
-                   mask_b: torch.Tensor | None = None) -> torch.Tensor:
+                   mask_b: torch.Tensor | None = None,
+                   count: torch.Tensor | None = None) -> torch.Tensor:
         """One update on gathered windows (``inputs``: the model's
         arguments, e.g. ``(ms_b, pan_b)``); returns the loss, detached, on
-        the device."""
+        the device.  Under a mesh the inputs, labels and mask are this
+        rank's shard, ``count`` the whole batch's real rows, and the
+        ranks' gradients are summed before the update: the returned loss
+        is this rank's share of the batch's."""
         self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(self.model(*inputs), labels_b, mask_b)
+        loss = self.loss(self.model(*inputs), labels_b, mask_b, count)
         loss.backward()
+        if self.mesh is not None:
+            grads = []
+            for p in self.model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                grads.append(p.grad)
+            self.mesh.sum_all_(grads)
         self.optimizer.step()
         return loss.detach()
 
     # -- whole epochs ------------------------------------------------------
     def train_epoch(self, scene_args: tuple, ids: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """One update per batch; returns the (steps,) losses on the device."""
+        """One update per batch; returns the (steps,) losses on the device
+        (under a mesh, summed over the ranks: the whole batches')."""
         self.model.train()
-        losses = [self.train_step(self._gather(scene_args, ids[i]),
-                                  labels[i], mask[i])
-                  for i in range(ids.shape[0])]
-        return torch.stack(losses)
+        losses = []
+        for i in range(ids.shape[0]):
+            inputs = self._gather(scene_args, ids[i])
+            if self.mesh is None:
+                losses.append(self.train_step(inputs, labels[i], mask[i]))
+            else:
+                losses.append(self.train_step(
+                    inputs, *self._shard(labels[i], mask[i]),
+                    count=mask[i].float().sum()))
+        losses = torch.stack(losses)
+        return losses if self.mesh is None else self.mesh.sum_(losses)
 
     @torch.inference_mode()
     def eval_epoch(self, scene_args: tuple, ids: torch.Tensor,
                    labels: torch.Tensor, mask: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Masked eval: (sample-weighted loss sum ``(per * mask).sum()``,
-        ``[pred][target]`` confusion with the padding masked out)."""
+        ``[pred][target]`` confusion with the padding masked out); under a
+        mesh each rank's shards, summed over the ranks."""
         self.model.eval()
         loss_sum = torch.zeros((), dtype=torch.float32, device=ids.device)
         conf = torch.zeros((self.num_classes, self.num_classes),
                            dtype=torch.float32, device=ids.device)
         for i in range(ids.shape[0]):
             logits = self.model(*self._gather(scene_args, ids[i]))
+            labels_i, mask_i = self._shard(labels[i], mask[i])
             per = torch.nn.functional.cross_entropy(
-                logits.float(), labels[i].long(), reduction="none")
-            loss_sum += (per * mask[i].float()).sum()
-            conf += confusion_matrix(logits.argmax(dim=-1), labels[i],
-                                     self.num_classes, mask[i])
+                logits.float(), labels_i.long(), reduction="none")
+            loss_sum += (per * mask_i.float()).sum()
+            conf += confusion_matrix(logits.argmax(dim=-1), labels_i,
+                                     self.num_classes, mask_i)
+        if self.mesh is not None:
+            self.mesh.sum_(loss_sum)
+            self.mesh.sum_(conf)
         return loss_sum, conf
 
     @staticmethod
@@ -192,11 +260,17 @@ class DualPrograms:
     @torch.inference_mode()
     def predict(self, scene_args: tuple, ids: torch.Tensor) -> torch.Tensor:
         """(steps, B) anchor ids -> (steps, B) int32 class ids
-        (``decide``)."""
+        (``decide``); under a mesh every rank's shards, gathered in rank
+        order once, on every rank."""
         self.model.eval()
-        return torch.stack([
+        preds = torch.stack([
             self.decide(self.model(*self._gather(scene_args, ids[i])))
             for i in range(ids.shape[0])])
+        if self.mesh is None:
+            return preds
+        steps, per = preds.shape
+        every = self.mesh.rows(preds).view(self.mesh.data, steps, per)
+        return every.transpose(0, 1).reshape(steps, -1)[:, :ids.shape[1]]
 
     def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
                        labels: torch.Tensor, mask: torch.Tensor
@@ -212,6 +286,7 @@ class TriPrograms(DualPrograms):
     window kernel three times (MS, PAN, MSPAN)."""
 
     gathers = (gather_tri, gather_tri_fast)
+    mesh_item = "tri_quad"
 
 
 class QuadPrograms(DualPrograms):
@@ -226,13 +301,16 @@ class QuadPrograms(DualPrograms):
     (tostagesolver.py:337)."""
 
     gathers = (gather_quad, gather_quad_fast)
+    mesh_item = "tri_quad"
 
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
                 ) -> tuple[torch.Tensor]:
         return (torch.cat(super()._gather(scene_args, ids_b)),)
 
     def loss(self, logits: torch.Tensor, labels_b: torch.Tensor,
-             mask_b: torch.Tensor | None) -> torch.Tensor:
+             mask_b: torch.Tensor | None,
+             count: torch.Tensor | None = None) -> torch.Tensor:
+        """The masked qua_loss (``count`` is a mesh's, which quad refuses)."""
         return qua_loss(logits, labels_b.shape[0], labels_b, self.cfg,
                         mask_b)
 
@@ -360,7 +438,10 @@ class DensePrograms:
 
     def __init__(self, model: torch.nn.Module, patch: int, *,
                  optimizer: torch.optim.Optimizer | None = None,
-                 cfg: Mapping[str, Any] | None = None):
+                 cfg: Mapping[str, Any] | None = None,
+                 mesh: Mesh | None = None):
+        if mesh is not None:
+            raise unported("DensePrograms", "dense")
         self.model = model
         self.patch = int(patch)
         self.optimizer = optimizer
@@ -714,6 +795,7 @@ class ConvMapPrograms(DualPrograms):
     commutes exactly."""
 
     supports_map = True
+    mesh_item = "convmap"
 
     # -- band geometry -----------------------------------------------------
     def band_plan(self, ms_rows: int, n: int):

@@ -62,7 +62,8 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
     "dmfusion_torch.tools.conv_kernel_probe",
     "dmfusion_torch.tools.pool_probe", "dmfusion_torch.tools.convmap_ab",
     "dmfusion_torch.ops.contourlet", "dmfusion_torch.models.swin",
-    "dmfusion_torch.models.swin_dual", "dmfusion_torch.models.ct_lstm"])
+    "dmfusion_torch.models.swin_dual", "dmfusion_torch.models.ct_lstm",
+    "dmfusion_torch.parallel"])
 def test_entry_point_alone_imports_without_jax(module):
     """Each entry point, imported alone in a fresh interpreter."""
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
@@ -72,3 +73,33 @@ def test_entry_point_alone_imports_without_jax(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_one_rank_has_no_mesh():
+    """No process group: a world of 1, and no mesh, as dmfusion drops a
+    one-device mesh."""
+    from dmfusion_torch.parallel import get_mesh, is_distributed
+    assert not is_distributed()
+    for cfg in (None, {"mesh": {"data": -1, "model": 1}},
+                {"mesh": {"data": 1, "model": 1, "distributed": 0}}):
+        assert get_mesh(cfg) is None
+
+
+def test_cli_without_distributed_starts_no_process_group(tmp_path,
+                                                         monkeypatch):
+    import torch.distributed
+
+    from dmfusion_torch import cli
+    from dmfusion_torch.parallel import is_distributed
+
+    def refuse(*a, **kw):
+        raise AssertionError("init_process_group called")
+
+    monkeypatch.delenv("DMFUSION_DISTRIBUTED", raising=False)
+    monkeypatch.setattr(torch.distributed, "init_process_group", refuse)
+    solver = cli.main(["--city", "synth64", "--set", "device=cpu",
+                       "patch_size=8", "model_width=8", "batchsize=64",
+                       "epoch=1", "time=1", "train_rate=0.05",
+                       "verify_rate=0.05", "test.index=0", "color.index=0",
+                       "nohup=1", f"expo_result={tmp_path}/"])
+    assert solver.mesh is None and not is_distributed()
