@@ -179,12 +179,13 @@ Phases; any failure exits non-zero before the result line:
   14. train_gan — stage 1 and stage 2 of the two-stage solver through the
                 CLI's ``main`` as ``python -m dmfusion_torch.cli --solver
                 twostage --set model_name=dqtl dqtl.pre_trained=0
-                dqtl.save_model=1 data_city=image6 epoch=2 time=1
-                color.index=0``: the GAN quartet at the config's stage-1
-                sizes (gan_width 32, pic 128, batch 4, 10 epochs of 68 steps
-                over image6's 272 tiles, bf16), then dqtl (w64, patch 16,
+                dqtl.save_model=1 dqtl.epochs=3 data_city=image6 epoch=2
+                time=1 color.index=0``: the GAN quartet at the config's
+                stage-1 widths (gan_width 32, pic 128, batch 4, 68 steps an
+                epoch over image6's 272 tiles, bf16; 3 epochs of the
+                config's 10), then dqtl (w64, patch 16,
                 batch 256, bf16) for two epochs and its test on the four
-                streams built from stage 1's scenes: ten stage-1 epochs with
+                streams built from stage 1's scenes: three stage-1 epochs with
                 finite d and g losses; msgan.npy and pangan.npy of the
                 scene's shape, finite, within [0, 1], equal to the solver's
                 scenes; the four checkpoints, both renders and the four
@@ -257,12 +258,50 @@ Phases; any failure exits non-zero before the result line:
                 5 on rank 0 (the all-reduce's share).  Then ``python -m
                 torch.distributed.run --standalone --nproc-per-node 2 -m
                 dmfusion_torch.cli --set mesh.distributed=1 <TRAIN_SET>
-                epoch=1`` as a subprocess: one ``gmfnet__0_output/`` and one
+                epoch=1 color.index=0`` as a subprocess (train_dp_streams
+                colors through the mesh): one ``gmfnet__0_output/`` and one
                 workbook, one finite epoch loss, a test matrix that sums to
                 the test split with OA >= 0.5, and each rank's report
                 (device ``cuda:0``, backend gloo) with B1 launched twice per
                 gathered batch, the count computed from the split sizes;
                 the kernels line counts both ranks' launches.
+  18. train_dp_streams — (run after train_dp) the tri and quad arities
+                and stage 1 on the data axis, DP_RANKS ranks sharing the
+                card over gloo.  Spawned ranks build the same MSPAN (by
+                digest); ``gather_tri_fast`` and ``gather_quad_fast`` on
+                the rank's shard launch B1 3 and 4 times a call, and both
+                ranks' rows are bit-equal to the plain ``gather_tri`` and
+                ``gather_quad`` (f32 and bf16 scenes; B 4096 with corner
+                anchors, B 4160, B 1025, B 256, anchors past the scene),
+                each timed at B 4096 on each rank in turn beside the plain
+                route, one indexing call a stream and the shard's bytes
+                bound; three f32 SGD steps (TF32 off) of dqtl w64, the
+                padded batch first, through the two ranks (qua_loss on the
+                whole batch's logits) and one process: losses within
+                DPS_QUAD_LOSS_ATOL, parameters within DPS_QUAD_PARAM_ATOL,
+                each rank's qua_loss on its own shard outside them; then an
+                eval batch of 4096 through both (loss sum, five
+                confusions, fused prediction); three f32 GAN steps at
+                gan_width 32 on 64x64 crops, two tiles a rank, against one
+                process fed the same noise (losses within
+                DPS_GAN_LOSS_RTOL, Adam's moments within
+                DPS_GAN_MOMENT_RTOL of their largest, parameters within
+                Adam's step bound),
+                summed gradients outside the moments' limit; tri, quad and
+                GAN steps timed a rank, with profiles of the all-reduce's
+                and all-gather's shares on rank 0.  Then two runs of
+                ``python -m torch.distributed.run --standalone
+                --nproc-per-node 2 -m dmfusion_torch.cli ...
+                mesh.distributed=1``: tri_net (the train phase's set, one
+                epoch, test and color over the labeled pixels) and
+                ``--solver twostage`` with ``dqtl.pre_trained=0`` (the
+                config's stage-1 widths, DPS_GAN_EPOCHS GAN epochs,
+                DPS_STAGE2_EPOCHS stage-2 epochs, test): one result tree
+                each, the GAN scenes
+                and files of the weights dir, finite records, test matrices
+                of the test split, tri OA and the MS stream's OA at least
+                0.5, each rank's B1 launches 3 (tri) and 4 (quad) times
+                its gathered batches, counted from the split.
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  The kernels build in parallel, one
 ``nvcc`` per source.
@@ -287,7 +326,8 @@ import torch
 from dmfusion_torch import parallel
 from dmfusion_torch.config import load_config, resolve_device
 from dmfusion_torch.data.patches import (batched_ids, batched_ids_np,
-                                         gather_dual, gather_one, gather_quad)
+                                         gather_dual, gather_one, gather_quad,
+                                         gather_tri)
 from dmfusion_torch.data.scene import (mspan_scene, quad_streams, split_labels,
                                        synthetic_scene)
 from dmfusion_torch.export import load_artifact, save_artifact
@@ -305,6 +345,7 @@ from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
 from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
                                   conv_kernel_probe, strip_gather_bench,
                                   time_in_turns)
+from dmfusion_torch.train.gan import GanPrograms
 from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
                                         QuadPrograms, TriPrograms)
 
@@ -396,14 +437,16 @@ GAN_NOISE = 0.1
 # wrong layer or a lost update moves the loss by a good part of its size.
 QUAD_TRAIN_BF16_ATOL = 0.003
 # The stage-1 run: the two-stage solver with dqtl.pre_trained 0 at the
-# config's stage-1 sizes (gan_width 32, pic 128, batch 4, 10 epochs: 272
-# image6 tiles, 68 steps an epoch), then stage 2 (dqtl w64, patch 16,
-# batch 256, bf16) for two epochs and its test; color is off (train_quad
-# colors the quad path).
+# config's stage-1 widths (gan_width 32, pic 128, batch 4: 272 image6
+# tiles, 68 steps an epoch), cut to 3 epochs (the config's 10 cost 7 s
+# each: the first keeps its sample grids, the second none, the last every
+# fake), then stage 2 (dqtl w64, patch 16, batch 256, bf16) for two epochs
+# and its test; color is off (train_quad colors the quad path).
+GAN_WIDTH, GAN_PIC, GAN_BATCH, GAN_EPOCHS, GAN_STEPS = 32, 128, 4, 3, 68
 GAN_TRAIN_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
-                 "dqtl.pre_trained=0", "dqtl.save_model=1", "data_city=image6",
+                 "dqtl.pre_trained=0", "dqtl.save_model=1",
+                 f"dqtl.epochs={GAN_EPOCHS}", "data_city=image6",
                  "epoch=2", "time=1", "color.index=0", "nohup=1"]
-GAN_WIDTH, GAN_PIC, GAN_BATCH, GAN_EPOCHS, GAN_STEPS = 32, 128, 4, 10, 68
 GAN_PROFILE_STEPS, GAN_REQUESTS = 20, 2
 # The GAN steps' card-vs-CPU parity: full width on tiles cropped to 64,
 # two a step.  bf16 vs f32 losses, relative: on the CPU 0.0025-0.0038 apart
@@ -457,9 +500,47 @@ DP_GATHER_B = (4096, 4160, 1025, 256)
 # parameters 3e-8 to 2.4e-7 apart (H100 80GB HBM3, 700.00 W).
 DP_LOSS_ATOL, DP_PARAM_ATOL = 1e-5, 1e-6
 DP_PROFILE_STEPS = 5
-# The CLI under torchrun: the train phase's run, cut to one epoch.
-DP_TRAIN_SET = [*TRAIN_SET, "epoch=1"]
+# The CLI under torchrun: the train phase's run, cut to one epoch and
+# without color (train_dp_streams colors through the mesh's predict).
+DP_TRAIN_SET = [*TRAIN_SET, "epoch=1", "color.index=0"]
 DP_TIMEOUT = 400
+# The tri and quad arities and stage 1 on the data axis (phase
+# train_dp_streams), DP_RANKS ranks sharing the card over gloo as in
+# train_dp.  Three f32 SGD steps of dqtl w64 (TF32 off), two ranks against
+# one process, the padded batch first: the losses and parameters differ
+# only in the order of the sums (readings 7.5e-9 to 1.5e-8, H100 80GB
+# HBM3, 700.00 W; the limits are the dual path's).
+DPS_QUAD_LOSS_ATOL, DPS_QUAD_PARAM_ATOL = 1e-5, 1e-6
+# Three GAN steps at gan_width 32 on 64x64 crops, batch 4 (two tiles a
+# rank), f32 (TF32 off), two ranks against one process fed the same noise.
+# The losses are held to dmfusion's own rtol for its mesh
+# (tests/test_gan.py); Adam's moments to DPS_GAN_MOMENT_RTOL of their
+# largest: an L1 term's sign flips on a rounding-level difference and
+# moves the gradient by about 1e-4 of its size (on the CPU), and cuDNN's
+# f32 sums vary from run to run (the moments at most 1e-4 apart in one
+# run and 2.2e-4 in the next, H100 80GB HBM3, 700.00 W); the parameters
+# to Adam's step bound, both sides, where a gradient is rounding noise (a
+# step moves an element by about lr, by up to 2 lr early on: 4 lr a
+# step).  Summing the ranks' gradients instead doubles the first moment:
+# as far apart as its size.
+DPS_GAN_LOSS_RTOL, DPS_GAN_MOMENT_RTOL = 1e-4, 1e-2
+# Timed steps a rank (after 3) and profiled steps on rank 0: tri and quad
+# at batch 256, the GAN at pic 128 and batch 4.
+DPS_STEPS, DPS_PROFILE_STEPS, DPS_GAN_STEPS = 20, 5, 10
+# The CLI under torchrun: tri_net as the train phase's run, cut to one
+# epoch, with color (the mesh's predict on the card); then the two-stage
+# solver with dqtl.pre_trained 0 at the config's stage-1 widths, cut to 2
+# GAN epochs (the first keeps its sample grids, the last every fake) and
+# 2 stage-2 epochs (after one the MS stream scored 0.481, under the 0.5
+# every training cell is held to), without color.
+DPS_GAN_EPOCHS, DPS_STAGE2_EPOCHS = 2, 2
+DPS_TRI_SET = ["--set", "model_name=tri_net", *TRAIN_SET, "epoch=1"]
+DPS_TWOSTAGE_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
+                    "dqtl.pre_trained=0", "dqtl.save_model=1",
+                    f"dqtl.epochs={DPS_GAN_EPOCHS}", "data_city=image6",
+                    f"epoch={DPS_STAGE2_EPOCHS}", "time=1", "color.index=0",
+                    "nohup=1"]
+DPS_TIMEOUT = 600
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # One entry per CUDA source of the driven paths.
 KERNELS = {
@@ -1367,6 +1448,15 @@ def _dp_gather(scene, mesh) -> dict:
     return out
 
 
+def _no_tf32() -> tuple[bool, bool]:
+    """Turn TF32 off; returns the flags to restore."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return flags
+
+
 class _LocalMeans(DualPrograms):
     """The control of :func:`_dp_parity`: DDP's rule, each rank's own
     masked mean with the ranks' gradients averaged, which weighs the rows
@@ -1397,10 +1487,7 @@ def _dp_parity(scene, mesh) -> dict:
     labels = scene.label.reshape(-1)[chunks].astype(np.int32)
     batches = [torch.from_numpy(a).to(mesh.device)
                for a in (chunks, labels, mask.astype(np.float32))]
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    tf32 = _no_tf32()
     out = {}
     for tag, cls, m in (("one_process", DualPrograms, None),
                         ("two_ranks", DualPrograms, mesh),
@@ -1437,12 +1524,53 @@ def _dp_parity(scene, mesh) -> dict:
             "local_means_param_max_abs": control[1]}
 
 
+def _rank_timing(mesh, run, steps: int, prof_steps: int) -> dict:
+    """``run(i0, i1)`` trains steps [i0, i1) on this rank: 3 warm-up steps,
+    ``steps`` timed, then on rank 0 a profile of ``prof_steps`` more, with
+    the share of its wall in gloo's all-reduce and all-gather (the other
+    ranks run the same steps unprofiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    run(0, 3)
+    torch.cuda.synchronize()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    run(3, 3 + steps)
+    torch.cuda.synchronize()
+    out = {"steps": steps,
+           "step_ms": (time.perf_counter() - t0) / steps * 1e3}
+    window = (3 + steps, 3 + steps + prof_steps)
+    mesh.barrier()
+    if not mesh.is_main:
+        run(*window)
+        torch.cuda.synchronize()
+        return out
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*window)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    out.update(profile_steps=prof_steps, profile_wall_ms=wall_ms)
+    for word in ("allreduce", "allgather"):
+        hits = [e for e in events if e.device_type ==
+                torch.autograd.DeviceType.CPU and word in
+                e.key.replace("_", "").lower()]
+        ms = max((e.cpu_time_total for e in hits), default=0.0) / 1e3
+        out[f"{word}_ms"] = ms
+        out[f"{word}_share"] = ms / wall_ms
+        out[f"{word}_ops"] = [[e.key, e.cpu_time_total / 1e3, e.count]
+                              for e in hits]
+    out["device_busy_share"] = sum(
+        e.self_device_time_total for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / wall_ms
+    return out
+
+
 def _dp_steps(scene, mesh) -> dict:
     """The default run's steps on this rank (gmfnet w64, Adam, bf16, 128 of
     each batch of 256): 20 timed, after 3; then on rank 0 a profile of 5,
     with the share of its wall time spent in the gradients' all-reduce."""
-    from torch.profiler import ProfilerActivity, profile
-
     from dmfusion_torch.train.optim import make_optimizer
     cfg = load_config(overrides=CFG)
     labeled, _ = split_labels(scene.label)
@@ -1459,41 +1587,13 @@ def _dp_steps(scene, mesh) -> dict:
                         cfg, scene.width, scene.patch, mesh=mesh)
     prog.init(torch.Generator().manual_seed(cfg["seed"]))
     args = (scene.ms, scene.pan)
-    float(prog.train_epoch(args, *(t[:3] for t in batches)).sum())
-    mesh.barrier()
-    t0 = time.perf_counter()
-    losses = prog.train_epoch(args, *(t[3:3 + PROFILE_STEPS]
-                                      for t in batches))
-    check(bool(torch.isfinite(losses).all()), "train_dp: non-finite loss")
-    steps_s = time.perf_counter() - t0
-    window = [t[3 + PROFILE_STEPS:] for t in batches]
-    out = {"steps": PROFILE_STEPS, "rank_batch": mesh.per_rank(TRAIN_BATCH),
-           "step_ms": steps_s / PROFILE_STEPS * 1e3,
-           "samples_per_s": PROFILE_STEPS * TRAIN_BATCH / steps_s}
-    mesh.barrier()
-    if not mesh.is_main:
-        prog.train_epoch(args, *window)
-        torch.cuda.synchronize()
-        return out
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prog.train_epoch(args, *window)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    reduce = [e for e in events if e.device_type ==
-              torch.autograd.DeviceType.CPU and "allreduce" in
-              e.key.replace("_", "").lower()]
-    reduce_ms = max((e.cpu_time_total for e in reduce), default=0.0) / 1e3
-    busy_ms = sum(e.self_device_time_total for e in events
-                  if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    out.update({"profile_steps": DP_PROFILE_STEPS, "profile_wall_ms": wall_ms,
-                "allreduce_ms": reduce_ms,
-                "allreduce_share": reduce_ms / wall_ms,
-                "allreduce_ops": [[e.key, e.cpu_time_total / 1e3, e.count]
-                                  for e in reduce],
-                "device_busy_share": busy_ms / wall_ms})
+
+    def run(i0, i1):
+        losses = prog.train_epoch(args, *(t[i0:i1] for t in batches))
+        check(bool(torch.isfinite(losses).all()), "train_dp: non-finite loss")
+    out = _rank_timing(mesh, run, PROFILE_STEPS, DP_PROFILE_STEPS)
+    out.update(rank_batch=mesh.per_rank(TRAIN_BATCH),
+               samples_per_s=TRAIN_BATCH / out["step_ms"] * 1e3)
     return out
 
 
@@ -1524,21 +1624,22 @@ def _dp_rank(rank: int, port: int, out_dir: str) -> None:
         parallel.shutdown()
 
 
-def _dp_cli(tmp: str) -> dict:
+def _dp_cli(tmp: str, args: list[str], phase: str = "train_dp",
+            timeout: float = DP_TIMEOUT) -> dict:
     """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
-    dmfusion_torch.cli --set mesh.distributed=1 <TRAIN_SET> epoch=1``, as a
-    user starts it; returns its seconds, output and the ranks' reports."""
+    dmfusion_torch.cli <args> mesh.distributed=1 expo_result=<tmp>/``
+    (``args`` end in ``--set`` overrides), as a user starts it; returns its
+    seconds, output and the ranks' reports."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
            "--nproc-per-node", str(DP_RANKS), "-m", "dmfusion_torch.cli",
-           "--set", "mesh.distributed=1", *DP_TRAIN_SET,
-           f"expo_result={tmp}/"]
+           *args, "mesh.distributed=1", f"expo_result={tmp}/"]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                          text=True, timeout=DP_TIMEOUT)
+                          text=True, timeout=timeout)
     run_s = time.perf_counter() - t0
-    check(proc.returncode == 0, f"train_dp: torchrun exit {proc.returncode}"
+    check(proc.returncode == 0, f"{phase}: torchrun exit {proc.returncode}"
           f"\n{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
     tag = "[dmfusion] rank report "
     reports = sorted((json.loads(line.split(tag, 1)[1])
@@ -1549,14 +1650,34 @@ def _dp_cli(tmp: str) -> dict:
     return {"run_s": run_s, "reports": reports, "joined": joined}
 
 
+def _spawn_ranks(fn, tmp: str, phase: str, timeout: float) -> list[dict]:
+    """``fn(rank, port, tmp)`` in DP_RANKS spawned processes, all killed
+    by ``timeout`` s; returns each rank's ``rank{r}.json``."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(_free_port(), tmp), nprocs=DP_RANKS,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + timeout
+    try:
+        while not ctx.join(timeout=5):
+            check(time.perf_counter() < deadline,
+                  f"{phase}: the spawned ranks ran past {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
 def phase_train_dp() -> tuple[int, dict]:
     """The mesh's data axis on the card: two ranks on ``cuda:0`` over gloo.
     Spawned ranks hold the sharded gather, SGD parity and the step times;
-    then gmfnet is trained, tested and colored by ``torchrun`` through the
-    CLI.  Returns B1's launches in the CLI run (both ranks) and the
-    wrapper's times on rank 0."""
-    import torch.multiprocessing as mp
-
+    then gmfnet is trained and tested by ``torchrun`` through the CLI.
+    Returns B1's launches in the CLI run (both ranks) and the wrapper's
+    times on rank 0."""
     from dmfusion_torch.config import parse_overrides
     from dmfusion_torch.solvers import BaseSolver
     log(f"train_dp: {DP_RANKS} ranks share one card ({card_line()}) over "
@@ -1565,22 +1686,7 @@ def phase_train_dp() -> tuple[int, dict]:
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_dp_")
     try:
-        ctx = mp.start_processes(_dp_rank, args=(_free_port(), tmp),
-                                 nprocs=DP_RANKS, join=False,
-                                 start_method="spawn")
-        deadline = time.perf_counter() + DP_TIMEOUT
-        try:
-            while not ctx.join(timeout=5):
-                check(time.perf_counter() < deadline,
-                      "train_dp: the spawned ranks ran past DP_TIMEOUT")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        ranks = []
-        for r in range(DP_RANKS):
-            with open(os.path.join(tmp, f"rank{r}.json")) as f:
-                ranks.append(json.load(f))
+        ranks = _spawn_ranks(_dp_rank, tmp, "train_dp", DP_TIMEOUT)
         for r in ranks:
             log(f"train_dp: rank {r['rank']} on {r['device']} over "
                 f"{r['backend']}: sharded gather bit-equal "
@@ -1590,7 +1696,7 @@ def phase_train_dp() -> tuple[int, dict]:
         # The CLI under torchrun, then its split, as the CLI drew it.
         for spec in KERNELS.values():
             spec["counter"].launches = 0
-        cli_run = _dp_cli(tmp)
+        cli_run = _dp_cli(tmp, ["--set", *DP_TRAIN_SET])
         launches = {n: spec["counter"].launches
                     for n, spec in KERNELS.items()}
         check(not any(launches.values()),
@@ -1615,8 +1721,8 @@ def phase_train_dp() -> tuple[int, dict]:
                                            "gmfnet__0_result.xlsx"],
               f"train_dp: result tree {sorted(os.listdir(root))}")
         out = os.path.join(root, "gmfnet__0_output")
-        files = ["0_curweights.pt", "0_matrix.npy", "0_pic_1.png",
-                 "0_pic_2.png", "0_records.json", "0_weights.pt"]
+        files = ["0_curweights.pt", "0_matrix.npy", "0_records.json",
+                 "0_weights.pt"]
         check(sorted(os.listdir(out)) == files,
               f"train_dp: output files {sorted(os.listdir(out))}")
         with open(os.path.join(out, "0_records.json")) as f:
@@ -1634,8 +1740,7 @@ def phase_train_dp() -> tuple[int, dict]:
             return -(-n // b)
         batches = {"train": nb(len(split.train), TRAIN_BATCH),
                    "val": nb(len(split.valid), EVAL_BATCH),
-                   "test": nb(len(split.test), EVAL_BATCH),
-                   "color": nb(len(split.labeled), EVAL_BATCH)}
+                   "test": nb(len(split.test), EVAL_BATCH)}
         want = 2 * sum(batches.values())
         for r in reports:
             check(r["gather_windows_launches"] == want,
@@ -1666,6 +1771,597 @@ def phase_train_dp() -> tuple[int, dict]:
     return b1, {"max_abs_err": max(r["gather"]["max_abs_err"]
                                    for r in ranks),
                 **{k: g[k] for k in ("B4096", "B4160")}}
+
+
+# -- phase train_dp_streams: tri, quad and stage 1 on the data axis ---------
+def _digest(t: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums over ``t``'s 32-bit words, on its device: equal
+    tensors give equal digests; a changed word changes them."""
+    v = t.contiguous().view(torch.int32).reshape(-1).long()
+    return torch.stack([v.sum(), (v * (v >> 9)).sum()])
+
+
+def _views(scene, streams: tuple, shard: torch.Tensor) -> list:
+    """One indexing call's (view, rows, columns) a stream at the shard's
+    anchors: MS-geometry streams at the anchor, PAN-geometry ones (more
+    than twice MS's rows) at 4x it, each at its own window."""
+    w, ps, dev = scene.width, scene.patch, shard.device
+    loc = shard.long()
+    x, y = loc // w, loc % w
+    grids = []
+    for v in streams:
+        s4 = 4 if v.shape[0] > 2 * scene.ms.shape[0] else 1
+        ch = int(v.shape[-1]) if v.ndim == 3 else 1
+        p = s4 * ps
+        grids.append((v.reshape(v.shape[0], -1),
+                      (s4 * x[:, None] + torch.arange(p, device=dev)
+                       )[:, :, None],
+                      (s4 * y[:, None] * ch
+                       + torch.arange(p * ch, device=dev))[:, None, :]))
+    return grids
+
+
+def _dps_gather(scene, mspan, quad, mesh) -> dict:
+    """The tri and quad gathers of the mesh's programs on this rank: the
+    family's kernel wrapper on ``mesh.shard(ids)``, 3 and 4 B1 launches a
+    call; both ranks' rows bit-equal to the plain ``gather_tri`` and
+    ``gather_quad`` (``gather_windows_ref``) of the whole batch on the same
+    ids (f32 and bf16 scenes; B 4096 with corner anchors, B 4160, B 1025,
+    B 256, and anchors past the scene, clamped); then each wrapper timed at
+    B 4096 on each rank in turn, beside the plain route on the shard, one
+    indexing call a stream on the shard, and the shard's bytes bound."""
+    w, ps, n, h = scene.width, scene.patch, scene.num_pixels, scene.height
+    c = int(scene.ms.shape[-1])
+    rng = np.random.default_rng(12)  # the same draws on every rank
+    base = rng.integers(0, n, max(DP_GATHER_B)).astype(np.int32)
+    base[:6] = [0, w - 1, (h - 1) * w, n - w, 2 * w - 1, n - 1]
+    cases = {f"B={b}": base[:b] for b in DP_GATHER_B}
+    cases["clamped"] = np.array([n - 1, n, n + w + 3, 10 * n, 2**30, 7] * 11,
+                                np.int32)
+    # (plain, kernel wrapper, launches a call, streams, elements a row)
+    fams = {"tri": (gather_tri, gather_ops.gather_tri_fast, 3,
+                    (scene.ms, scene.pan, mspan), ps * ps * (c + 32)),
+            "quad": (gather_quad, gather_ops.gather_quad_fast, 4, quad,
+                     4 * ps * ps * c)}
+    worst = 0.0
+    for fam, (plain, fast, k, streams, _) in fams.items():
+        for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            args = tuple(t.to(dt) for t in streams)
+            for name, ids_np in cases.items():
+                ids = torch.from_numpy(ids_np).to(mesh.device)
+                b = ids.shape[0]
+                before = gather_ops.gather_windows_cuda.launches
+                parts = fast(*args, mesh.shard(ids), w, ps)
+                check(gather_ops.gather_windows_cuda.launches == before + k,
+                      f"train_dp_streams: {fam} {tag} {name}: not {k} B1 "
+                      f"launches on rank {mesh.rank}")
+                check(all(p.shape[0] == mesh.per_rank(b) for p in parts),
+                      f"train_dp_streams: {fam} {tag} {name}: shards "
+                      f"{[tuple(p.shape) for p in parts]}")
+                want = plain(*args, ids, w, ps)
+                for got, ref in zip(parts, want, strict=True):
+                    got = _dp_rows(mesh, got)[:b]
+                    worst = max(worst, _max_err(got, ref))
+                    check(got.shape == ref.shape and torch.equal(got, ref),
+                          f"train_dp_streams: {fam} {tag} {name}: the ranks' "
+                          f"rows != the plain gather's on rank {mesh.rank}")
+            del args
+    out = {"max_abs_err": worst, "cases": sorted(cases)}
+    b = DP_GATHER_B[0]
+    per = mesh.per_rank(b)
+    for fam, (plain, fast, _, streams, elems) in fams.items():
+        shards = [mesh.shard(torch.from_numpy(
+            rng.integers(0, n, b).astype(np.int32)).to(mesh.device))
+            for _ in range(8)]
+        grids = [_views(scene, streams, s) for s in shards]
+        runs = {
+            "plain": lambda i: plain(*streams, shards[i % 8], w, ps),
+            "kernel": lambda i: fast(*streams, shards[i % 8], w, ps),
+            "library": lambda i: [v[r, q] for v, r, q in grids[i % 8]]}
+        moved = 2 * per * elems * 4 + 4 * per
+        timed = {}
+        for r in range(mesh.data):  # one rank at a time on the card
+            mesh.barrier()
+            if r == mesh.rank:
+                timed, _ = time_in_turns(runs, iters=50)
+            mesh.barrier()
+        out[fam] = {"b": b, "ms": timed["kernel"], "plain_ms": timed["plain"],
+                    "library_ms": timed["library"], "per_rank": per,
+                    "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                    "bound_by": "bytes", "bytes": moved}
+    return out
+
+
+class _ShardQuaLoss(QuadPrograms):
+    """The control of :func:`_dps_quad_parity`: each rank's qua_loss on its
+    own shard with the ranks' gradients summed, as if the loss were a sum
+    over rows."""
+
+    def _shard(self, labels_b, mask_b):
+        return DualPrograms._shard(self, labels_b, mask_b)
+
+    def loss(self, logits, labels_b, mask_b, count=None):
+        from dmfusion_torch.train.losses import qua_loss
+        return qua_loss(logits, labels_b.shape[0], labels_b, self.cfg, mask_b)
+
+
+def _dps_quad_parity(scene, quad, mesh) -> dict:
+    """Three SGD steps of dqtl w64 in f32 (TF32 off) from seeded weights,
+    the padded batch first (200 real: 128 on rank 0, 72 on rank 1), then
+    two full batches of 256, through the mesh and through one process on
+    the card: losses within DPS_QUAD_LOSS_ATOL, parameters within
+    DPS_QUAD_PARAM_ATOL; each rank's qua_loss on its own shard with the
+    gradients summed must fall outside one of the two.  Then, with the
+    trained weights, one eval batch of 4096 (4000 real) through both: the
+    loss sum within 1e-5 relative, the five confusions (at most one anchor
+    in a thousand moved) and the fused prediction (an argmax agreement of
+    at least 0.999: the two forward passes run at other batch sizes)."""
+    from dmfusion_torch.train.optim import make_optimizer
+    cfg = load_config(overrides={**CFG, "model_name": "dqtl",
+                                 "schedule": {"optimizer": "SGD"},
+                                 "precision": {"compute_dtype": "float32",
+                                               "scene_dtype": "float32"}})
+    labeled, _ = split_labels(scene.label)
+    real, n_ev = TRAIN_BATCH * 25 // 32, EVAL_BATCH - 96
+    ids = np.random.default_rng(5).choice(
+        labeled, 2 * TRAIN_BATCH + real + n_ev, replace=False).astype(np.int32)
+    chunks, mask, _ = batched_ids_np(ids[:2 * TRAIN_BATCH + real],
+                                     TRAIN_BATCH)
+    first = [2, 0, 1]  # batched_ids_np pads the last batch
+    chunks, mask = chunks[first], mask[first]
+    ev_chunks, ev_mask, _ = batched_ids_np(ids[-n_ev:], EVAL_BATCH)
+
+    def on_card(chunks, mask):
+        labels = scene.label.reshape(-1)[chunks].astype(np.int32)
+        return [torch.from_numpy(a).to(mesh.device)
+                for a in (chunks, labels, mask.astype(np.float32))]
+    batches, ev = on_card(chunks, mask), on_card(ev_chunks, ev_mask)
+    tf32 = _no_tf32()
+    out, evals = {}, {}
+    for tag, cls, m in (("one_process", QuadPrograms, None),
+                        ("two_ranks", QuadPrograms, mesh),
+                        ("shard_loss", _ShardQuaLoss, mesh)):
+        model = build_model(cfg).to(mesh.device,
+                                    memory_format=torch.channels_last)
+        prog = cls(model, make_optimizer(cfg, model.parameters(),
+                                         PARITY_STEPS),
+                   cfg, scene.width, scene.patch, mesh=m)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        losses = prog.train_epoch(quad, *batches)
+        out[tag] = (losses.cpu(), torch.cat(
+            [p.detach().reshape(-1) for p in model.parameters()]).cpu())
+        if tag != "shard_loss":
+            loss_sum, confs = prog.eval_epoch(quad, *ev)
+            evals[tag] = (float(loss_sum), confs.cpu(),
+                          prog.predict(quad, ev[0]).cpu()[0, :n_ev])
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+
+    def gaps(tag):
+        return [float((out["one_process"][i] - out[tag][i]).abs().max())
+                for i in (0, 1)]
+    gap_loss, gap_param = gaps("two_ranks")
+    check(gap_loss <= DPS_QUAD_LOSS_ATOL, f"train_dp_streams: two ranks' "
+          f"qua_loss {gap_loss} from one process's on rank {mesh.rank}")
+    check(gap_param <= DPS_QUAD_PARAM_ATOL, f"train_dp_streams: two ranks' "
+          f"dqtl parameters {gap_param} from one process's on rank "
+          f"{mesh.rank}")
+    control = gaps("shard_loss")
+    check(control[0] > DPS_QUAD_LOSS_ATOL or control[1] > DPS_QUAD_PARAM_ATOL,
+          f"train_dp_streams: a rank's qua_loss on its own shard passes the "
+          f"parity check ({control}): the check cannot see the wrong loss")
+    (l1, c1, p1), (l2, c2, p2) = evals["one_process"], evals["two_ranks"]
+    eval_rel = abs(l1 - l2) / abs(l1)
+    moved = int((c1 - c2).abs().sum() / 2)
+    agree = float((p1 == p2).float().mean())
+    check(int(c2[0].sum()) == n_ev and eval_rel <= 1e-5 and agree >= 0.999
+          and moved <= 5 * n_ev // 1000, f"train_dp_streams: the mesh's quad eval "
+          f"(loss sum {l2} against {l1}, {moved} anchors moved in the five "
+          f"confusions, prediction agreement {agree}) on rank {mesh.rank}")
+    return {"steps": PARITY_STEPS, "batch": TRAIN_BATCH,
+            "padded_batch_real": real, "losses": {
+                k: v[0].tolist() for k, v in out.items()},
+            "loss_max_abs": gap_loss, "loss_atol": DPS_QUAD_LOSS_ATOL,
+            "param_max_abs": gap_param, "param_atol": DPS_QUAD_PARAM_ATOL,
+            "shard_loss_loss_max_abs": control[0],
+            "shard_loss_param_max_abs": control[1],
+            "eval_loss_sum_rel": eval_rel, "eval_confusion_moved": moved,
+            "predict_agreement": agree}
+
+
+class _SummedGan(GanPrograms):
+    """The control of :func:`_dps_gan_parity`: the ranks' gradients
+    summed instead of averaged."""
+
+    def _reduce(self, params, loss):
+        loss = super()._reduce(params, loss)
+        for q in params:
+            q.grad *= self.mesh.data
+        return loss
+
+
+def _gan_tiles(quad, pic: int, n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``n`` (pic, pic, 4) crops of the normalized MS and pan2ms(PAN)
+    streams, row by row from the scene's corner (again from the corner
+    when the scene holds fewer)."""
+    rows, cols = quad[0].shape[0] // pic, quad[0].shape[1] // pic
+    at = [(i // cols % rows * pic, i % cols * pic) for i in range(n)]
+    return tuple(torch.stack([s[r:r + pic, c:c + pic] for r, c in at])
+                 for s in quad[:2])
+
+
+def _gan_nets(cfg, device) -> list:
+    return [build_model(cfg, n).to(device, memory_format=torch.channels_last)
+            for n in ("generator", "generator", "discriminator",
+                      "discriminator")]
+
+
+def _dps_gan_parity(quad, mesh) -> dict:
+    """Three ``GanPrograms`` steps at gan_width 32, f32 (TF32 off), on
+    GAN_PARITY_PIC crops, 4 tiles a step (2 a rank), from seeded weights
+    and the same noise (drawn on the CPU), through the mesh and through
+    one process on the card: the losses within DPS_GAN_LOSS_RTOL, Adam's
+    moments within DPS_GAN_MOMENT_RTOL of the largest, the parameters
+    within Adam's step bound; summing the ranks' gradients must move the
+    moments past their limit."""
+    pic, bs = GAN_PARITY_PIC, 2 * DP_RANKS
+    m, p = (t.reshape(PARITY_STEPS, bs, pic, pic, -1)
+            for t in _gan_tiles(quad, pic, PARITY_STEPS * bs))
+    gen = torch.Generator().manual_seed(CFG["seed"])
+    noise = [tuple(torch.randn(t.shape[1:], generator=gen).to(mesh.device)
+                   for t in (m, p)) for _ in range(PARITY_STEPS)]
+    cfg = load_config(overrides={**CFG, "gan_width": GAN_WIDTH, "precision": {
+        "compute_dtype": "float32"}})
+    lr = float(cfg["dqtl"]["lr"])
+    tf32 = _no_tf32()
+    out = {}
+    for tag, cls, mm in (("one_process", GanPrograms, None),
+                         ("two_ranks", GanPrograms, mesh),
+                         ("summed", _SummedGan, mesh)):
+        prog = cls(*_gan_nets(cfg, mesh.device), cfg, mesh=mm)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        draws = iter(noise)
+        prog.noise = lambda _m, _p: next(draws)
+        r = prog.train_epoch(m, p, "all")
+        opts = (prog.opt_g, prog.opt_d)
+        out[tag] = {
+            "losses": torch.stack([r["d_loss"], r["g_loss"]], 1).cpu(),
+            "fakes": torch.cat([r["fake_pan"].reshape(-1),
+                                r["fake_ms"].reshape(-1)]).cpu(),
+            "params": torch.cat([q.detach().reshape(-1)
+                                 for o in opts for g in o.param_groups
+                                 for q in g["params"]]).cpu(),
+            "moments": torch.cat([o.state[q][k].reshape(-1)
+                                  for o in opts for g in o.param_groups
+                                  for q in g["params"]
+                                  for k in ("exp_avg", "exp_avg_sq")]).cpu()}
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = \
+        tf32
+    one = out["one_process"]
+
+    def gap(tag, key):
+        return float((out[tag][key] - one[key]).abs().max())
+    loss_rel = float(((out["two_ranks"]["losses"] - one["losses"]).abs()
+                      / one["losses"].abs()).max())
+    gaps = {k: gap("two_ranks", k) for k in ("fakes", "params", "moments")}
+    scale = float(one["moments"].abs().max())
+    control = gap("summed", "moments") / scale
+    check(loss_rel <= DPS_GAN_LOSS_RTOL and gaps["moments"]
+          <= DPS_GAN_MOMENT_RTOL * scale
+          and gaps["params"] <= 4 * lr * PARITY_STEPS,
+          f"train_dp_streams: two ranks' GAN steps (losses {loss_rel} "
+          f"relative, {gaps}, moments up to {scale}) from one process's on "
+          f"rank {mesh.rank}")
+    check(control > DPS_GAN_MOMENT_RTOL, f"train_dp_streams: summed GAN "
+          f"gradients pass the parity check (moments {control} of the "
+          "largest apart)")
+    return {"gan_width": GAN_WIDTH, "pic": pic, "batch": bs,
+            "steps": PARITY_STEPS,
+            "losses_d_g": {k: v["losses"].tolist() for k, v in out.items()},
+            "loss_max_rel": loss_rel, "loss_rtol": DPS_GAN_LOSS_RTOL,
+            "fakes_max_abs": gaps["fakes"], "param_max_abs": gaps["params"],
+            "param_bound": 4 * lr * PARITY_STEPS,
+            "moments_max_abs": gaps["moments"], "moments_max": scale,
+            "moment_rtol": DPS_GAN_MOMENT_RTOL,
+            "summed_moments_max_rel": control}
+
+
+def _dps_steps(scene, mspan, quad, mesh) -> dict:
+    """The runs' steps on this rank, at the config's widths and bf16: a tri
+    step (tri_net w64, Adam, 128 rows of each batch of 256; 3 B1 launches),
+    a quad step (dqtl w64, qua_loss on the batch's logits rebuilt from the
+    ranks'; 4 launches), a GAN step (gan_width 32, pic 128, 2 tiles of
+    each batch of 4): DPS_STEPS (the GAN: DPS_GAN_STEPS) timed after 3,
+    and a profile of DPS_PROFILE_STEPS (3) on rank 0."""
+    from dmfusion_torch.train.optim import make_optimizer
+    labeled, _ = split_labels(scene.label)
+    out = {}
+    n = 3 + DPS_STEPS + DPS_PROFILE_STEPS
+    rng = np.random.default_rng(6)
+    for fam, cls, name, args in (("tri", TriPrograms, "tri_net",
+                                  (scene.ms, scene.pan, mspan)),
+                                 ("quad", QuadPrograms, "dqtl", quad)):
+        cfg = load_config(overrides={**CFG, "model_name": name})
+        chunks = rng.choice(labeled, n * TRAIN_BATCH, replace=False).astype(
+            np.int32).reshape(n, TRAIN_BATCH)
+        batches = [torch.from_numpy(a).to(mesh.device) for a in (
+            chunks, scene.label.reshape(-1)[chunks].astype(np.int32),
+            np.ones(chunks.shape, np.float32))]
+        model = build_model(cfg).to(mesh.device,
+                                    memory_format=torch.channels_last)
+        prog = cls(model, make_optimizer(cfg, model.parameters(), n), cfg,
+                   scene.width, scene.patch, mesh=mesh)
+        prog.init(torch.Generator().manual_seed(cfg["seed"]))
+        before = gather_ops.gather_windows_cuda.launches
+
+        def run(i0, i1, prog=prog, args=args, batches=batches):
+            losses = prog.train_epoch(args, *(t[i0:i1] for t in batches))
+            check(bool(torch.isfinite(losses).all()),
+                  f"train_dp_streams: non-finite {fam} loss")
+        out[fam] = _rank_timing(mesh, run, DPS_STEPS, DPS_PROFILE_STEPS)
+        out[fam]["b1_launches_a_step"] = (
+            gather_ops.gather_windows_cuda.launches - before) / n
+        check(out[fam]["b1_launches_a_step"] == len(args),
+              f"train_dp_streams: {out[fam]['b1_launches_a_step']} B1 "
+              f"launches a {fam} step")
+        out[fam]["rank_batch"] = mesh.per_rank(TRAIN_BATCH)
+        del prog, model
+    cfg = load_config(overrides={**CFG, "gan_width": GAN_WIDTH})
+    steps = 3 + DPS_GAN_STEPS + 3
+    m, p = (t.reshape(steps, GAN_BATCH, GAN_PIC, GAN_PIC, -1)
+            for t in _gan_tiles(quad, GAN_PIC, steps * GAN_BATCH))
+    gans = GanPrograms(*_gan_nets(cfg, mesh.device), cfg, mesh=mesh)
+    gans.init(torch.Generator().manual_seed(cfg["seed"]))
+
+    def run_gan(i0, i1):
+        r = gans.train_epoch(m[i0:i1], p[i0:i1], "none")
+        check(bool(torch.isfinite(r["g_loss"]).all()),
+              "train_dp_streams: non-finite GAN loss")
+    out["gan"] = _rank_timing(mesh, run_gan, DPS_GAN_STEPS, 3)
+    out["gan"]["rank_batch"] = GAN_BATCH // mesh.data
+    return out
+
+
+def _dps_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of phase train_dp_streams' spawned ranks: join the group, build
+    the image6 scene, MSPAN (the same bits on every rank, by digest) and
+    the four quad streams over seeded stage-1 stand-ins, and write what
+    :func:`_dps_gather`, :func:`_dps_quad_parity`, :func:`_dps_gan_parity`
+    and :func:`_dps_steps` found to ``rank{r}.json``."""
+    _dp_env(rank, port)
+    cfg = load_config(overrides={**CFG, "mesh": {"distributed": 1}})
+    check(parallel.maybe_initialize_distributed(cfg),
+          "train_dp_streams: the rank did not join")
+    try:
+        mesh = parallel.get_mesh(cfg)
+        check(mesh is not None and mesh.data == DP_RANKS
+              and mesh.rank == rank and mesh.backend == "gloo"
+              and mesh.device == torch.device("cuda", 0),
+              f"train_dp_streams: rank {rank}'s mesh {mesh}")
+        scene = synthetic_scene(load_config(overrides=CFG),
+                                device=mesh.device)
+        mspan = mspan_scene(scene, CFG["seed"])
+        digests = mesh.rows(_digest(mspan)[None])
+        check(bool((digests == digests[0]).all()),
+              f"train_dp_streams: the ranks' MSPAN differ ({digests})")
+        quad = quad_streams(scene, *gan_scenes(scene), mesh.device)
+        result = {"rank": rank, "device": str(mesh.device),
+                  "backend": mesh.backend,
+                  "mspan_digest": digests[0].tolist(),
+                  "gather": _dps_gather(scene, mspan, quad, mesh),
+                  "quad_parity": _dps_quad_parity(scene, quad, mesh),
+                  "gan_parity": _dps_gan_parity(quad, mesh),
+                  "steps": _dps_steps(scene, mspan, quad, mesh)}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        parallel.shutdown()
+
+
+def _dps_split(args: list[str]):
+    """The split the CLI run of ``args`` (``--set`` overrides last) draws."""
+    from dmfusion_torch.config import parse_overrides
+    from dmfusion_torch.solvers import BaseSolver
+    sets = args[args.index("--set") + 1:]
+    cfg = load_config(overrides=parse_overrides(sets))
+    base = BaseSolver({**cfg, "RESULT_output": tempfile.gettempdir()})
+    base.dataloader()
+    return cfg, base.split
+
+
+def _dps_reports(run: dict, solver: str, k: int, batches: dict) -> int:
+    """Each rank's report: on ``cuda:0`` over gloo, the solver, and B1
+    launched ``k`` times a gathered batch; returns both ranks' launches."""
+    reports = run["reports"]
+    check([r["rank"] for r in reports] == list(range(DP_RANKS)),
+          f"train_dp_streams: rank reports {reports}")
+    want = k * sum(batches.values())
+    for r in reports:
+        check(r["device"] == "cuda:0" and r["backend"] == "gloo"
+              and r["world"] == r["mesh_data"] == DP_RANKS
+              and r["solver"] == solver,
+              f"train_dp_streams: rank {r['rank']} ran on {r}")
+        check(r["gather_windows_launches"] == want,
+              f"train_dp_streams: {solver} rank {r['rank']} launched B1 "
+              f"{r['gather_windows_launches']} times, the split sizes give "
+              f"{want} ({k} x {batches})")
+    return sum(r["gather_windows_launches"] for r in reports)
+
+
+def _listing(path: str, want: list[str], what: str) -> None:
+    got = sorted(os.listdir(path))
+    check(got == sorted(want), f"train_dp_streams: {what} {got}")
+
+
+def _dps_tri_run(tmp: str) -> dict:
+    """tri_net trained, tested and colored by two ranks through torchrun:
+    one result tree, finite records, a test matrix of the test split with
+    OA >= 0.5, and 3 B1 launches a gathered batch on each rank."""
+    run = _dp_cli(tmp, DPS_TRI_SET, "train_dp_streams", DPS_TIMEOUT)
+    cfg, split = _dps_split(DPS_TRI_SET)
+    name = f"image6_tr{cfg['train_rate']}_ep1_bs{TRAIN_BATCH}"
+    _listing(tmp, [name], "tri result tree")
+    root = os.path.join(tmp, name)
+    _listing(root, ["tri_net__0_output", "tri_net__0_result.xlsx"],
+             "tri run")
+    out = os.path.join(root, "tri_net__0_output")
+    _listing(out, ["0_curweights.pt", "0_matrix.npy", "0_pic_1.png",
+                   "0_pic_2.png", "0_records.json", "0_weights.pt"],
+             "tri output")
+    with open(os.path.join(out, "0_records.json")) as f:
+        rec = json.load(f)
+    check(rec["Epoch"] == [0] and all(np.isfinite(rec["Loss"]
+                                                  + rec["ValLoss"])),
+          f"train_dp_streams: tri records {rec}")
+    matrix = np.load(os.path.join(out, "0_matrix.npy"))
+    check(int(matrix.sum()) == len(split.test),
+          "train_dp_streams: the tri test matrix does not sum to the split")
+    aa, oa, kap, _ = aa_oa(matrix)
+    check(oa >= 0.5, f"train_dp_streams: tri test OA {oa} < 0.5")
+    batches = {"train": -(-len(split.train) // TRAIN_BATCH),
+               "val": -(-len(split.valid) // EVAL_BATCH),
+               "test": -(-len(split.test) // EVAL_BATCH),
+               "color": -(-len(split.labeled) // EVAL_BATCH)}
+    b1 = _dps_reports(run, "main", 3, batches)
+    test_s = max(r["test_s"] for r in run["reports"])
+    return {"run_s": run["run_s"], "epoch_s": rec["EpochTime"],
+            "loss": rec["Loss"], "val_loss": rec["ValLoss"],
+            "val_oa": rec["ValOA"], "test_oa": oa, "test_aa": aa,
+            "test_kappa": kap, "test_s": test_s,
+            "test_anchors_per_s": len(split.test) / test_s,
+            "color_s": max(r["color_s"] for r in run["reports"]),
+            "gather_batches_per_rank": batches,
+            "b1_launches_per_rank": 3 * sum(batches.values()),
+            "b1_launches": b1, "joined": run["joined"],
+            "reports": run["reports"]}
+
+
+def _dps_twostage_run(tmp: str) -> dict:
+    """Both stages of the two-stage solver by two ranks through torchrun:
+    one result tree and one weights dir; the GAN scenes of the scene's
+    shape, finite in [0, 1]; finite records; a fused test matrix of the
+    test split; the MS stream's OA >= 0.5; 4 B1 launches a gathered batch
+    of stage 2 on each rank."""
+    from dmfusion_torch.report.excel import Workbook
+    run = _dp_cli(tmp, DPS_TWOSTAGE_SET, "train_dp_streams", DPS_TIMEOUT)
+    cfg, split = _dps_split(DPS_TWOSTAGE_SET)
+    epochs = DPS_STAGE2_EPOCHS
+    name = f"image6_tr{cfg['train_rate']}_ep{epochs}_bs{TRAIN_BATCH}"
+    wname = cfg["dqtl"]["WEIGHTS"].strip("/")
+    _listing(tmp, [name, wname], "two-stage result tree")
+    root = os.path.join(tmp, name)
+    _listing(root, ["dqtl__0_output", "dqtl__0_result.xlsx"],
+             "two-stage run")
+    out = os.path.join(root, "dqtl__0_output")
+    _listing(out, ["0_curweights.pt", "0_matrix.npy", "0_records.json",
+                   "0_weights.pt"], "two-stage output")
+    wdir = os.path.join(tmp, wname)
+    d = cfg["dqtl"]
+    _listing(wdir, [d[k] for k in ("check_gH", "check_gZ", "check_dH",
+                                   "check_dZ")]
+             + ["fake_ms.png", "fake_pan.png", "msgan.npy", "pan.npy",
+                "pangan.npy", "saved_images"], "weights dir")
+    _listing(os.path.join(wdir, "saved_images"),
+             ["f_m_0.png", "f_p_0.png", "m.png", "p.png"], "sample grids")
+    size = (2001, 2101, 4)
+    for f in ("msgan.npy", "pangan.npy"):
+        arr = np.load(os.path.join(wdir, f))
+        check(arr.shape == size and arr.dtype == np.float32
+              and bool(np.isfinite(arr).all()) and 0 <= arr.min()
+              and arr.max() <= 1, f"train_dp_streams: {f} {arr.shape} "
+              f"{arr.dtype} [{arr.min()}, {arr.max()}]")
+    with open(os.path.join(out, "0_records.json")) as f:
+        rec = json.load(f)
+    check(rec["Epoch"] == list(range(epochs))
+          and all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
+          f"train_dp_streams: two-stage records {rec}")
+    matrix = np.load(os.path.join(out, "0_matrix.npy"))
+    check(int(matrix.sum()) == len(split.test), "train_dp_streams: the "
+          "fused test matrix does not sum to the split")
+    aa, oa, kap, _ = aa_oa(matrix)
+    sheet = Workbook.load(os.path.join(root, "dqtl__0_result.xlsx"))[
+        "streams"]
+    streams = {sheet.cell(2 + i, 1): float(sheet.cell(2 + i, 2))
+               for i in range(4)}
+    check(list(streams) == ["MS", "PAN", "GM", "GP"]
+          and streams["MS"] >= 0.5, f"train_dp_streams: stream OAs "
+          f"{streams}")
+    batches = {"train": len(split.train) // TRAIN_BATCH * epochs,
+               "val": -(-len(split.valid) // EVAL_BATCH) * epochs,
+               "test": -(-len(split.test) // EVAL_BATCH)}
+    b1 = _dps_reports(run, "twostage", 4, batches)
+    for r in run["reports"]:
+        check(r["stage1_epochs"] == DPS_GAN_EPOCHS and r["stage1_s"] > 0,
+              f"train_dp_streams: rank {r['rank']}'s stage 1 {r}")
+    test_s = max(r["test_s"] for r in run["reports"])
+    return {"run_s": run["run_s"],
+            "stage1_s": max(r["stage1_s"] for r in run["reports"]),
+            "stage1_epochs": DPS_GAN_EPOCHS, "stage2_epochs": epochs,
+            "epoch_s": rec["EpochTime"],
+            "loss": rec["Loss"], "val_loss": rec["ValLoss"],
+            "val_oa": rec["ValOA"], "test_oa": oa, "test_aa": aa,
+            "test_kappa": kap, "stream_oa": streams, "test_s": test_s,
+            "test_anchors_per_s": len(split.test) / test_s,
+            "gather_batches_per_rank": batches,
+            "b1_launches_per_rank": 4 * sum(batches.values()),
+            "b1_launches": b1, "reports": run["reports"]}
+
+
+def phase_train_dp_streams() -> tuple[int, dict]:
+    """The tri and quad arities and stage 1 on the data axis: two ranks on
+    ``cuda:0`` over gloo.  Spawned ranks hold the tri and quad shard
+    gathers, the quad and GAN parity with one process (and their
+    controls) and the step times; then tri_net, and both stages of the
+    two-stage solver, are trained and tested by ``torchrun`` through the
+    CLI.  Returns B1's launches in the two CLI runs (both ranks) and the
+    wrappers' times on rank 0."""
+    log(f"train_dp_streams: {DP_RANKS} ranks share one card ({card_line()}) "
+        "over gloo: NCCL takes one rank a device.  These numbers hold the "
+        "paths' correctness and say nothing of scaling across cards.")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_dp_streams_")
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_dps_rank, tmp, "train_dp_streams", DPS_TIMEOUT)
+        ranks_s = time.perf_counter() - t0
+        for r in ranks:
+            g = r["gather"]
+            log(f"train_dp_streams: rank {r['rank']} on {r['device']} over "
+                f"{r['backend']}: tri and quad shard gathers bit-equal "
+                f"({', '.join(g['cases'])}, f32 and bf16); "
+                f"{json.dumps({k: g[k] for k in ('tri', 'quad')})}")
+        runs = {}
+        for tag, fn in (("tri", _dps_tri_run), ("twostage", _dps_twostage_run)):
+            d = os.path.join(tmp, tag)
+            os.makedirs(d)
+            for spec in KERNELS.values():
+                spec["counter"].launches = 0
+            runs[tag] = fn(d)
+            launches = {n: spec["counter"].launches
+                        for n, spec in KERNELS.items()}
+            check(not any(launches.values()),
+                  f"train_dp_streams: the parent launched {launches}")
+            log(f"train_dp_streams: the {tag} run under torchrun took "
+                f"{runs[tag]['run_s']:.2f} s, test OA "
+                f"{runs[tag]['test_oa']:.4f}, B1 "
+                f"{runs[tag]['b1_launches_per_rank']} launches a rank")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    b1 = sum(r["b1_launches"] for r in runs.values())
+    result = {
+        "ranks": DP_RANKS, "card": card_line(), "backend": "gloo",
+        "ranks_s": ranks_s, "mspan_digest": ranks[0]["mspan_digest"],
+        "gather": {r["rank"]: r["gather"] for r in ranks},
+        "quad_parity": ranks[0]["quad_parity"],
+        "gan_parity": ranks[0]["gan_parity"],
+        "steps": {r["rank"]: r["steps"] for r in ranks},
+        "tri_run": runs["tri"], "twostage_run": runs["twostage"],
+        "b1_launches": b1, "phase_s": time.perf_counter() - t_phase}
+    log(f"train_dp_streams: {json.dumps(result)}")
+    g = ranks[0]["gather"]
+    return b1, {"max_abs_err": max(r["gather"]["max_abs_err"]
+                                   for r in ranks),
+                **{k: g[k] for k in ("tri", "quad")}}
 
 
 def _dense_crop(scene, rows: int):
@@ -2641,7 +3337,6 @@ def _gan_parity(tiles_m, tiles_p, device) -> dict:
     ``GAN_PARITY_BATCH`` stage-1 tiles a step cropped to
     ``GAN_PARITY_PIC``: f32 on the CPU and on the card (TF32 off), bf16 on
     the card; the d and g losses of each step."""
-    from dmfusion_torch.train.gan import GanPrograms
     pic, bs = GAN_PARITY_PIC, GAN_PARITY_BATCH
     m = tiles_m[:PARITY_STEPS * bs, :pic, :pic].reshape(
         PARITY_STEPS, bs, pic, pic, -1).cpu()
@@ -2733,8 +3428,8 @@ def phase_train_gan(scene, device) -> int:
               and not d["pre_trained"]
               and all(p.is_cuda for p in gans._g_params)
               and gans.nets["gP"].compute_dtype == torch.bfloat16,
-              "train_gan: not stage 1 at gan_width 32, pic 128, batch 4, 10 "
-              "epochs, bf16, on the card")
+              f"train_gan: not stage 1 at gan_width 32, pic 128, batch 4, "
+              f"{GAN_EPOCHS} epochs, bf16, on the card")
         check(len(s1["epoch_s"]) == GAN_EPOCHS
               and all(len(x) == GAN_STEPS for x in s1["d_loss"])
               and bool(np.isfinite(s1["d_loss"] + s1["g_loss"]).all()),
@@ -2882,7 +3577,7 @@ def phase_train_gan(scene, device) -> int:
             "stage1_scenes_s": s1["scenes_s"],
             "stage1_epoch_s": s1["epoch_s"],
             "stage1_epoch0_s": s1["epoch_s"][0],
-            "stage1_epoch1_9_mean_s": statistics.mean(s1["epoch_s"][1:]),
+            "stage1_epoch1_on_mean_s": statistics.mean(s1["epoch_s"][1:]),
             "stage1_last_d_g": [s1["d_loss"][-1][-1], s1["g_loss"][-1][-1]],
             "gan_steps": GAN_PROFILE_STEPS, "gan_steps_s": gan_steps_s,
             "gan_step_ms": gan_steps_s / GAN_PROFILE_STEPS * 1e3,
@@ -3326,6 +4021,8 @@ def main() -> None:
     by_path["train"] = phase_train(scene, device)
     by_path["train_dp"], timings["gather_windows"]["sharded"] = \
         phase_train_dp()
+    by_path["train_dp_streams"], timings["gather_windows"][
+        "sharded_streams"] = phase_train_dp_streams()
     pool_by_path = {"dense": launches["phase_pool"],
                     "train_dense": phase_train_dense(scene, device)}
     launches["phase_pool"] = sum(pool_by_path.values())
@@ -3361,7 +4058,7 @@ def main() -> None:
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "unit": spec["unit"],
                      **({k: t[k] for k in ("one", "patch47", "tri", "quad",
-                                           "sharded")}
+                                           "sharded", "sharded_streams")}
                         if name == "gather_windows" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)

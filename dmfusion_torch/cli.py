@@ -19,9 +19,11 @@ Data-parallel ranks (the mesh's ``data`` axis, ``parallel/mesh.py``):
 (or ``python -m torch.distributed.run``).  The process group comes up
 before the solver exists, which allocates the run slot (under a mesh
 rank 0 allocates it and the others receive it), and goes down at the
-end, also on an error.  Each rank prints its backend and device when it joins, and one
-``[dmfusion] rank report {...}`` JSON line at the end: its rank, device,
-backend, the window kernel's launches and the phases' seconds.
+end, also on an error.  Each rank prints its backend and device when it
+joins, and one ``[dmfusion] rank report {...}`` JSON line at the end: its
+rank, device, backend, the solver, the window kernel's launches and the
+phases' seconds (with ``--solver twostage`` also stage 1's epochs and
+seconds, 0 when ``dqtl.pre_trained`` skips it).
 """
 
 from __future__ import annotations
@@ -78,15 +80,21 @@ def _report(solver) -> None:
 
     from dmfusion_torch.ops.gather import gather_windows_cuda
     mesh = solver.mesh
-    print("[dmfusion] rank report " + json.dumps({
+    report = {
         "rank": torch.distributed.get_rank(),
         "world": torch.distributed.get_world_size(),
         "device": str(solver.device),
         "backend": str(torch.distributed.get_backend()),
         "mesh_data": mesh.data if mesh is not None else 1,
+        "solver": solver.cfg.get("solver", "main"),
         "gather_windows_launches": gather_windows_cuda.launches,
         "train_s": solver.train_time, "test_s": solver.test_time,
-        "color_s": getattr(solver, "color_time", 0.0)}), flush=True)
+        "color_s": getattr(solver, "color_time", 0.0)}
+    stage1 = getattr(solver, "stage1_log", None)
+    if stage1 is not None:
+        report.update(stage1_epochs=len(stage1.get("epoch_s", [])),
+                      stage1_s=stage1.get("stage1_s", 0.0))
+    print("[dmfusion] rank report " + json.dumps(report), flush=True)
 
 
 if __name__ == "__main__":

@@ -13,7 +13,12 @@ then the start is clamped so the window fits.  :func:`gather_windows`
 picks the plain version for a CPU tensor and the kernel for a CUDA
 tensor; there is no fallback from the kernel.  The wrappers over it
 follow dmfusion's: one stream, dual (MS and PAN), tri, quad, and the
-mesh's sharded dual gather (:func:`gather_dual_sharded`).
+mesh's sharded dual gather (:func:`gather_dual_sharded`).  Under a mesh
+the training programs gather a rank's shard, ``mesh.shard(ids)``, with
+the family's own wrapper: tri and quad have no sharded function, as
+dmfusion has none (it gathers them with the XLA gather under a mesh; the
+card's kernel takes any shard, so here every rank's batch is 3 or 4
+launches).
 """
 
 from __future__ import annotations

@@ -7,7 +7,10 @@ every rank holds the scene, the weights and the same seeded ``(steps, B)``
 id, label and mask arrays, gathers and runs its contiguous shard of each
 batch, and the collectives are explicit (:class:`Mesh`'s methods).  A step
 sums the ranks' gradients, so it equals one step on the whole batch, as
-dmfusion's does.
+dmfusion's does: a row-wise loss divides by the whole batch's count, and a
+batch-level loss (dqtl's ``qua_loss``) runs on the whole batch's rows
+rebuilt on every rank (:meth:`Mesh.batch_rows`).  The GAN's equal shards
+average their gradients instead (:meth:`Mesh.mean_all_`).
 
 What has no counterpart: ``batch_sharding``, ``replicate`` and
 ``shard_batch`` place arrays and constrain shardings inside jitted
@@ -15,7 +18,8 @@ code, and eager torch has no sharding constraint; a rank simply holds its
 rows (:meth:`Mesh.shard`).  ``make_global_batches`` assembles one global
 array from every process's copy; here every rank keeps the global arrays
 and takes its rows.  The ``model`` axis (Megatron splits,
-``dmfusion/parallel/partition.py``) is not ported (:data:`A14_ITEMS`).
+``dmfusion/parallel/partition.py``) is not ported, nor are the dense and
+conv-map routes under a mesh (:data:`A14_ITEMS`).
 
 Shards: a batch of ``b`` rows gives every rank ``ceil(b / world)`` rows,
 contiguous and in rank order; the rows past ``b`` (on the last ranks)
@@ -41,8 +45,6 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 
 #: What still waits under a mesh, by the ROADMAP A14 item that ports it.
 A14_ITEMS = {
-    "tri_quad": "ROADMAP A14 item 1: the tri and quad arities under a mesh",
-    "gan": "ROADMAP A14 item 2: stage-1 GAN data parallelism",
     "dense": "ROADMAP A14 item 3: dense bands with halos",
     "convmap": "ROADMAP A14 item 4: the gmfnet_conv banded map",
     "batchnorm": "ROADMAP A14 item 5: SyncBatchNorm",
@@ -195,6 +197,15 @@ class Mesh:
         collective (a step's gradients)."""
         self._flat(list(tensors), self.sum_)
 
+    def mean_all_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Average same-dtype tensors over the ranks in place, as one flat
+        collective (the GAN's gradients and losses: the mean of the ranks'
+        equal shards' means is the whole batch's mean)."""
+        def mean(flat):
+            dist.all_reduce(flat)
+            flat /= self.data
+        self._flat(list(tensors), mean)
+
     def broadcast_all_(self, tensors: Iterable[torch.Tensor]) -> None:
         """Overwrite same-dtype tensors with rank 0's, as one collective."""
         self._flat(list(tensors), lambda flat: dist.broadcast(flat, 0))
@@ -219,6 +230,20 @@ class Mesh:
             or dist.all_gather_into_tensor
         gather(out, t.contiguous())
         return out
+
+    def batch_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
+        """A batch of ``b`` rows rebuilt on every rank, in batch order, from
+        the ranks' shards ``t`` (``per_rank(b)`` rows each): this rank's
+        rows are ``t`` itself, with its graph, every other rank's are
+        detached copies, and the padding past ``b`` is trimmed.  A loss of
+        the whole batch then sends a gradient into this rank's rows alone,
+        so the ranks' summed parameter gradients are the whole batch's
+        (``torch.distributed.nn``'s ``all_gather`` would reduce every
+        rank's gradient into each rank's rows: ``data`` times too much)."""
+        per = t.shape[0]
+        every = self.rows(t.detach())
+        lo = self.rank * per
+        return torch.cat([every[:lo], t, every[lo + per:]])[:b]
 
     def broadcast(self, obj: Any) -> Any:
         """Rank 0's ``obj`` (any picklable value) on every rank."""

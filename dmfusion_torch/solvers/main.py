@@ -47,14 +47,14 @@ single arity and ``visualize`` are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Under a mesh (``torchrun``, ``mesh.distributed``; ``solvers/base.py``)
-the dual arity trains, validates, tests and colors on every rank through
-``DualPrograms``' mesh route: the val loss and every confusion and class
-map are the whole batch's on every rank, so every rank keeps the same
-best parameters.  Rank 0 alone writes; a checkpoint that a phase reads
-back (``train.resume``, a test- or color-only run) is read by rank 0 and
-broadcast.  The tri and dense arities, gmfnet_conv's map route and models
-with BatchNorm raise ``NotImplementedError`` naming their ROADMAP A14
-item.
+the dual and tri arities train, validate, test and color on every rank
+through the programs' mesh route (``DualPrograms``, ``TriPrograms``): the
+val loss and every confusion and class map are the whole batch's on every
+rank, so every rank keeps the same best parameters.  Rank 0 alone writes;
+a checkpoint that a phase reads back (``train.resume``, a test- or
+color-only run) is read by rank 0 and broadcast.  The dense arity,
+gmfnet_conv's map route and models with BatchNorm raise
+``NotImplementedError`` naming their ROADMAP A14 item.
 """
 
 from __future__ import annotations
@@ -236,9 +236,9 @@ class Solver(BaseSolver):
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "
                 f"training {_UNPORTED_ARITY[arity]}")
         if self.mesh is not None:
-            if arity != "dual":
+            if arity == "dense":
                 raise unported(f"{cfg['model_name']!r} (arity {arity!r})",
-                               "tri_quad" if arity == "tri" else "dense")
+                               "dense")
             if model_map_programs(cfg["model_name"]) == "convmap":
                 raise unported(f"{cfg['model_name']!r}'s map route",
                                "convmap")

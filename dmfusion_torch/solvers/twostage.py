@@ -25,6 +25,17 @@ sheet); color predicts by the fused rule.
 of one ``expo_result``, so each is checked: a ``pan.npy`` of another
 shape is recomputed, msgan/pangan of another shape are refused, and a GAN
 checkpoint's stamp must match the run's (``_gan_meta``).
+
+Under a mesh (``torchrun``, ``mesh.distributed``) both stages run on every
+rank, as dmfusion's do on its mesh: stage 1 rounds ``dqtl.batch_size`` up
+to a multiple of the ranks (``dmfusion/solvers/twostage.py:138-142``) and
+trains ``GanPrograms`` on each rank's shard of every tile batch; every
+rank rebuilds msgan and pangan from the gathered fakes, since stage 2
+needs them; stage 2 trains ``QuadPrograms`` on each rank's shard.  Rank 0
+alone touches the weights dir: the ``pan.npy`` cache, the GAN checkpoints
+(read and broadcast under ``dqtl.load_model``), msgan/pangan, their
+renders and sample grids; and, as in the main solver, the result tree, the
+workbook and its ``streams`` sheet.  ``proof`` keeps its refusal.
 """
 
 from __future__ import annotations
@@ -42,7 +53,7 @@ from dmfusion_torch.ops.ihs import pan2ms
 from dmfusion_torch.ops.image import (render_tensor, scene_to_tiles,
                                       tiles_to_scene)
 from dmfusion_torch.ops.metrics import per_stream_results
-from dmfusion_torch.parallel import A14_ITEMS, get_mesh
+from dmfusion_torch.parallel import check_model
 from dmfusion_torch.report.excel import expo_stream_results
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import save_image_grid
@@ -61,14 +72,6 @@ class TwoStageSolver(Solver):
     TRIM_TRAIN = True
 
     def __init__(self, cfg):
-        if get_mesh(cfg) is not None:
-            raise NotImplementedError(
-                "the two-stage solver under a mesh is not ported to "
-                f"dmfusion_torch yet ({A14_ITEMS['tri_quad']}; "
-                f"{A14_ITEMS['gan']}): stage 2 trains the quad arity, and "
-                "stage 1's data parallelism (dmfusion/solvers/twostage.py:"
-                "138-141, train/gan.py:95-105) waits for both; run it on "
-                "one rank")
         super().__init__(cfg)
         self.ms_gan: np.ndarray | None = None
         self.pan_gan: np.ndarray | None = None
@@ -77,14 +80,15 @@ class TwoStageSolver(Solver):
         #: Stage 1's noise draw; None draws from a generator seeded with
         #: ``seed + 1`` on the run's device (the tests inject JAX's draws).
         self.gan_noise: NoiseFn | None = None
-        #: Stage 1's per-epoch losses and its times (s).
+        #: Stage 1's per-epoch losses, its batch and its times (s).
         self.stage1_log: dict[str, list | float] = {}
         self._stage2_ready = False
 
     # -- artifact paths ----------------------------------------------------
     def _weights_dir(self) -> str:
         d = os.path.join(self.cfg["expo_result"], self.cfg["dqtl"]["WEIGHTS"])
-        os.makedirs(d, exist_ok=True)
+        if self.is_main:
+            os.makedirs(d, exist_ok=True)
         return d
 
     def _gan_ckpt(self, which: str) -> str:
@@ -111,19 +115,24 @@ class TwoStageSolver(Solver):
         size = (s.height, s.width, int(s.raw_ms.shape[-1]))
         pan_npy = os.path.join(cfg["data_address"] or self._weights_dir(),
                                "pan.npy")
-        pms = None
-        if os.path.exists(pan_npy):
-            pms = np.load(pan_npy)
-            if pms.shape != size:
-                # A cache of another city or geometry: the weights dir is
-                # not keyed by city.
-                print(f"[stage1] ignoring stale pan.npy cache "
-                      f"{pms.shape} != {size}")
-                pms = None
-        if pms is None:
-            pan = torch.from_numpy(np.asarray(s.raw_pan, np.float32))
-            pms = pan2ms(pan.to(self.device), size).cpu().numpy()
-            np.save(pan_npy, pms)
+
+        def cached() -> np.ndarray:
+            pms = None
+            if os.path.exists(pan_npy):
+                pms = np.load(pan_npy)
+                if pms.shape != size:
+                    # A cache of another city or geometry: the weights dir
+                    # is not keyed by city.
+                    print(f"[stage1] ignoring stale pan.npy cache "
+                          f"{pms.shape} != {size}")
+                    pms = None
+            if pms is None:
+                pan = torch.from_numpy(np.asarray(s.raw_pan, np.float32))
+                pms = pan2ms(pan.to(self.device), size).cpu().numpy()
+                np.save(pan_npy, pms)
+            return pms
+
+        pms = self._on_main(cached)
 
         def norm(x: np.ndarray) -> np.ndarray:
             return minmax_normalize(torch.from_numpy(
@@ -146,26 +155,38 @@ class TwoStageSolver(Solver):
                 net = net.to(self.device, memory_format=torch.channels_last)
             nets[which] = net
         self.gan_programs = GanPrograms(nets["gP"], nets["gM"], nets["dP"],
-                                        nets["dM"], cfg, noise=self.gan_noise)
+                                        nets["dM"], cfg, noise=self.gan_noise,
+                                        mesh=self.mesh)
         self.gan_programs.init(torch.Generator().manual_seed(int(cfg["seed"])))
         if d.get("load_model"):
             for which, net in nets.items():
                 path = self._gan_ckpt(which)
-                if os.path.exists(path):
-                    net.load_state_dict(load_checkpoint(
+
+                def read(path=path, which=which, net=net):
+                    if not os.path.exists(path):
+                        return None
+                    return load_checkpoint(
                         path, net.state_dict(), expect=self._gan_meta(which),
-                        lenient=self._ckpt_lenient()))
+                        lenient=self._ckpt_lenient())
+                state = self._on_main(read)
+                if state is not None:
+                    net.load_state_dict(state)
 
     def train_stage1(self) -> None:
         """Train the GAN quartet for ``dqtl.epochs`` on the scene's tiles,
         save it under ``dqtl.save_model``, and write msgan.npy and
-        pangan.npy (and their renders) from the last epoch's fakes."""
+        pangan.npy (and their renders) from the last epoch's fakes.  Under
+        a mesh the batch is ``dqtl.batch_size`` rounded up to a multiple of
+        the ranks."""
         cfg = self.cfg
         d = cfg["dqtl"]
         log = self.stage1_log = {"epoch_s": [], "d_loss": [], "g_loss": []}
-        t0 = self.now()
+        t_start = t0 = self.now()
         ms_tiles, pan_tiles, rows, cols = self._stage1_tiles()
         bs = int(d["batch_size"])
+        if self.mesh is not None:
+            bs = -(-bs // self.mesh.data) * self.mesh.data
+        log["batch"] = bs
         n = ms_tiles.shape[0]
         steps = -(-n // bs)
         # Pad the tile list by wrapping so that every batch is full; the
@@ -198,13 +219,13 @@ class TwoStageSolver(Solver):
             log["g_loss"].append(g_loss)
             if collect == "all":
                 last = out
-            if sample:
+            if sample and self.is_main:
                 self._save_gan_samples(epoch, out, m_b, p_b)
-            if not cfg.get("nohup"):
+            if not cfg.get("nohup") and self.is_main:
                 print(f"[stage1] epoch {epoch} d_loss {d_loss[-1]:.4f} "
                       f"g_loss {g_loss[-1]:.4f}")
         t0 = self.now()
-        if d.get("save_model"):
+        if d.get("save_model") and self.is_main:
             for which, net in self.gan_programs.nets.items():
                 save_checkpoint(self._gan_ckpt(which), net.state_dict(),
                                 meta=self._gan_meta(which))
@@ -215,16 +236,18 @@ class TwoStageSolver(Solver):
                   .cpu().numpy() for k in ("fake_pan", "fake_ms"))
         self.ms_gan = tiles_to_scene(fp, rows, cols, size)
         self.pan_gan = tiles_to_scene(fm, rows, cols, size)
-        wdir = self._weights_dir()
-        np.save(os.path.join(wdir, "msgan.npy"), self.ms_gan)
-        np.save(os.path.join(wdir, "pangan.npy"), self.pan_gan)
-        # Whole-scene renders of the fakes (reference tostagesolver.py:
-        # 228-231).
-        for name, arr in (("fake_ms.png", self.ms_gan),
-                          ("fake_pan.png", self.pan_gan)):
-            write_png(os.path.join(wdir, name),
-                      render_tensor(arr.transpose(2, 0, 1)))
+        if self.is_main:
+            wdir = self._weights_dir()
+            np.save(os.path.join(wdir, "msgan.npy"), self.ms_gan)
+            np.save(os.path.join(wdir, "pangan.npy"), self.pan_gan)
+            # Whole-scene renders of the fakes (reference
+            # tostagesolver.py:228-231).
+            for name, arr in (("fake_ms.png", self.ms_gan),
+                              ("fake_pan.png", self.pan_gan)):
+                write_png(os.path.join(wdir, name),
+                          render_tensor(arr.transpose(2, 0, 1)))
         log["scenes_s"] = self.now() - t0
+        log["stage1_s"] = self.now() - t_start
 
     def _save_gan_samples(self, epoch: int, out: dict, m_b: torch.Tensor,
                           p_b: torch.Tensor) -> None:
@@ -276,6 +299,8 @@ class TwoStageSolver(Solver):
         model = build_model(cfg)
         if self.device.type == "cuda":
             model = model.to(self.device, memory_format=torch.channels_last)
+        if self.mesh is not None:
+            check_model(model)
         init_params(model, torch.Generator().manual_seed(
             int(cfg["seed"]) + int(self.time)))
         self.model = model
@@ -285,7 +310,8 @@ class TwoStageSolver(Solver):
                                         steps_per_epoch)
         # qua_loss whatever schedule.loss says (reference tostagesolver.py).
         self.programs = QuadPrograms(model, self.optimizer, cfg,
-                                     self.scene.width, self.scene.patch)
+                                     self.scene.width, self.scene.patch,
+                                     mesh=self.mesh)
 
     # -- phases ------------------------------------------------------------
     def test(self) -> None:
@@ -310,7 +336,8 @@ class TwoStageSolver(Solver):
         if self.stream_matrices is not None:
             self.stream_results = per_stream_results(
                 list(self.stream_matrices))
-            expo_stream_results(self.stream_results, self.cfg, self.time)
+            if self.is_main:
+                expo_stream_results(self.stream_results, self.cfg, self.time)
 
     def proof(self) -> None:
         """Not a phase of this solver: stage 2 frees the dual scene, as

@@ -36,6 +36,19 @@ Noise: dmfusion draws two normal images a step with ``jax.random.normal``;
 the port draws them from its own ``torch.Generator`` on the run's device
 (:func:`seeded_noise`).  ``GanPrograms(noise=...)`` takes any draw
 ``(m, p) -> (n_m, n_p)``, which is how the tests feed JAX's own draws.
+
+Under a mesh (``parallel/mesh.py``; dmfusion shards the tile batch and its
+noise over ``data``, ``dmfusion/train/gan.py:95-105``) every rank holds
+the same (steps, B) tile batches, B a multiple of the ranks, starts from
+rank 0's parameters, and runs the step on its contiguous equal shard of
+each batch.  The noise is drawn for the whole batch on every rank, from
+the same seeded draw, and the rank's rows are sliced from it, so the draws
+advance as in one process.  The discriminators' gradients are averaged
+over the ranks before their update (the generator step then sees the
+updated discriminators), the generators' before theirs: with equal shards
+the mean of the ranks' MSE and L1 means is the whole batch's.  The
+returned losses are the ranks' mean, and the kept fakes every rank's, in
+batch order.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ import torch
 from torch import nn
 
 from dmfusion_torch.models.common import init_params
-from dmfusion_torch.parallel.mesh import Mesh, unported
+from dmfusion_torch.parallel.mesh import Mesh, check_model
 from dmfusion_torch.train.losses import l1, mse
 from dmfusion_torch.train.optim import adam_beta, reset_state
 
@@ -78,11 +91,13 @@ class GanPrograms:
                  disc_p: nn.Module, disc_m: nn.Module,
                  cfg: Mapping[str, Any], noise: NoiseFn | None = None,
                  mesh: Mesh | None = None):
-        if mesh is not None:
-            raise unported("GanPrograms", "gan")
         self.gens = {"gP": gen_p, "gM": gen_m}
         self.discs = {"dP": disc_p, "dM": disc_m}
         self.nets = {**self.gens, **self.discs}
+        self.mesh = mesh
+        if mesh is not None:
+            for net in self.nets.values():
+                check_model(net)
         d = cfg["dqtl"]
         self.l_cy, self.l_id, self.l_ad = (float(d["l_cy"]), float(d["l_id"]),
                                            float(d["l_ad"]))
@@ -91,21 +106,47 @@ class GanPrograms:
         self.opt_d = adam_beta(_params(self.discs), float(d["lr"]))
         self.noise = noise or seeded_noise(int(cfg["seed"]) + 1,
                                            self._g_params[0].device)
+        self._take_rank0_params()
 
     def init(self, generator: torch.Generator) -> None:
         """Seed the four nets from ``generator``, in the order gP, gM, dP,
         dM, and zero both optimizers' state."""
         for net in self.nets.values():
             init_params(net, generator)
+        self._take_rank0_params()
         reset_state(self.opt_g)
         reset_state(self.opt_d)
+
+    @torch.no_grad()
+    def _take_rank0_params(self) -> None:
+        """Under a mesh, rank 0's parameters on every rank."""
+        if self.mesh is not None:
+            self.mesh.broadcast_all_(_params(self.nets))
+
+    def _reduce(self, params: list[nn.Parameter],
+                loss: torch.Tensor) -> torch.Tensor:
+        """Under a mesh, average ``params``' gradients and the detached
+        ``loss`` over the ranks, as one collective; returns the loss."""
+        loss = loss.detach()
+        if self.mesh is None:
+            return loss
+        grads = []
+        for q in params:
+            if q.grad is None:
+                q.grad = torch.zeros_like(q)
+            grads.append(q.grad)
+        loss = loss.float().reshape(1).clone()
+        self.mesh.mean_all_([*grads, loss])
+        return loss[0]
 
     # -- one D + G step ----------------------------------------------------
     def step(self, m: torch.Tensor, p: torch.Tensor, n_m: torch.Tensor,
              n_p: torch.Tensor) -> dict[str, torch.Tensor]:
         """One discriminator step, then one generator step against the
         updated discriminators; returns the fakes made before the
-        generators' update and both losses (detached, on the device)."""
+        generators' update and both losses (detached, on the device).
+        Under a mesh the tensors are the rank's shard, the fakes the rank's,
+        and the losses the ranks' mean."""
         g_p, g_m = self.gens["gP"], self.gens["gM"]
         d_p, d_m = self.discs["dP"], self.discs["dM"]
         fake_pan = g_p(n_m)
@@ -120,6 +161,7 @@ class GanPrograms:
                   + mse(d_m_fake, torch.zeros_like(d_m_fake)))
         d_loss = loss_p + loss_m
         d_loss.backward()
+        d_loss = self._reduce(_params(self.discs), d_loss)
         self.opt_d.step()
 
         # The fakes above, with their graph, stand for dmfusion's recomputed
@@ -137,16 +179,34 @@ class GanPrograms:
         g_loss = (adv + self.l_cy * cyc + self.l_id * ident
                   + self.l_ad * cross) / 2.0
         g_loss.backward(inputs=self._g_params)
+        g_loss = self._reduce(self._g_params, g_loss)
         self.opt_g.step()
         return {"fake_pan": fake_pan.detach(), "fake_ms": fake_ms.detach(),
-                "d_loss": d_loss.detach(), "g_loss": g_loss.detach()}
+                "d_loss": d_loss, "g_loss": g_loss}
+
+    def _shard(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous equal shard of a batch (all of it on one
+        rank)."""
+        if self.mesh is None:
+            return t
+        b = t.shape[0]
+        if b % self.mesh.data:
+            raise ValueError(f"a GAN batch of {b} tiles does not divide "
+                             f"over {self.mesh.data} ranks")
+        lo, hi = self.mesh.bounds(b)
+        return t[lo:hi]
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's fakes of a batch, in batch order."""
+        return t if self.mesh is None else self.mesh.rows(t)
 
     def train_epoch(self, tiles_m: torch.Tensor, tiles_p: torch.Tensor,
                     collect: str = "all") -> dict[str, torch.Tensor]:
         """(steps, B, t, t, C) tile batches -> outputs: ``d_loss`` and
         ``g_loss`` (steps,) always; with 'all', ``fake_pan`` and
         ``fake_ms`` (steps, B, t, t, C), every step's; with 'first', the
-        first batch's (B, t, t, C); with 'none', no fakes."""
+        first batch's (B, t, t, C); with 'none', no fakes.  Under a mesh
+        the fakes are every rank's, on every rank."""
         if collect not in COLLECT:
             raise ValueError(f"collect {collect!r} is not one of {COLLECT}")
         out: dict[str, torch.Tensor] = {}
@@ -157,14 +217,16 @@ class GanPrograms:
         d_losses, g_losses = [], []
         for i in range(tiles_m.shape[0]):
             m, p = tiles_m[i], tiles_p[i]
-            r = self.step(m, p, *self.noise(m, p))
+            # The whole batch's noise on every rank; the step takes its rows.
+            r = self.step(*map(self._shard, (m, p, *self.noise(m, p))))
             d_losses.append(r["d_loss"])
             g_losses.append(r["g_loss"])
             if collect == "all":
-                out["fake_pan"][i].copy_(r["fake_pan"])
-                out["fake_ms"][i].copy_(r["fake_ms"])
+                out["fake_pan"][i].copy_(self._rows(r["fake_pan"]))
+                out["fake_ms"][i].copy_(self._rows(r["fake_ms"]))
             elif collect == "first" and i == 0:
-                out["fake_pan"], out["fake_ms"] = r["fake_pan"], r["fake_ms"]
+                out["fake_pan"], out["fake_ms"] = (self._rows(r["fake_pan"]),
+                                                   self._rows(r["fake_ms"]))
         out["d_loss"] = torch.stack(d_losses)
         out["g_loss"] = torch.stack(g_losses)
         return out

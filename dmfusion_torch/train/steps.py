@@ -28,14 +28,20 @@ PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card;
 gathered by ``gather_quad_fast``, with the quadruplet KL loss and the
 fused MS-plus-PAN prediction.
 
-Under a mesh (``parallel/mesh.py``) ``DualPrograms`` runs the ``data``
-axis: every rank holds the global (steps, B) batches, gathers its
-contiguous shard of each batch through
-``ops/gather.py::gather_dual_sharded`` (the kernel on every batch on the
-card), and sums what the ranks computed: a step's gradients (its loss
-divides by the whole batch's real rows), an eval's loss sum and
-confusion, a prediction's class ids in rank order.  The other program
-families, and the h5 one, are not ported under a mesh and raise.
+Under a mesh (``parallel/mesh.py``) ``DualPrograms``, ``TriPrograms`` and
+``QuadPrograms`` run the ``data`` axis: every rank holds the global
+(steps, B) batches, gathers its contiguous shard of each batch with the
+family's kernel wrapper on ``mesh.shard(ids)`` (``gather_dual_fast``, as
+``ops/gather.py::gather_dual_sharded`` does; ``gather_tri_fast``;
+``gather_quad_fast``: the kernel on every batch on the card), and sums
+what the ranks computed: a step's gradients (the cross-entropy divides by
+the whole batch's real rows), an eval's loss sum and confusion, a
+prediction's class ids in rank order.  ``qua_loss`` is not a sum over
+rows (its KLs are batch means): under a mesh every rank computes it on the
+whole batch's logits, rebuilt from the ranks' shards with only its own
+rows live (``Mesh.batch_rows``), so the summed gradients are the whole
+batch's and the loss is the whole batch's on every rank.  The dense and
+conv-map families are not ported under a mesh and raise.
 """
 
 from __future__ import annotations
@@ -51,8 +57,8 @@ from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
                                                 phase_corner_sums, phase_sat,
                                                 sat_window_sums)
-from dmfusion_torch.ops.gather import (gather_dual_fast, gather_dual_sharded,
-                                       gather_quad_fast, gather_tri_fast)
+from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
+                                       gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.parallel.mesh import Mesh, unported
 from dmfusion_torch.train.losses import cross_entropy, qua_loss
@@ -120,6 +126,9 @@ class DualPrograms:
     gathers = (gather_dual, gather_dual_fast)
     #: The ``A14_ITEMS`` key of a family not ported under a mesh.
     mesh_item: str | None = None
+    #: Under a mesh a rank's train loss is its share of the batch's, summed
+    #: over the ranks (False: every rank's loss is already the batch's).
+    loss_shares = True
 
     def __init__(self, model: torch.nn.Module,
                  optimizer: torch.optim.Optimizer | None,
@@ -129,8 +138,9 @@ class DualPrograms:
             raise unported(type(self).__name__, self.mesh_item)
         if mesh is not None and plain_gather:
             raise ValueError("plain_gather holds the kernel against its plain "
-                             "version in one process; a mesh gathers through "
-                             "gather_dual_sharded")
+                             "version in one process; a mesh gathers the "
+                             "rank's shard with the kernel, as "
+                             "gather_dual_sharded does")
         check_eval_scan_anchors(cfg)
         self.cfg = dict(cfg)
         self.model = model
@@ -166,8 +176,8 @@ class DualPrograms:
             gather = self.gathers[0 if self.plain_gather else 1]
             windows = gather(*scene_args, ids_b, self.width, self.patch)
         else:
-            windows = gather_dual_sharded(*scene_args, ids_b, self.width,
-                                          self.patch, self.mesh)
+            windows = self.gathers[1](*scene_args, self.mesh.shard(ids_b),
+                                      self.width, self.patch)
         # bf16 scenes widen exactly to the model's f32 inputs.
         return tuple(w.float() for w in windows)
 
@@ -214,7 +224,7 @@ class DualPrograms:
     def train_epoch(self, scene_args: tuple, ids: torch.Tensor,
                     labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """One update per batch; returns the (steps,) losses on the device
-        (under a mesh, summed over the ranks: the whole batches')."""
+        (under a mesh the whole batches', on every rank)."""
         self.model.train()
         losses = []
         for i in range(ids.shape[0]):
@@ -226,7 +236,9 @@ class DualPrograms:
                     inputs, *self._shard(labels[i], mask[i]),
                     count=mask[i].float().sum()))
         losses = torch.stack(losses)
-        return losses if self.mesh is None else self.mesh.sum_(losses)
+        if self.mesh is None or not self.loss_shares:
+            return losses
+        return self.mesh.sum_(losses)
 
     @torch.inference_mode()
     def eval_epoch(self, scene_args: tuple, ids: torch.Tensor,
@@ -283,10 +295,13 @@ class TriPrograms(DualPrograms):
     """Three-stream programs: ``scene_args`` is ``(ms, pan, mspan)``, the
     IHS-fused MSPAN padded like PAN (reference dataset_tri,
     train/dataset.py:248-282); every gather on the card launches the
-    window kernel three times (MS, PAN, MSPAN)."""
+    window kernel three times (MS, PAN, MSPAN), under a mesh on the rank's
+    shard.  Every rank builds the same MSPAN bit for bit (its unpooling
+    offsets come from a CPU generator seeded by ``seed``, and the rest is
+    elementwise work and fixed-order reductions), so nothing is
+    broadcast."""
 
     gathers = (gather_tri, gather_tri_fast)
-    mesh_item = "tri_quad"
 
 
 class QuadPrograms(DualPrograms):
@@ -298,21 +313,46 @@ class QuadPrograms(DualPrograms):
     window kernel four times.  The loss is the masked quadruplet KL
     (``losses.py::qua_loss``) on the f32 logits; the prediction sums the
     MS and PAN streams' logits before the softmax and argmax
-    (tostagesolver.py:337)."""
+    (tostagesolver.py:337).
+
+    Under a mesh a rank runs the model on its shard's four streams, and the
+    loss is dmfusion's ``qua_loss`` of the whole batch on every rank
+    (module docstring): the train loss is not summed over the ranks."""
 
     gathers = (gather_quad, gather_quad_fast)
-    mesh_item = "tri_quad"
+    loss_shares = False
 
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
                 ) -> tuple[torch.Tensor]:
         return (torch.cat(super()._gather(scene_args, ids_b)),)
 
+    def _shard(self, labels_b: torch.Tensor, mask_b: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The whole batch's labels and mask, on every rank: the loss sees
+        the whole batch (``loss``)."""
+        return labels_b, mask_b
+
+    def _whole_logits(self, logits: torch.Tensor, b: int) -> torch.Tensor:
+        """A rank's ``(4 per, C)`` shard logits -> the whole batch's
+        ``(4 b, C)``, stream by stream (MS, PAN, GM, GP), each stream's
+        rows in rank order and trimmed to ``b``; only this rank's rows
+        carry a gradient (``Mesh.batch_rows``)."""
+        per = logits.shape[0] // 4
+        rows = self.mesh.batch_rows(logits.view(4, per, -1).transpose(0, 1),
+                                    b)
+        return rows.transpose(0, 1).reshape(4 * b, -1)
+
     def loss(self, logits: torch.Tensor, labels_b: torch.Tensor,
              mask_b: torch.Tensor | None,
              count: torch.Tensor | None = None) -> torch.Tensor:
-        """The masked qua_loss (``count`` is a mesh's, which quad refuses)."""
-        return qua_loss(logits, labels_b.shape[0], labels_b, self.cfg,
-                        mask_b)
+        """The masked qua_loss of the batch (``labels_b``, ``mask_b``: the
+        whole batch's; ``count`` is unused: the mask counts its rows).
+        Under a mesh ``logits`` are the rank's shard's, and the loss runs on
+        the whole batch's rebuilt from every rank's."""
+        b = labels_b.shape[0]
+        if self.mesh is not None:
+            logits = self._whole_logits(logits, b)
+        return qua_loss(logits, b, labels_b, self.cfg, mask_b)
 
     @torch.inference_mode()
     def eval_epoch(self, scene_args: tuple, ids: torch.Tensor,
@@ -321,20 +361,26 @@ class QuadPrograms(DualPrograms):
         """-> (loss sum, (5, C, C) confusions): the loss sum adds each
         batch's masked ``qua_loss`` times its real anchors; confusion [0]
         scores the fused prediction (the MS plus PAN logits' argmax),
-        [1..4] each stream on its own, the padding masked out."""
+        [1..4] each stream on its own, the padding masked out.  Under a
+        mesh the loss sum is the whole batches' on every rank (``loss``),
+        and the confusions are each rank's shards', summed over the
+        ranks."""
         self.model.eval()
         c = self.num_classes
         loss_sum = torch.zeros((), dtype=torch.float32, device=ids.device)
         confs = torch.zeros((5, c, c), dtype=torch.float32, device=ids.device)
         for i in range(ids.shape[0]):
             logits = self.model(*self._gather(scene_args, ids[i]))
-            b, m = labels.shape[1], mask[i].float()
+            m = mask[i].float()
             loss_sum += self.loss(logits, labels[i], m) * m.sum()
-            parts = logits.split(b)
+            labels_i, m_i = super()._shard(labels[i], m)  # the rank's rows
+            parts = logits.split(logits.shape[0] // 4)
             preds = [(parts[0] + parts[1]).argmax(dim=-1)]
             preds += [p.argmax(dim=-1) for p in parts]
             for k, p in enumerate(preds):
-                confs[k] += confusion_matrix(p, labels[i], c, m)
+                confs[k] += confusion_matrix(p, labels_i, c, m_i)
+        if self.mesh is not None:
+            self.mesh.sum_(confs)
         return loss_sum, confs
 
     @staticmethod

@@ -23,9 +23,10 @@ gmfnet width 8, SGD, float32.  Held:
     file written by rank 0 alone, and a test matrix that agrees with the
     single-rank port run's on at least 99.9 % of the anchors;
   * refusals: ``mesh.model: 2``, a ``mesh.data`` other than the world
-    size, tri_net, dqtl, dense_fusion and gmfnet_conv under a mesh, a
-    model with BatchNorm, and ``mesh.distributed`` without ``torchrun``'s
-    variables, each naming its ROADMAP item.
+    size, dense_fusion and gmfnet_conv under a mesh, a model with
+    BatchNorm, and ``mesh.distributed`` without ``torchrun``'s variables,
+    each naming its ROADMAP item (tri_net, dqtl and the GAN run under a
+    mesh: ``tests/test_torch_parallel_streams.py``).
 """
 
 import os
@@ -246,8 +247,6 @@ def run(tmp_path_factory):
            "refusals": {"model_axis": {"mesh": {"distributed": 1,
                                                 "model": 2}},
                         "data_4": {"mesh": {"distributed": 1, "data": 4}},
-                        "tri_net": {"model_name": "tri_net"},
-                        "dqtl": {"model_name": "dqtl", "solver": "twostage"},
                         "dense_fusion": {"model_name": "dense_fusion"},
                         "gmfnet_conv": {"model_name": "gmfnet_conv",
                                         "patch_size": 35},
@@ -408,7 +407,6 @@ def test_cli_two_ranks(run):
 
 @pytest.mark.parametrize("name,item", [
     ("model_axis", "A14 item 6"), ("data_4", "mesh.data 4 with 2 rank"),
-    ("tri_net", "A14 item 1"), ("dqtl", "A14 item 2"),
     ("dense_fusion", "A14 item 3"), ("gmfnet_conv", "A14 item 4")])
 def test_unported_mesh_paths_refuse(run, name, item):
     for out in run["ranks"]:
@@ -427,17 +425,13 @@ _MESH = parallel.Mesh(data=2, rank=0, device=torch.device("cpu"),
 
 
 @pytest.mark.parametrize("family,item", [
-    ("TriPrograms", "A14 item 1"), ("QuadPrograms", "A14 item 1"),
-    ("GanPrograms", "A14 item 2"), ("DensePrograms", "A14 item 3"),
-    ("ConvMapPrograms", "A14 item 4")])
+    ("DensePrograms", "A14 item 3"), ("ConvMapPrograms", "A14 item 4")])
 def test_unported_program_families_refuse_a_mesh(family, item):
     """Each program family that is not ported under a mesh refuses one
     before it touches its model, naming its ROADMAP item."""
-    from dmfusion_torch.train import gan, steps
+    from dmfusion_torch.train import steps
     cfg = {"Categories_Number": 2}
-    make = {"GanPrograms": lambda m: gan.GanPrograms(
-                None, None, None, None, cfg, mesh=m),
-            "DensePrograms": lambda m: steps.DensePrograms(None, 8, mesh=m)}
+    make = {"DensePrograms": lambda m: steps.DensePrograms(None, 8, mesh=m)}
     build = make.get(family, lambda m: getattr(steps, family)(
         None, None, cfg, 64, 8, mesh=m))
     with pytest.raises(NotImplementedError, match=item):
