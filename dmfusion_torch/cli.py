@@ -21,9 +21,12 @@ before the solver exists, which allocates the run slot (under a mesh
 rank 0 allocates it and the others receive it), and goes down at the
 end, also on an error.  Each rank prints its backend and device when it
 joins, and one ``[dmfusion] rank report {...}`` JSON line at the end: its
-rank, device, backend, the solver, the window kernel's launches and the
-phases' seconds (with ``--solver twostage`` also stage 1's epochs and
-seconds, 0 when ``dqtl.pre_trained`` skips it).
+rank, device, backend, the solver, the window kernel's and the pool
+kernel's launches and the phases' seconds (with ``--solver twostage`` also
+stage 1's epochs and seconds, 0 when ``dqtl.pre_trained`` skips it; for the
+dense arity the rank's band, ``dense_band``: ``out_start``, ``s0``,
+``need`` and ``band`` rows, null when the scene runs whole on every
+rank).
 """
 
 from __future__ import annotations
@@ -79,6 +82,8 @@ def _report(solver) -> None:
     import torch
 
     from dmfusion_torch.ops.gather import gather_windows_cuda
+    from dmfusion_torch.ops.pool import phase_pool_cuda
+    from dmfusion_torch.train.steps import DensePrograms
     mesh = solver.mesh
     report = {
         "rank": torch.distributed.get_rank(),
@@ -88,12 +93,16 @@ def _report(solver) -> None:
         "mesh_data": mesh.data if mesh is not None else 1,
         "solver": solver.cfg.get("solver", "main"),
         "gather_windows_launches": gather_windows_cuda.launches,
+        "phase_pool_launches": phase_pool_cuda.launches,
         "train_s": solver.train_time, "test_s": solver.test_time,
         "color_s": getattr(solver, "color_time", 0.0)}
     stage1 = getattr(solver, "stage1_log", None)
     if stage1 is not None:
         report.update(stage1_epochs=len(stage1.get("epoch_s", [])),
                       stage1_s=stage1.get("stage1_s", 0.0))
+    if isinstance(solver.programs, DensePrograms):
+        report["dense_band"] = solver.programs.mesh_band(
+            solver.scene.ms.shape[0])
     print("[dmfusion] rank report " + json.dumps(report), flush=True)
 
 

@@ -18,8 +18,13 @@ code, and eager torch has no sharding constraint; a rank simply holds its
 rows (:meth:`Mesh.shard`).  ``make_global_batches`` assembles one global
 array from every process's copy; here every rank keeps the global arrays
 and takes its rows.  The ``model`` axis (Megatron splits,
-``dmfusion/parallel/partition.py``) is not ported, nor are the dense and
-conv-map routes under a mesh (:data:`A14_ITEMS`).
+``dmfusion/parallel/partition.py``) is not ported (:data:`A14_ITEMS`).
+
+The dense family splits the scene's rows instead of the batch: every rank
+holds the whole batch and computes one halo'd row band
+(``train/steps.py::DensePrograms``); the window sums of the anchors a rank
+owns are summed over the ranks with only its own live
+(:meth:`Mesh.sum_live`).
 
 Shards: a batch of ``b`` rows gives every rank ``ceil(b / world)`` rows,
 contiguous and in rank order; the rows past ``b`` (on the last ranks)
@@ -45,8 +50,6 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 
 #: What still waits under a mesh, by the ROADMAP A14 item that ports it.
 A14_ITEMS = {
-    "dense": "ROADMAP A14 item 3: dense bands with halos",
-    "convmap": "ROADMAP A14 item 4: the gmfnet_conv banded map",
     "batchnorm": "ROADMAP A14 item 5: SyncBatchNorm",
     "model": "ROADMAP A14 item 6: the model axis (tensor parallelism)",
 }
@@ -244,6 +247,17 @@ class Mesh:
         every = self.rows(t.detach())
         lo = self.rank * per
         return torch.cat([every[:lo], t, every[lo + per:]])[:b]
+
+    def sum_live(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the ranks, with this rank's ``t`` live and the
+        others' detached: the gradient of the sum reaches this rank's
+        ``t`` alone, so the ranks' summed parameter gradients are those of
+        the sum (``torch.distributed.nn``'s ``all_reduce`` would reduce
+        every rank's gradient into each rank's ``t``: ``data`` times too
+        much).  Exact where at most one rank's entry is not zero (the dense
+        bands' owned anchors)."""
+        mine = t.detach()
+        return t + (self.sum_(mine.clone()) - mine)
 
     def broadcast(self, obj: Any) -> Any:
         """Rank 0's ``obj`` (any picklable value) on every rank."""

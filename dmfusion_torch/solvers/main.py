@@ -47,14 +47,18 @@ single arity and ``visualize`` are not ported yet and raise
 ``NotImplementedError`` naming their ROADMAP item.
 
 Under a mesh (``torchrun``, ``mesh.distributed``; ``solvers/base.py``)
-the dual and tri arities train, validate, test and color on every rank
-through the programs' mesh route (``DualPrograms``, ``TriPrograms``): the
-val loss and every confusion and class map are the whole batch's on every
-rank, so every rank keeps the same best parameters.  Rank 0 alone writes;
-a checkpoint that a phase reads back (``train.resume``, a test- or
-color-only run) is read by rank 0 and broadcast.  The dense arity,
-gmfnet_conv's map route and models with BatchNorm raise
-``NotImplementedError`` naming their ROADMAP A14 item.
+the dual, tri and dense arities train, validate, test and color on every
+rank through the programs' mesh route (``DualPrograms``, ``TriPrograms``,
+``DensePrograms``' row bands; gmfnet_conv per anchor throughout, its
+``supports_map`` false): the val loss and every confusion and class map
+are the whole batch's on every rank, so every rank keeps the same best
+parameters.  The dense knobs resolve as dmfusion resolves them under a
+mesh: ``dense_streams`` 0, ``train.dense_epoch`` 'auto' is 'minibatch',
+``train.dense_remat`` 'auto' is 'on' without a probe, and no band probe.
+Rank 0 alone writes; a checkpoint that a phase reads back
+(``train.resume``, a test- or color-only run) is read by rank 0 and
+broadcast.  Models with BatchNorm raise ``NotImplementedError`` naming
+their ROADMAP A14 item.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ from dmfusion_torch.models.registry import (build_model, model_arity,
                                             model_map_programs)
 from dmfusion_torch.ops.contourlet import contourlet_decompose
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
-from dmfusion_torch.parallel import check_model, unported
+from dmfusion_torch.parallel import check_model
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import channel_grid
 from dmfusion_torch.solvers.base import BaseSolver
@@ -235,13 +239,6 @@ class Solver(BaseSolver):
             raise NotImplementedError(
                 f"model {cfg['model_name']!r} has arity {arity!r}: its "
                 f"training {_UNPORTED_ARITY[arity]}")
-        if self.mesh is not None:
-            if arity == "dense":
-                raise unported(f"{cfg['model_name']!r} (arity {arity!r})",
-                               "dense")
-            if model_map_programs(cfg["model_name"]) == "convmap":
-                raise unported(f"{cfg['model_name']!r}'s map route",
-                               "convmap")
         loss_name = cfg["schedule"]["loss"]
         if loss_name != "Criterion":
             raise ValueError(
@@ -254,8 +251,9 @@ class Solver(BaseSolver):
                 self.scene_args += (mspan_scene(self.scene, cfg["seed"]),)
         streams = 0
         if arity == "dense":
-            streams = resolve_dense_streams(cfg.get("dense_streams", "auto"),
-                                            *self.scene.ms.shape[:2])
+            if self.mesh is None:  # a mesh's bands run on its ranks
+                streams = resolve_dense_streams(
+                    cfg.get("dense_streams", "auto"), *self.scene.ms.shape[:2])
             mode = resolve_dense_epoch(cfg["train"].get("dense_epoch", "auto"),
                                        streams)
             if streams and mode == "minibatch" and not cfg.get("nohup"):
@@ -264,7 +262,14 @@ class Solver(BaseSolver):
                       "all band passes for one minibatch (hundreds of "
                       "full-scene passes per epoch). train.dense_epoch: "
                       "full is the intended mode at this scale.")
-            cfg = dict(cfg, train=dict(cfg["train"], dense_epoch=mode))
+            train = dict(cfg["train"], dense_epoch=mode)
+            if self.mesh is not None and parse_switch(
+                    train.get("dense_remat", "auto"),
+                    "train.dense_remat") == "auto":
+                # As dmfusion: a mesh's bands exist where memory is tight,
+                # so they remat, with no probe.
+                train["dense_remat"] = "on"
+            cfg = dict(cfg, train=train)
         model = build_model(cfg)
         if self.mesh is not None:
             check_model(model)
@@ -285,7 +290,8 @@ class Solver(BaseSolver):
                                         steps_per_epoch)
         if arity == "dense":
             self.programs = DensePrograms(model, self.scene.patch,
-                                          optimizer=self.optimizer, cfg=cfg)
+                                          optimizer=self.optimizer, cfg=cfg,
+                                          mesh=self.mesh)
         else:
             # A model with a convolutional map route (gmfnet_conv) trains
             # per anchor and maps test and color in one pass.

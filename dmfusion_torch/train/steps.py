@@ -40,8 +40,25 @@ prediction's class ids in rank order.  ``qua_loss`` is not a sum over
 rows (its KLs are batch means): under a mesh every rank computes it on the
 whole batch's logits, rebuilt from the ranks' shards with only its own
 rows live (``Mesh.batch_rows``), so the summed gradients are the whole
-batch's and the loss is the whole batch's on every rank.  The dense and
-conv-map families are not ported under a mesh and raise.
+batch's and the loss is the whole batch's on every rank.
+``ConvMapPrograms`` under a mesh is ``DualPrograms``' per-anchor route
+throughout: its test and color do not render the map (dmfusion's banded
+map under a mesh is not built either).
+
+``DensePrograms`` under a mesh splits the scene's rows, not the batch
+(dmfusion's shard_map programs): rank ``i`` owns band ``i`` of
+``band_plan(ms_rows, mesh.data)`` (the halo'd, clamped bands of the
+streamed pass) and holds the whole batch.  A step builds the features and
+the phase SAT of the rank's band alone, takes the window sums of the
+anchors it owns (the rest zeroed) and sums them over the ranks with its
+own live (``Mesh.sum_live``), so each rank's backward reaches its band
+alone and the features' gradients, summed, are the whole batch's; the head
+and the loss run on the summed sums, the whole batch's on every rank, and
+are not summed again.  Eval, predict and the maps render the
+rank's band through the model (its pool is the pool kernel on the card)
+and score the anchors it owns, or gather every rank's owned rows of the
+int32 class map.  A scene too small to band runs whole on every rank, and
+then nothing is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -60,7 +77,7 @@ from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
 from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
                                        gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
-from dmfusion_torch.parallel.mesh import Mesh, unported
+from dmfusion_torch.parallel.mesh import Mesh
 from dmfusion_torch.train.losses import cross_entropy, qua_loss
 from dmfusion_torch.train.optim import reset_state
 
@@ -96,6 +113,25 @@ def assemble_bands(pieces: list[torch.Tensor], h: int,
     return torch.cat(kept, dim=0)
 
 
+@torch.no_grad()
+def take_rank0_params(model: torch.nn.Module, mesh: Mesh | None) -> None:
+    """Under a mesh, overwrite ``model``'s parameters with rank 0's, as DDP
+    starts."""
+    if mesh is not None:
+        mesh.broadcast_all_(model.parameters())
+
+
+def sum_grads(params, mesh: Mesh) -> None:
+    """Sum the gradients of ``params`` over the ranks, in one flat
+    collective (a parameter without a gradient counts as zeros)."""
+    grads = []
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        grads.append(p.grad)
+    mesh.sum_all_(grads)
+
+
 def conf_from_map(pred_map: torch.Tensor, ids: torch.Tensor,
                   labels: torch.Tensor, mask: torch.Tensor,
                   num_classes: int) -> torch.Tensor:
@@ -124,8 +160,6 @@ class DualPrograms:
     supports_map = False
     #: The (plain, kernel) window gathers over ``scene_args``.
     gathers = (gather_dual, gather_dual_fast)
-    #: The ``A14_ITEMS`` key of a family not ported under a mesh.
-    mesh_item: str | None = None
     #: Under a mesh a rank's train loss is its share of the batch's, summed
     #: over the ranks (False: every rank's loss is already the batch's).
     loss_shares = True
@@ -134,8 +168,6 @@ class DualPrograms:
                  optimizer: torch.optim.Optimizer | None,
                  cfg: Mapping[str, Any], width: int, patch: int, *,
                  plain_gather: bool = False, mesh: Mesh | None = None):
-        if mesh is not None and self.mesh_item:
-            raise unported(type(self).__name__, self.mesh_item)
         if mesh is not None and plain_gather:
             raise ValueError("plain_gather holds the kernel against its plain "
                              "version in one process; a mesh gathers the "
@@ -153,20 +185,15 @@ class DualPrograms:
         self.device = next(model.parameters()).device
         #: The card's eval/predict batches are rounded up to 4096 anchors.
         self.on_card = self.device.type == "cuda"
-        self._take_rank0_params()
+        take_rank0_params(self.model, mesh)
 
     def init(self, generator: torch.Generator) -> None:
         """Seeded parameters (flax's default initializers' distributions)
         and a zeroed optimizer state."""
         init_params(self.model, generator)
-        self._take_rank0_params()
+        take_rank0_params(self.model, self.mesh)
         if self.optimizer is not None:
             reset_state(self.optimizer)
-
-    @torch.no_grad()
-    def _take_rank0_params(self) -> None:
-        if self.mesh is not None:
-            self.mesh.broadcast_all_(self.model.parameters())
 
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
                 ) -> tuple[torch.Tensor, ...]:
@@ -211,12 +238,7 @@ class DualPrograms:
         loss = self.loss(self.model(*inputs), labels_b, mask_b, count)
         loss.backward()
         if self.mesh is not None:
-            grads = []
-            for p in self.model.parameters():
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-                grads.append(p.grad)
-            self.mesh.sum_all_(grads)
+            sum_grads(self.model.parameters(), self.mesh)
         self.optimizer.step()
         return loss.detach()
 
@@ -478,6 +500,11 @@ class DensePrograms:
     device: cast the whole scene before slicing bands) has no
     counterpart: bands slice the scene as it is, and the model casts after
     its space-to-depth packing, which the cast commutes with exactly.
+
+    With a ``mesh`` every rank computes its own band of
+    ``band_plan(ms_rows, mesh.data)`` (module docstring): no program
+    streams (``dense_streams`` counts as 0), and the programs start from
+    rank 0's parameters.
     """
 
     supports_map = True
@@ -486,9 +513,8 @@ class DensePrograms:
                  optimizer: torch.optim.Optimizer | None = None,
                  cfg: Mapping[str, Any] | None = None,
                  mesh: Mesh | None = None):
-        if mesh is not None:
-            raise unported("DensePrograms", "dense")
         self.model = model
+        self.mesh = mesh
         self.patch = int(patch)
         self.optimizer = optimizer
         self.cfg = dict(cfg or {})
@@ -500,6 +526,7 @@ class DensePrograms:
                        else torch.device("cpu"))
         #: The card's eval/predict batches are rounded up to 4096 anchors.
         self.on_card = self.device.type == "cuda"
+        take_rank0_params(model, mesh)
 
     @property
     def num_classes(self) -> int:
@@ -508,6 +535,7 @@ class DensePrograms:
     def init(self, generator: torch.Generator) -> None:
         """Seeded parameters and a zeroed optimizer state."""
         init_params(self.model, generator)
+        take_rank0_params(self.model, self.mesh)
         if self.optimizer is not None:
             reset_state(self.optimizer)
 
@@ -550,8 +578,35 @@ class DensePrograms:
         h, _, band, _, _ = plan
         return (x >= i * band) & (x < min((i + 1) * band, h))
 
+    def _band_piece(self, ms: torch.Tensor, pan: torch.Tensor, plan, i: int,
+                    band_fn) -> torch.Tensor:
+        """``band_fn(band_ms, band_pan)`` over band ``i``: its owned rows."""
+        _, _, offset = self.band_slices(plan, i, ms.shape[0])
+        return band_fn(*self._band(ms, pan, plan, i)[1:])[
+            offset:offset + plan[2]]
+
+    def mesh_plan(self, ms_rows: int):
+        """The plan of the mesh's bands, one a rank; None without a mesh or
+        when the scene is too small to band (every rank then runs the whole
+        scene)."""
+        if self.mesh is None:
+            return None
+        return self.band_plan(ms_rows, self.mesh.data)
+
+    def mesh_band(self, ms_rows: int) -> dict | None:
+        """This rank's band under a mesh (``mesh_plan``), for its report."""
+        plan = self.mesh_plan(ms_rows)
+        if plan is None:
+            return None
+        out_start, s0, _ = self.band_slices(plan, self.mesh.rank, ms_rows)
+        return {"out_start": out_start, "s0": s0, "need": plan[4],
+                "band": plan[2]}
+
     def _stream_bands(self, ms_rows: int, ms_cols: int) -> int:
-        """The training band count (0: the whole-scene pass)."""
+        """The training band count (0: the whole-scene pass; always under
+        a mesh, whose bands run on the ranks)."""
+        if self.mesh is not None:
+            return 0
         return resolve_dense_streams(self.cfg.get("dense_streams", "auto"),
                                      ms_rows, ms_cols)
 
@@ -606,10 +661,14 @@ class DensePrograms:
         Whole scene: checkpointed end to end unless the model's remat is
         off (then the backward keeps the features and the SAT).  With
         ``dense_streams`` resolving to n > 1 bands on a scene that bands:
-        :meth:`_anchor_pooled_streamed`."""
+        :meth:`_anchor_pooled_streamed`; under a mesh whose scene bands:
+        :meth:`_anchor_pooled_sharded`."""
         ps = self.patch
         width = ms_cols - ps + 1
         build, corners = self._band_corner_fns()
+        plan = self.mesh_plan(ms_rows)
+        if plan is not None:
+            return self._anchor_pooled_sharded(build, corners, plan, width)
         n = self._stream_bands(ms_rows, ms_cols)
         splan = self.band_plan(ms_rows, n) if n else None
         if splan is not None:
@@ -651,6 +710,34 @@ class DensePrograms:
 
         return pooled
 
+    def _anchor_pooled_sharded(self, build, corners, plan, width: int):
+        """Anchor pooling under a mesh (dmfusion's shard_map branch): this
+        rank computes the features and SAT of its band alone and takes the
+        window sums of the anchors it owns (the others zeroed); the sums
+        are added over the ranks with its own live (``Mesh.sum_live``).
+        The band is checkpointed end to end unless the model's remat is
+        off, as dmfusion checkpoints its shard_map; the sum stays outside,
+        so the backward does not repeat the collective."""
+        ps, i = self.patch, self.mesh.rank
+        dt = self.model.compute_dtype
+
+        def band_win(ms, pan, ids_b):
+            x, y = ids_b // width, ids_b % width
+            s0, band_ms, band_pan = self._band(ms, pan, plan, i)
+            lx = (x - s0).clamp(0, plan[4] - ps)
+            win = corners(build(band_ms, band_pan), lx, y)
+            return torch.where(self._owns(plan, i, x)[:, None], win, 0.0)
+
+        def pooled(ms, pan, ids_b):
+            if self.model.remat:
+                win = checkpoint(band_win, ms, pan, ids_b,
+                                 use_reentrant=False)
+            else:
+                win = band_win(ms, pan, ids_b)
+            return (self.mesh.sum_live(win) / float(ps * ps)).to(dt)
+
+        return pooled
+
     def _loss(self, pooled, scene_args: tuple, ids_b: torch.Tensor,
               labels_b: torch.Tensor, mask_b: torch.Tensor) -> torch.Tensor:
         feats = pooled(scene_args[0], scene_args[1], ids_b)
@@ -661,6 +748,12 @@ class DensePrograms:
         self.optimizer.zero_grad(set_to_none=True)
         loss = self._loss(pooled, scene_args, ids_b, labels_b, mask_b)
         loss.backward()
+        if self.mesh_plan(scene_args[0].shape[0]) is not None:
+            # Each rank holds its band's share of the features' gradients;
+            # the head runs on the summed window sums, so its gradient is
+            # already the whole batch's on every rank.
+            sum_grads((p for n, p in self.model.named_parameters()
+                       if not n.startswith("head")), self.mesh)
         self.optimizer.step()
         return loss.detach()
 
@@ -669,7 +762,8 @@ class DensePrograms:
                     labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """The epoch of ``train.dense_epoch``: minibatch, one update per
         (steps, B) batch, each recomputing the dense pass; returns the
-        (steps,) losses on the device.  'full': :meth:`train_epoch_full`."""
+        (steps,) losses on the device (under a mesh the whole batches', on
+        every rank).  'full': :meth:`train_epoch_full`."""
         if self.dense_epoch_mode == "full":
             return self.train_epoch_full(scene_args, ids, labels, mask)
         self.model.train()
@@ -711,21 +805,44 @@ class DensePrograms:
                 feats = (win / float(ps * ps)).to(state[2])
                 yield b, self.model.head(feats), own[b]
 
+    def _rank_band_logits(self, ms: torch.Tensor, pan: torch.Tensor, plan,
+                          ids: torch.Tensor):
+        """Under a mesh: this rank's band's logits map (the model's
+        forward), then ``(b, logits, own)`` for every batch ``b``, each
+        anchor read from the band's owned rows (clamped where the rank does
+        not own it: ``own`` masks those)."""
+        i, band = self.mesh.rank, plan[2]
+        logits = self._band_piece(
+            ms, pan, plan, i, lambda bm, bp: self.model(bm, bp, self.patch))
+        flat = logits.reshape(-1, logits.shape[-1])
+        width = logits.shape[1]
+        out_start, _, _ = self.band_slices(plan, i, ms.shape[0])
+        x, y = ids // width, ids % width
+        own = self._owns(plan, i, x)
+        local = (x - out_start).clamp(0, band - 1) * width + y
+        for b in range(ids.shape[0]):
+            yield b, flat[local[b]], own[b]
+
     @torch.inference_mode()
     def eval_epoch(self, scene_args: tuple, ids: torch.Tensor,
                    labels: torch.Tensor, mask: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """Masked eval: (sample-weighted loss sum, ``[pred][target]``
         confusion).  One logits map of the scene, every batch indexed from
-        it; streamed, each anchor scored by its owning band."""
+        it; streamed, each anchor scored by its owning band; under a mesh,
+        each rank scores the anchors it owns from its band's logits map
+        and the sums are added over the ranks."""
         self.model.eval()
         ms, pan = scene_args[0], scene_args[1]
         ncls = self.num_classes
         loss_sum = torch.zeros((), dtype=torch.float32, device=ids.device)
         conf = torch.zeros((ncls, ncls), dtype=torch.float32,
                            device=ids.device)
+        mplan = self.mesh_plan(ms.shape[0])
         splan = self._eval_stream_plan(ms)
-        if splan is None:
+        if mplan is not None:
+            batches = self._rank_band_logits(ms, pan, mplan, ids)
+        elif splan is None:
             flat = self.model(ms, pan, self.patch).reshape(-1, ncls)
             batches = ((b, flat[ids[b]], None) for b in range(ids.shape[0]))
         else:
@@ -737,17 +854,21 @@ class DensePrograms:
             loss_sum += (per * m).sum()
             conf += confusion_matrix(logits.argmax(dim=-1), labels[b], ncls,
                                      m)
+        if mplan is not None:
+            self.mesh.sum_(loss_sum)
+            self.mesh.sum_(conf)
         return loss_sum, conf
 
     @torch.inference_mode()
     def predict(self, scene_args: tuple, ids: torch.Tensor) -> torch.Tensor:
         """(steps, B) anchor ids -> (steps, B) int32 class ids: indexed
-        from the class map, or streamed, each from its owning band."""
+        from the class map (:meth:`predict_map`), or streamed, each from
+        its owning band."""
         self.model.eval()
         ms, pan = scene_args[0], scene_args[1]
         splan = self._eval_stream_plan(ms)
         if splan is None:
-            return self.model.class_map(ms, pan, self.patch).reshape(-1)[ids]
+            return self.predict_map(ms, pan).reshape(-1)[ids]
         out = torch.zeros(ids.shape, dtype=torch.int32, device=ids.device)
         for b, logits, own in self._band_anchor_scan(ms, pan, splan, ids):
             out[b] = torch.where(own, logits.argmax(dim=-1).to(torch.int32),
@@ -761,12 +882,32 @@ class DensePrograms:
         plan = self.band_plan(ms.shape[0], n_bands)
         if plan is None:
             return None
-        pieces = []
-        for i in range(n_bands):
-            _, _, offset = self.band_slices(plan, i, ms.shape[0])
-            out = band_fn(*self._band(ms, pan, plan, i)[1:])
-            pieces.append(out[offset:offset + plan[2]])
+        pieces = [self._band_piece(ms, pan, plan, i, band_fn)
+                  for i in range(n_bands)]
         return assemble_bands(pieces, plan[0], plan[2])
+
+    def _mesh_map(self, ms: torch.Tensor, pan: torch.Tensor, plan,
+                  band_fn) -> torch.Tensor:
+        """``band_fn(band_ms, band_pan)`` over this rank's band; every
+        rank's owned rows gathered (``Mesh.rows``) and assembled, on every
+        rank."""
+        piece = self._band_piece(ms, pan, plan, self.mesh.rank, band_fn)
+        pieces = self.mesh.rows(piece).split(plan[2])
+        return assemble_bands(list(pieces), plan[0], plan[2])
+
+    @torch.inference_mode()
+    def logits_map(self, ms: torch.Tensor, pan: torch.Tensor
+                   ) -> torch.Tensor:
+        """(H, W, ncls) f32 logits map in one pass; under a mesh every
+        rank's band, gathered and assembled on every rank (dmfusion's
+        ``logits_map_sharded``).  The programs score and map without it:
+        it holds the bands against the whole pass."""
+        self.model.eval()
+        plan = self.mesh_plan(ms.shape[0])
+        if plan is None:
+            return self.model(ms, pan, self.patch)
+        return self._mesh_map(ms, pan, plan,
+                              lambda bm, bp: self.model(bm, bp, self.patch))
 
     @torch.inference_mode()
     def class_map_streamed(self, ms: torch.Tensor, pan: torch.Tensor,
@@ -785,7 +926,14 @@ class DensePrograms:
                     n_bands: int | None = None) -> torch.Tensor:
         """(H, W) int32 class map of the whole scene in one dense pass
         (``n_bands`` 0) or in ``n_bands`` row bands; None: the run's
-        inference band count."""
+        inference band count.  Under a mesh whose scene bands, every
+        rank's band, gathered and assembled on every rank."""
+        plan = self.mesh_plan(ms.shape[0])
+        if plan is not None:
+            self.model.eval()
+            return self._mesh_map(
+                ms, pan, plan,
+                lambda bm, bp: self.model.class_map(bm, bp, self.patch))
         if n_bands is None:
             n_bands = self._stream_bands_infer(ms.shape[0], ms.shape[1])
         if n_bands:
@@ -830,8 +978,10 @@ class ConvMapPrograms(DualPrograms):
 
     Train and val are the inherited per-anchor programs (the window gather
     on every batch).  Test and color render the model's convolutional
-    ``class_map``, whose entries are the window route's argmaxes: one map
-    of the scene, or ``conv_streams`` sequential row bands.  A band is a
+    ``class_map``, whose entries are the window route's argmaxes in f32:
+    one map of the scene, or ``conv_streams`` sequential row bands.  Under
+    a mesh test and color stay per anchor too (``supports_map`` is False),
+    as in dmfusion, whose banded map under a mesh is not built.  A band is a
     slab of the scene that starts on the stride-4 phase grid (so it
     computes the same global phases) and lies inside the scene (the
     bottom band is clamped upward); its owned rows equal the whole map's,
@@ -840,8 +990,11 @@ class ConvMapPrograms(DualPrograms):
     slicing is not needed: the model pads and packs before it casts, which
     commutes exactly."""
 
-    supports_map = True
-    mesh_item = "convmap"
+    @property
+    def supports_map(self) -> bool:
+        """One rank renders the map; under a mesh the ranks' shards go per
+        anchor."""
+        return self.mesh is None
 
     # -- band geometry -----------------------------------------------------
     def band_plan(self, ms_rows: int, n: int):
@@ -906,7 +1059,12 @@ class ConvMapPrograms(DualPrograms):
                     n_bands: int | None = None) -> torch.Tensor:
         """(H, W) int32 class map of the whole scene in one pass
         (``n_bands`` 0) or in ``n_bands`` row bands; None: the run's
-        ``conv_streams``."""
+        ``conv_streams``.  One rank's route: it refuses a mesh."""
+        if self.mesh is not None:
+            raise ValueError(
+                "ConvMapPrograms.predict_map renders the map on one rank; "
+                "under a mesh gmfnet_conv tests and colors per anchor "
+                "(supports_map is False)")
         if n_bands is None:
             n_bands = self.conv_streams(ms.shape[0], ms.shape[1])
         if n_bands:
@@ -916,7 +1074,12 @@ class ConvMapPrograms(DualPrograms):
     def test_confusion(self, scene_args: tuple, ids: torch.Tensor,
                        labels: torch.Tensor, mask: torch.Tensor
                        ) -> torch.Tensor:
-        """Test-phase confusion from one class map of the scene (exact: the
-        map's entries are the window route's argmaxes)."""
+        """Test-phase confusion from one class map of the scene: exact in
+        f32, where the map's entries are the window route's argmaxes; in
+        bf16 the two routes sum in another order, so near-tie argmaxes may
+        part.  Under a mesh: the per-anchor confusion of
+        :class:`DualPrograms`."""
+        if self.mesh is not None:
+            return super().test_confusion(scene_args, ids, labels, mask)
         pred_map = self.predict_map(scene_args[0], scene_args[1])
         return conf_from_map(pred_map, ids, labels, mask, self.num_classes)

@@ -23,10 +23,12 @@ gmfnet width 8, SGD, float32.  Held:
     file written by rank 0 alone, and a test matrix that agrees with the
     single-rank port run's on at least 99.9 % of the anchors;
   * refusals: ``mesh.model: 2``, a ``mesh.data`` other than the world
-    size, dense_fusion and gmfnet_conv under a mesh, a model with
-    BatchNorm, and ``mesh.distributed`` without ``torchrun``'s variables,
-    each naming its ROADMAP item (tri_net, dqtl and the GAN run under a
-    mesh: ``tests/test_torch_parallel_streams.py``).
+    size, a model with BatchNorm, and ``mesh.distributed`` without
+    ``torchrun``'s variables, each naming its ROADMAP item; resnet18,
+    dense_fusion and gmfnet_conv are accepted under a mesh, and the dense
+    and conv-map program families build on it (tri_net, dqtl and the GAN
+    run under a mesh: ``tests/test_torch_parallel_streams.py``; the dense
+    bands and gmfnet_conv: ``tests/test_torch_parallel_maps.py``).
 """
 
 import os
@@ -81,7 +83,8 @@ from dmfusion_torch.models.convert import load_flax_params, params_to_flax
 from dmfusion_torch.ops.gather import gather_dual_sharded
 from dmfusion_torch.solvers import build_solver
 from dmfusion_torch.train.optim import make_optimizer
-from dmfusion_torch.train.steps import DualPrograms
+from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
+                                        DualPrograms)
 
 inp = pickle.load(open(sys.argv[1], "rb"))
 rank = int(os.environ["RANK"])
@@ -137,7 +140,7 @@ ids, labels, mask = map(torch.from_numpy, inp["eval"])
 loss_sum, conf = prog.eval_epoch(args, ids, labels, mask)
 out["eval"] = (float(loss_sum), conf.numpy(), prog.predict(args, ids).numpy())
 
-out["refusals"] = {}
+out["refusals"], out["programs"] = {}, {}
 for name, over in inp["refusals"].items():
     try:
         solver = build_solver(load_config(overrides={
@@ -146,8 +149,30 @@ for name, over in inp["refusals"].items():
         solver.dataloader()
         solver.init_model()
         out["refusals"][name] = "accepted"
+        out["programs"][name] = [type(solver.programs).__name__,
+                                 solver.programs.mesh is solver.mesh,
+                                 solver.programs.supports_map]
     except NotImplementedError as e:
         out["refusals"][name] = str(e)
+
+out["families"] = {}
+for family, over in (("DensePrograms", {"model_name": "dense_fusion"}),
+                     ("ConvMapPrograms", {"model_name": "gmfnet_conv",
+                                          "patch_size": 35})):
+    fcfg = load_config(overrides={**inp["over"], **over})
+    model = build_model(fcfg)
+    ps = fcfg["patch_size"]
+    if family == "DensePrograms":
+        prog = DensePrograms(model, ps, cfg=fcfg, mesh=mesh)
+    else:
+        prog = ConvMapPrograms(model, None, fcfg, scene.width, ps, mesh=mesh)
+    try:
+        prog.predict_map(*args)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    out["families"][family] = {"supports_map": prog.supports_map,
+                               "map_refused": refused}
 
 written = []
 for mod in (builtins, io):
@@ -406,11 +431,22 @@ def test_cli_two_ranks(run):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("model_axis", "A14 item 6"), ("data_4", "mesh.data 4 with 2 rank"),
-    ("dense_fusion", "A14 item 3"), ("gmfnet_conv", "A14 item 4")])
+    ("model_axis", "A14 item 6"), ("data_4", "mesh.data 4 with 2 rank")])
 def test_unported_mesh_paths_refuse(run, name, item):
     for out in run["ranks"]:
         assert item in out["refusals"][name], out["refusals"][name]
+
+
+@pytest.mark.parametrize("name,programs,maps", [
+    ("dense_fusion", "DensePrograms", True),
+    ("gmfnet_conv", "ConvMapPrograms", False)])
+def test_mesh_paths_are_accepted(run, name, programs, maps):
+    """dense_fusion (A14 item 3: row bands) and gmfnet_conv (A14 item 4:
+    per anchor) build their programs on the solver's mesh; gmfnet_conv
+    then tests and colors per anchor."""
+    for out in run["ranks"]:
+        assert out["refusals"][name] == "accepted", out["refusals"][name]
+        assert out["programs"][name] == [programs, True, maps]
 
 
 def test_resnet18_is_not_refused(run):
@@ -424,18 +460,19 @@ _MESH = parallel.Mesh(data=2, rank=0, device=torch.device("cpu"),
                       backend="gloo")
 
 
-@pytest.mark.parametrize("family,item", [
-    ("DensePrograms", "A14 item 3"), ("ConvMapPrograms", "A14 item 4")])
-def test_unported_program_families_refuse_a_mesh(family, item):
-    """Each program family that is not ported under a mesh refuses one
-    before it touches its model, naming its ROADMAP item."""
-    from dmfusion_torch.train import steps
-    cfg = {"Categories_Number": 2}
-    make = {"DensePrograms": lambda m: steps.DensePrograms(None, 8, mesh=m)}
-    build = make.get(family, lambda m: getattr(steps, family)(
-        None, None, cfg, 64, 8, mesh=m))
-    with pytest.raises(NotImplementedError, match=item):
-        build(_MESH)
+@pytest.mark.parametrize("family,maps", [("DensePrograms", True),
+                                         ("ConvMapPrograms", False)])
+def test_program_families_accept_a_mesh(run, family, maps):
+    """Both families build on a mesh of two ranks.  The dense programs
+    render maps (every rank's band); gmfnet_conv's map route is one rank's
+    and refuses the mesh."""
+    for out in run["ranks"]:
+        got = out["families"][family]
+        assert got["supports_map"] is maps
+        if maps:
+            assert got["map_refused"] is None
+        else:
+            assert "per anchor" in got["map_refused"]
 
 
 def test_plain_gather_refuses_a_mesh():
