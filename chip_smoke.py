@@ -59,7 +59,8 @@ Phases; any failure exits non-zero before the result line:
                 CPU's, bf16 within TRAIN_BF16_ATOL of f32; times of the
                 epochs, 20 train steps, val and test, a profile of
                 the 20 steps (device ops, busy and idle share), the host
-                ops of 5 more, and B1 at B 256;
+                ops of 5 more, and B1 at B 256; the solver and its run
+                dir are kept for the diagnostics phase;
   8. train_dense — dense_fusion trained through the CLI's ``main`` as
                 ``python -m dmfusion_torch.cli --set model_name=dense_fusion
                 model_width=32 data_city=image6 epoch=2 time=1
@@ -261,8 +262,9 @@ Phases; any failure exits non-zero before the result line:
                 share).  Then ``python -m
                 torch.distributed.run --standalone --nproc-per-node 2 -m
                 dmfusion_torch.cli --set mesh.distributed=1 <TRAIN_SET>
-                epoch=1 test.index=0`` as a subprocess (train_dp_maps'
-                gmfnet_conv run tests the per-anchor route under the mesh;
+                epoch=1 test.index=0`` as a subprocess (the per-anchor
+                eval under the mesh is held by the val passes, the test
+                phase under the mesh by train_dp_maps' dense run;
                 train_dp_streams colors through it): one
                 ``gmfnet__0_output/``, one finite epoch loss, and each
                 rank's report (device ``cuda:0``, backend gloo) with B1
@@ -325,12 +327,41 @@ Phases; any failure exits non-zero before the result line:
                 torch.distributed.run --standalone --nproc-per-node 2 -m
                 dmfusion_torch.cli ... mesh.distributed=1``: dense_fusion
                 (train_dense's set, one epoch, test and color) and
-                gmfnet_conv (train_conv's set, one epoch, test per anchor,
-                no color): one result tree each, finite records, test
-                matrices of the test split with OA at least 0.5, each
+                gmfnet_conv (train_conv's set, one epoch, val per anchor,
+                no test and no color): one result tree each, finite
+                records, val OA at least 0.5, the dense run's test matrix
+                of the test split with OA at least 0.5, each
                 rank's band as ``band_plan`` gives it, and each rank's B2
                 launches (one a map: val, test, color) and B1 launches
                 (twice a gathered batch), counted from the split.
+  20. diagnostics — (run after train_gan, on the solvers that train and
+                train_gan trained and kept) ``visualize()`` of the gmfnet
+                solver: its t-SNE of TSNE_POINTS test anchors' logits on
+                the card, ``{time}_tsne_test.png`` written with the
+                scatter's IHDR shape; the same logits through
+                ``report/tsne.py`` on the card (timed) and in float64 on
+                the CPU (in a thread, beside the work below): joint
+                probabilities within TSNE_P_RTOL, final KL within
+                TSNE_KL_SHARE; ``visualize()`` of the two-stage solver (the
+                four streams' logits of 500 train anchors,
+                ``{time}_tsne_streams.png``); one epoch of the gmfnet
+                solver's train ids at batch 256 through ``H5DualPrograms``
+                on ``gather_patches``' rows and through ``DualPrograms`` on
+                the scene from the same weights, cuDNN deterministic:
+                losses within H5_LOSS_ATOL; B1 launched 2 + 2 + 4 + 2 a
+                batch on this path.  Then the single arity, as its own
+                path: ``SingleNet`` (registered with a module ``ARITY =
+                "single"``, w64, patch 16, image6) trained for one epoch
+                by the CLI (``SINGLE_SET``), tested on SINGLE_BUCKETS
+                buckets of 4096 of its test split, exported and served
+                (SINGLE_REQUESTS requests of 4096, equal to the solver's
+                predictions): ``gather_one_fast`` launched once per batch
+                (train, val, test, requests), more than 0, and bit-equal to
+                ``gather_one`` on that scene at B 256 and 4096, where it is
+                timed at both.  Last,
+                ``collect`` over the five CLI runs' result workbooks
+                (train, train_dense, train_conv, train_gan, single): two
+                rows each.
 Every phase logs its seconds (``phase NAME: S s``), and a ``phase
 seconds`` line sums them up.  Then a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  The
@@ -339,15 +370,18 @@ kernels build in parallel, one ``nvcc`` per source.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -364,7 +398,10 @@ from dmfusion_torch.export import load_artifact, save_artifact
 from dmfusion_torch.infer import ScenePredictor
 from dmfusion_torch.models import build_model
 from dmfusion_torch.models import dense_fusion
-from dmfusion_torch.models.common import init_params
+from dmfusion_torch.models.common import (ConvBlock, MLPHead, ResBlock,
+                                          activation_fn, dtypes, init_params,
+                                          tree_shape)
+from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops import gather as gather_ops
 from dmfusion_torch.ops import ihs
 from dmfusion_torch.ops import conv3x3 as conv_ops
@@ -542,9 +579,9 @@ DP_GATHER_B = (4096, 4160, 1025, 256)
 DP_LOSS_ATOL, DP_PARAM_ATOL = 1e-5, 1e-6
 DP_PROFILE_STEPS = 5
 # The CLI under torchrun: the train phase's run, cut to one epoch and
-# without test (train_dp_maps' gmfnet_conv run tests the same per-anchor
-# route under the mesh, OA at least 0.5; train_dp_streams colors through
-# the mesh's predict).
+# without test (the val pass is the same per-anchor eval under the mesh, OA
+# at least 0.5; train_dp_maps' dense run tests under the mesh;
+# train_dp_streams colors through the mesh's predict).
 DP_TRAIN_SET = [*TRAIN_SET, "epoch=1", "test.index=0"]
 DP_TIMEOUT = 400
 # The tri and quad arities and stage 1 on the data axis (phase
@@ -572,8 +609,8 @@ DPS_GAN_LOSS_RTOL, DPS_GAN_MOMENT_RTOL = 1e-4, 1e-2
 DPS_STEPS, DPS_PROFILE_STEPS, DPS_GAN_STEPS = 20, 5, 10
 # The CLI under torchrun: tri_net as the train phase's run, cut to one
 # epoch, without test (its val OA, over 58,875 held-out anchors through the
-# same eval under the mesh, is held to 0.5; train_dp_maps' gmfnet_conv run
-# tests the per-anchor route under the mesh), with color over the
+# same eval under the mesh, is held to 0.5; train_dp_maps' dense run tests
+# under the mesh), with color over the
 # unlabeled pixels (the mesh's predict on the card);
 # then the two-stage solver with dqtl.pre_trained 0 at the config's stage-1
 # widths, cut to one GAN epoch (it keeps its sample grids and every fake)
@@ -608,13 +645,41 @@ DPM_LOGITS_ATOL, DPM_AGREE_F32, DPM_AGREE_BF16 = 1e-4, 0.9995, 0.999
 DPM_STEPS, DPM_COLLECTIVES = 20, 20
 # The CLI under torchrun: dense_fusion as train_dense's run, one epoch, with
 # test and color (both render the class map: B2 on every rank's band), and
-# gmfnet_conv as train_conv's, one epoch, with test (per anchor under the
-# mesh) and without color (train_dp_streams' tri run colors per anchor under
-# the mesh).
+# gmfnet_conv as train_conv's, one epoch, without test and color: its val
+# pass is the per-anchor eval under the mesh (val OA at least 0.5), the
+# dense run tests under the mesh, and train_dp_streams' tri run colors per
+# anchor under the mesh (its per-anchor test pass of 2,826,002 anchors
+# took 33 s on "NVIDIA H100 80GB HBM3, 700.00 W").
 DPM_DENSE_SET = ["--set", *DENSE_TRAIN_SET, "epoch=1", "nohup=1"]
 DPM_CONV_SET = ["--set", *CONV_TRAIN_SET, "epoch=1", "color.index=0",
-                "nohup=1"]
+                "test.index=0", "nohup=1"]
 DPM_TIMEOUT = 600
+# The diagnostics phase.  visualize's t-SNE of the trained gmfnet's
+# ``visualize.samples`` (2,000) test logits, on the card and, in float64 on
+# the CPU, by the same function: the joint probabilities relative to the
+# CPU's within TSNE_P_RTOL (the same float64 arithmetic in another order;
+# the card read 9.3e-16 on "NVIDIA H100 80GB HBM3, 700.00 W"), the final KL
+# divergence within TSNE_KL_SHARE of the CPU's (1000 iterations amplify
+# rounding: the card read 0.32 % there, and on the CPU two summation
+# orders ended 0.7 % apart on 200 points).
+TSNE_POINTS, TSNE_P_RTOL, TSNE_KL_SHARE = 2000, 1e-10, 0.02
+# The patch cache: one epoch of the trained gmfnet's train ids in batches
+# of 256 through H5DualPrograms (rows of the pre-gathered windows) and
+# through DualPrograms (the scene, B1), from the same weights, cuDNN
+# deterministic: the same inputs and kernels give the same losses, so the
+# limit is float32 rounding of a loss of about 0.1.
+H5_LOSS_ATOL = 1e-5
+# The single arity at gmfnet's width (w64, patch 16, image6): a registered
+# MS-only classifier (``SingleNet``) trained for one epoch on 0.2 % of the
+# labeled pixels (5,887 anchors: 23 steps of 256) with its val pass (2
+# buckets of 4096), tested on the first SINGLE_BUCKETS buckets of 4096 of
+# its test split, exported and served in SINGLE_REQUESTS requests of 4096,
+# each of those batches one gather_one_fast launch.
+SINGLE_NAME = "single_ms"
+SINGLE_SET = [f"model_name={SINGLE_NAME}", "data_city=image6", "epoch=1",
+              "time=1", "train_rate=0.002", "verify_rate=0.002",
+              "test.index=0", "color.index=0", "nohup=1"]
+SINGLE_BUCKETS, SINGLE_REQUESTS = 16, 4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # One entry per CUDA source of the driven paths.
 KERNELS = {
@@ -799,8 +864,8 @@ def phase_kernels(scene, device, mspan, quad) -> dict:
         check(torch.equal(got, want), f"clamped anchors, patch {patch}")
     log("kernels: clamped and negative starts: bit-equal")
 
-    # The single-stream wrapper (no model of the repo has arity single):
-    # bit-equal and timed on its own.
+    # The single-stream wrapper (the single arity's gather, driven in the
+    # diagnostics phase): bit-equal and timed on its own.
     ids_t = torch.from_numpy(ids).to(device)
     check(torch.equal(gather_ops.gather_one_fast(scene.ms, ids_t, w, ps),
                       gather_one(scene.ms, ids_t, w, ps)),
@@ -1321,6 +1386,7 @@ def phase_train(scene, device) -> int:
         for f in files:
             check(os.path.isfile(os.path.join(out, f)), f"train: no {f}")
         check(os.path.isfile(cfg["RESULT_excel"]), "train: no workbook")
+        _keep_workbook(cfg, "train", oa)
 
         def nb(n, b):
             return -(-n // b)
@@ -1395,9 +1461,12 @@ def phase_train(scene, device) -> int:
             solver.scene_args, *(t[:HOST_STEPS] for t in steps)),
             f"{HOST_STEPS} train steps, B {TRAIN_BATCH}, host ops", 10)
         log("profile train host: " + json.dumps(host))
-        del solver, plain
+        # The trained solver and its run dir stay for the diagnostics
+        # phase's visualize and patch-cache check.
+        KEPT["train"] = (solver, tmp)
+        del plain
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        _release(tmp)
 
     rng = np.random.default_rng(7)
     med, bound = time_gather(scene, (scene.ms, scene.pan),
@@ -2674,16 +2743,15 @@ def _dpm_dense_run(tmp: str) -> dict:
 
 
 def _dpm_conv_run(tmp: str) -> dict:
-    """gmfnet_conv at patch 47 trained and tested per anchor by two ranks
-    through torchrun: B1 twice a gathered batch on every rank's shard, B2
-    never."""
-    files = ["0_curweights.pt", "0_matrix.npy", "0_records.json",
-             "0_weights.pt"]
+    """gmfnet_conv at patch 47 trained and validated per anchor by two ranks
+    through torchrun (no test): B1 twice a gathered batch on every rank's
+    shard, B2 never."""
+    files = ["0_curweights.pt", "0_records.json", "0_weights.pt"]
     run, _, split, out = _mesh_cli_run(tmp, DPM_CONV_SET, "gmfnet_conv",
-                                       files, "train_dp_maps", DPM_TIMEOUT)
+                                       files, "train_dp_maps", DPM_TIMEOUT,
+                                       test=False)
     batches = {"train": -(-len(split.train) // TRAIN_BATCH),
-               "val": -(-len(split.valid) // EVAL_BATCH),
-               "test": -(-len(split.test) // EVAL_BATCH)}
+               "val": -(-len(split.valid) // EVAL_BATCH)}
     want = 2 * sum(batches.values())
     b1 = _mesh_reports(run, "train_dp_maps", "main", want)
     return {**out, "gather_batches_per_rank": batches,
@@ -2722,8 +2790,9 @@ def phase_train_dp_maps() -> tuple[int, int]:
             check(not any(launches.values()),
                   f"train_dp_maps: the parent launched {launches}")
             log(f"train_dp_maps: the {tag} run under torchrun took "
-                f"{runs[tag]['run_s']:.2f} s, test OA "
-                f"{runs[tag]['test_oa']:.4f}")
+                f"{runs[tag]['run_s']:.2f} s, val OA "
+                f"{runs[tag]['val_oa'][-1]:.4f}, test OA "
+                f"{runs[tag].get('test_oa', 'not run')}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     result = {
@@ -2867,6 +2936,7 @@ def phase_train_dense(scene, device) -> int:
                   f"train_dense: no {f}")
         check(os.path.isfile(cfg["RESULT_excel"]),
               "train_dense: no workbook")
+        _keep_workbook(cfg, "train_dense", oa)
         # 2 val maps, the test map and the color map; no train step pools
         # through B2 (it refuses a tensor that needs grad).
         check(launches["phase_pool"] == 4,
@@ -3117,6 +3187,7 @@ def phase_train_conv(device) -> tuple[int, dict]:
                   "0_records.json", "0_pic_1.png", "0_pic_2.png"):
             check(os.path.isfile(os.path.join(out, f)), f"train_conv: no {f}")
         check(os.path.isfile(cfg["RESULT_excel"]), "train_conv: no workbook")
+        _keep_workbook(cfg, "train_conv", oa)
         # Test and color render one class map each and gather nothing; B1
         # runs twice (MS, PAN) on every train and val batch.
         check(len(renders) == 2, f"train_conv: {len(renders)} map renders, "
@@ -3819,6 +3890,7 @@ def phase_train_gan(scene, device) -> int:
         sheet = Workbook.load(cfg["RESULT_excel"])["streams"]
         check([sheet.cell(2 + i, 1) for i in range(4)]
               == ["MS", "PAN", "GM", "GP"], "train_gan: no streams sheet")
+        _keep_workbook(cfg, "train_gan", oa)
         ev = solver._eval_round_to()
         batches = {"train": len(split.train) // TRAIN_BATCH * 2,
                    "val": -(-len(split.valid) // ev) * 2,
@@ -3933,9 +4005,12 @@ def phase_train_gan(scene, device) -> int:
             "stream_oa_ms_pan_gm_gp": stream_oa,
             "gather_batches": batches, "launches": launches,
             "request_ms": request_ms, "parity": parity}
-        del solver, gans, clf, pred
+        # The two-stage solver and its run dir stay for the diagnostics
+        # phase's four-stream visualize.
+        KEPT["train_gan"] = (solver, tmp)
+        del gans, clf, pred
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        _release(tmp)
     torch.cuda.empty_cache()
     result["phase_s"] = time.perf_counter() - t_phase
     log(f"train_gan: {json.dumps(result)}")
@@ -4325,7 +4400,382 @@ def phase_conv(device) -> tuple[int, dict]:
                       else "bytes"}
 
 
+
+# -- the diagnostics phase ----------------------------------------------------
+
+# Solvers (and their run dirs) that an earlier phase trained and the
+# diagnostics phase uses: "train" (gmfnet) and "train_gan" (two-stage).
+KEPT: dict[str, tuple] = {}
+# The result workbooks of the CLI runs, copied for ``collect``, and each
+# run's test OA by its tag.
+RESULTS = {"dir": None, "oa": {}}
+
+
+def _release(tmp: str) -> None:
+    """Remove a phase's run dir, unless a kept solver still uses it."""
+    if all(tmp != d for _, d in KEPT.values()):
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _keep_workbook(cfg, tag: str, oa: float) -> None:
+    """Copy a CLI run's ``*_result.xlsx`` (its test OA ``oa``) under the
+    results dir, as ``{tag}/{its name}``, for the diagnostics phase's
+    ``collect``."""
+    if RESULTS["dir"] is None:
+        RESULTS["dir"] = tempfile.mkdtemp(prefix="chip_smoke_results_")
+    d = os.path.join(RESULTS["dir"], tag)
+    os.makedirs(d, exist_ok=True)
+    shutil.copy(cfg["RESULT_excel"], d)
+    RESULTS["oa"][tag] = oa
+
+
+class SingleNet(torch.nn.Module):
+    """An MS-only classifier of the shared blocks, registered with arity
+    ``single``: gmfnet's MS branch and trunk (a stem, residual blocks to
+    4w, the MLP head) on the (B, ps, ps, C) MS window alone."""
+    flax_root = "MSNet"
+
+    @classmethod
+    def widths_from_tree(cls, tree) -> dict:
+        return {"model_width": 2 * tree_shape(tree, "ConvBlock_0", "Conv_0",
+                                              "kernel")[-1]}
+
+    def __init__(self, cfg, width: int = 64):
+        super().__init__()
+        act = activation_fn(cfg)
+        self.compute_dtype, _ = dtypes(cfg)
+        w = int(cfg.get("model_width", width))
+        c = int(cfg["DATA_DICT"][cfg["data_city"]]["size"][2])
+        self.stem = ConvBlock(c, w // 2, 3, 1, act)
+        self.blocks = torch.nn.Sequential(ResBlock(w // 2, w, 1, act),
+                                          ResBlock(w, 2 * w, 2, act),
+                                          ResBlock(2 * w, 4 * w, 2, act))
+        self.head = MLPHead(4 * w, int(cfg["Categories_Number"]),
+                            hidden=2 * w, act=act)
+
+    def forward(self, ms: torch.Tensor) -> torch.Tensor:
+        ms = ms.permute(0, 3, 1, 2)
+        with torch.autocast(ms.device.type, dtype=torch.bfloat16,
+                            enabled=self.compute_dtype == torch.bfloat16):
+            return self.head(self.blocks(self.stem(ms)))
+
+
+def _register_single() -> None:
+    """``SingleNet`` as ``SINGLE_NAME``, from a module that declares
+    ``ARITY = "single"`` (the registry reads a registered model's module)."""
+    mod = types.ModuleType(f"chip_smoke_models.{SINGLE_NAME}")
+    mod.ARITY, mod.Net = "single", SingleNet
+    SingleNet.__module__ = mod.__name__
+    sys.modules[mod.__name__] = mod
+    register(SINGLE_NAME)(SingleNet)
+
+
+def _png_hw(path: str) -> tuple[int, int]:
+    """A PNG's (height, width) from its IHDR chunk."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR",
+          f"diagnostics: {path} is not a PNG")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
+
+
+def _h5_check(solver) -> dict:
+    """One epoch of the trained gmfnet's train ids, batches of 256:
+    through ``H5DualPrograms`` on the rows that ``gather_patches`` (the
+    cache's arrays, without a file) gives, and through ``DualPrograms`` on
+    the scene (B1 twice a batch), each from a copy of the solver's
+    weights with a fresh Adam, cuDNN deterministic: losses within
+    H5_LOSS_ATOL."""
+    from dmfusion_torch.train.optim import make_optimizer
+    from dmfusion_torch.train.steps import H5DualPrograms
+    from dmfusion_torch.utils.h5cache import gather_patches
+    cfg, scene = solver.cfg, solver.scene
+    ids, labels, mask, _ = solver.batches(solver.split.train, TRAIN_BATCH,
+                                          shuffle=True)
+    mask = mask.float()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = gather_patches(scene, ids.reshape(-1).cpu().numpy())
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    check(torch.equal(cache["label"].reshape(ids.shape).to(labels.dtype),
+                      labels), "diagnostics: the cache's labels != the "
+          "batches'")
+    rows = torch.arange(ids.numel(), dtype=torch.int32,
+                        device=ids.device).reshape(ids.shape)
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    out = {}
+    try:
+        for name, cls, args, batch in (
+                ("scene", DualPrograms, solver.scene_args, ids),
+                ("h5", H5DualPrograms, (cache["ms"], cache["pan"]), rows)):
+            model = copy.deepcopy(solver.model)
+            prog = cls(model, make_optimizer(cfg, model.parameters(),
+                                             ids.shape[0]),
+                       cfg, scene.width, scene.patch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = prog.train_epoch(args, batch, labels, mask).cpu()
+            out[name] = (losses, time.perf_counter() - t0,
+                         [p.detach() for p in model.parameters()])
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    loss_err = float((out["h5"][0] - out["scene"][0]).abs().max())
+    param_err = max(float((a - b).abs().max())
+                    for a, b in zip(out["h5"][2], out["scene"][2],
+                                    strict=True))
+    check(bool(torch.isfinite(out["h5"][0]).all())
+          and loss_err <= H5_LOSS_ATOL,
+          f"diagnostics: H5DualPrograms' losses {loss_err} from "
+          f"DualPrograms' (limit {H5_LOSS_ATOL})")
+    del cache
+    return {"steps": int(ids.shape[0]), "rows": int(ids.numel()),
+            "gather_s": gather_s, "scene_epoch_s": out["scene"][1],
+            "h5_epoch_s": out["h5"][1], "loss_max_abs": loss_err,
+            "param_max_abs": param_err,
+            "mean_loss": float(out["h5"][0].mean())}
+
+
+def _single_run(tmp: str, device) -> dict:
+    """The single arity through the CLI (``SINGLE_SET``), its test over
+    the first SINGLE_BUCKETS buckets of its test split, the export of its
+    best weights served in SINGLE_REQUESTS requests: returns what it
+    measured and its batches, each one gather_one_fast launch."""
+    from dmfusion_torch import cli
+    from dmfusion_torch import export as export_cli
+    from dmfusion_torch.train.steps import SinglePrograms
+    t0 = time.perf_counter()
+    solver = cli.main(["--set", *SINGLE_SET, f"expo_result={tmp}/"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    cfg, split, rec = solver.cfg, solver.split, solver.records
+    check(type(solver.programs) is SinglePrograms
+          and len(solver.scene_args) == 1
+          and solver.model.stem.conv.out_channels == 32
+          and cfg["patch_size"] == 16 and cfg["batchsize"] == TRAIN_BATCH
+          and solver.device.type == "cuda",
+          "diagnostics: the single run is not SingleNet w64, patch 16, "
+          "batch 256 on SinglePrograms on the card")
+    check(rec["Epoch"] == [0] and all(np.isfinite(rec["Loss"]
+                                                  + rec["ValLoss"])),
+          f"diagnostics: single records {rec}")
+    ev = solver._eval_round_to()
+    val = -(-len(split.valid) // ev)
+    train_steps = -(-len(split.train) // TRAIN_BATCH)
+    # A test pass of repeat 0 (the run's loop has moved past it) over a
+    # subset of the test split, in buckets of 4096.
+    split.test = split.test[:SINGLE_BUCKETS * BUCKET]
+    solver.time = 0
+    solver.test()
+    torch.cuda.synchronize()
+    check(ev == BUCKET and int(solver.test_matrix.sum()) == len(split.test),
+          "diagnostics: the single test matrix does not sum to its subset")
+    aa, oa, kap, _ = solver.last_result
+    _keep_workbook(cfg, "single", oa)
+    art = os.path.join(tmp, "single.zip")
+    export_cli.main(["--set", *SINGLE_SET, "--weights",
+                     os.path.join(cfg["RESULT_output"], "0_weights.pt"),
+                     "--out", art])
+    clf = load_artifact(art, device)
+    check(clf.manifest["arity"] == "single"
+          and len(clf.manifest["input_shapes"]) == 1,
+          f"diagnostics: single manifest {clf.manifest}")
+    pred = ScenePredictor(clf, solver.scene, bucket=BUCKET)
+    chunks = np.random.default_rng(17).choice(
+        split.labeled, SINGLE_REQUESTS * BUCKET, replace=False).astype(
+        np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = pred.predict_ids(chunks)
+    request_ms = (time.perf_counter() - t0) * 1e3 / SINGLE_REQUESTS
+    check(np.array_equal(served, solver._predict_ids(chunks, BUCKET)),
+          "diagnostics: served single predictions != the solver's")
+    result = {"model": SINGLE_NAME, "width": 64, "patch": 16,
+              "run_s": run_s, "epoch_s": rec["EpochTime"],
+              "loss": rec["Loss"], "val_oa": rec["ValOA"],
+              "train_steps": train_steps, "val_batches": val,
+              "test_anchors": len(split.test), "test_s": solver.test_time,
+              "test_oa": oa, "request_ms": request_ms,
+              # train, val, test, the served requests and the solver's own
+              # prediction of them: one gather_one_fast launch a batch.
+              "b1_batches": (train_steps + val + SINGLE_BUCKETS
+                             + 2 * SINGLE_REQUESTS),
+              "scene": solver.scene}
+    return result
+
+
+def phase_diagnostics(device) -> tuple[int, int, dict]:
+    """visualize on the solvers that train and train_gan trained, the
+    t-SNE on the card against the CPU, the patch cache's programs against
+    the scene's, the single arity trained, tested, exported and served,
+    and ``collect`` over the CLI runs' workbooks.  Returns B1's launches
+    on the diagnostics path and on the single path, and the single path's
+    gather_one_fast timing."""
+    from dmfusion_torch.report import collect
+    from dmfusion_torch.report import tsne as tsne_mod
+    from dmfusion_torch.report.viz import SCATTER_HW
+    t_phase = time.perf_counter()
+    gm, gm_tmp = KEPT["train"]
+    ts, ts_tmp = KEPT["train_gan"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_diagnostics_")
+    try:
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        t0 = time.perf_counter()
+        gm.visualize()
+        torch.cuda.synchronize()
+        vis_s = time.perf_counter() - t0
+        png = os.path.join(gm.cfg["RESULT_output"],
+                           f"{gm.time}_tsne_test.png")
+        check(_png_hw(png) == SCATTER_HW and gm.tsne.xy.is_cuda
+              and tuple(gm.tsne.xy.shape) == (TSNE_POINTS, 2)
+              and np.isfinite(gm.tsne.kl_divergence),
+              f"diagnostics: gmfnet's scatter {_png_hw(png)}, "
+              f"{tuple(gm.tsne.xy.shape)}, KL {gm.tsne.kl_divergence}")
+        # The same 2,000 test anchors' logits, as visualize draws them.
+        ids = np.sort(np.random.default_rng(int(gm.cfg["seed"])).choice(
+            gm.split.test, TSNE_POINTS, replace=False))
+        logits = gm._anchor_logits(ids)
+        with ThreadPoolExecutor(1) as pool:
+            t_cpu = time.perf_counter()
+            cpu_job = pool.submit(tsne_mod.tsne, logits.cpu().double())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card = tsne_mod.tsne(logits)
+            torch.cuda.synchronize()
+            tsne_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ts.visualize()
+            torch.cuda.synchronize()
+            vis_streams_s = time.perf_counter() - t0
+            n4 = 4 * (TSNE_POINTS // 4)
+            png = os.path.join(ts.cfg["RESULT_output"],
+                               f"{ts.time}_tsne_streams.png")
+            check(_png_hw(png) == SCATTER_HW
+                  and tuple(ts.tsne.xy.shape) == (n4, 2)
+                  and np.isfinite(ts.tsne.kl_divergence),
+                  f"diagnostics: the streams' scatter {_png_hw(png)}, "
+                  f"{tuple(ts.tsne.xy.shape)}")
+            h5 = _h5_check(gm)
+            visual = {n: spec["counter"].launches
+                      for n, spec in KERNELS.items()}
+            # visualize and the logits above: 2 each (MS, PAN); the
+            # streams' visualize: 4; the scene's epoch: 2 a batch.
+            want = 2 + 2 + 4 + 2 * h5["steps"]
+            check(visual["gather_windows"] == want
+                  and visual["phase_pool"] == visual["strip_gather"]
+                  == visual["conv3x3"] == 0,
+                  f"diagnostics: launches {visual}, B1 should be {want}")
+            for spec in KERNELS.values():
+                spec["counter"].launches = 0
+            single = _single_run(os.path.join(tmp, "single"), device)
+            single_launches = {n: spec["counter"].launches
+                               for n, spec in KERNELS.items()}
+            cpu = cpu_job.result()
+            cpu_s = time.perf_counter() - t_cpu
+        check(single_launches["gather_windows"] > 0
+              and single_launches["gather_windows"]
+              == single["b1_batches"]
+              and single_launches["phase_pool"]
+              == single_launches["strip_gather"]
+              == single_launches["conv3x3"] == 0,
+              f"diagnostics: the single path launched {single_launches}; "
+              f"its batches are {single['b1_batches']}")
+        sc = single.pop("scene")
+        single_b1 = {}
+        for b in (TRAIN_BATCH, BUCKET):
+            ids_t = torch.from_numpy(np.random.default_rng(b).integers(
+                0, sc.num_pixels, b, dtype=np.int32)).to(device)
+            check(torch.equal(
+                gather_ops.gather_one_fast(sc.ms, ids_t, sc.width, sc.patch),
+                gather_one(sc.ms, ids_t, sc.width, sc.patch)),
+                f"diagnostics: gather_one_fast != gather_one at B {b} on the "
+                f"single path's scene")
+            med, bound = time_gather(sc, (sc.ms,),
+                                     (gather_one, gather_ops.gather_one_fast),
+                                     device, b, np.random.default_rng(18))
+            single_b1[f"B{b}"] = {
+                "ms": med["kernel"], "plain_ms": med["plain"],
+                "library_ms": med["library"], "bound_ms": bound,
+                "bound_by": "bytes"}
+        del sc
+        p_card, p_cpu = card.p.cpu(), cpu.p
+        off = p_cpu > 0
+        p_err = float(((p_card - p_cpu).abs()[off] / p_cpu[off]).max())
+        kl_share = abs(card.kl_divergence - cpu.kl_divergence) / \
+            cpu.kl_divergence
+        log(f"diagnostics: t-SNE of {TSNE_POINTS} points: card {tsne_s:.3f} "
+            f"s, KL {card.kl_divergence} (it {card.n_iter}); CPU float64 "
+            f"{cpu_s:.3f} s, KL {cpu.kl_divergence} (it {cpu.n_iter}); P "
+            f"max rel {p_err}, KL share {kl_share}; visualize KL "
+            f"{gm.tsne.kl_divergence}, streams KL {ts.tsne.kl_divergence}; "
+            f"patch cache {json.dumps(h5)}")
+        check(p_err <= TSNE_P_RTOL and kl_share <= TSNE_KL_SHARE,
+              f"diagnostics: t-SNE on the card vs the CPU: P {p_err} "
+              f"(limit {TSNE_P_RTOL}), KL {card.kl_divergence} vs "
+              f"{cpu.kl_divergence} ({kl_share}, limit {TSNE_KL_SHARE})")
+        # collect over the CLI runs' workbooks: one (run, repeat) row and
+        # one mean row each, a blank row between runs, in run order; each
+        # run's OA the one its solver computed.
+        kept = RESULTS["oa"]
+        n_books = len(list(collect.iter_run_workbooks(RESULTS["dir"])))
+        summary = collect.collect_results(
+            RESULTS["dir"], os.path.join(tmp, "summary.xlsx"))
+        from dmfusion_torch.report.excel import Workbook
+        sheet = Workbook.load(summary)["summary"]
+        rows = [r for r in range(2, 3 * n_books + 2)
+                if sheet.cell(r, 1) is not None]
+        got = {sheet.cell(r, 1).split("/")[0]: sheet.cell(r, 3)
+               for r in rows[::2]}
+        check(n_books == len(kept) and len(rows) == 2 * n_books
+              and [sheet.cell(r, 2) for r in rows] == [0, "mean"] * n_books
+              and sheet.cell(3 * n_books + 1, 1) is None
+              and got.keys() == kept.keys()
+              and all(abs(got[t] - kept[t]) <= 1e-12 for t in kept),
+              f"diagnostics: collect gave {len(rows)} rows for {n_books} "
+              f"workbooks, OA {got} against {kept}")
+        result = {
+            "card": card_line(), "visualize_s": vis_s,
+            "visualize_streams_s": vis_streams_s, "tsne_points": TSNE_POINTS,
+            "tsne_card_s": tsne_s, "tsne_cpu_f64_s": cpu_s,
+            "tsne_card": {"kl": card.kl_divergence, "n_iter": card.n_iter},
+            "tsne_cpu": {"kl": cpu.kl_divergence, "n_iter": cpu.n_iter},
+            "tsne_p_max_rel": p_err, "tsne_kl_share": kl_share,
+            "visualize_kl": gm.tsne.kl_divergence,
+            "streams_kl": ts.tsne.kl_divergence, "h5": h5,
+            "single": single, "single_b1": single_b1,
+            "launches": {"diagnostics": visual["gather_windows"],
+                         "single": single_launches["gather_windows"]},
+            "collect_workbooks": n_books,
+            "phase_s": time.perf_counter() - t_phase}
+    finally:
+        for name in ("train", "train_gan"):
+            KEPT.pop(name, None)
+        for d in (tmp, gm_tmp, ts_tmp):
+            shutil.rmtree(d, ignore_errors=True)
+    del gm, ts
+    torch.cuda.empty_cache()
+    log(f"diagnostics: {json.dumps(result)}")
+    return (visual["gather_windows"], single_launches["gather_windows"],
+            result["single_b1"])
+
+
 def main() -> None:
+    try:
+        _main()
+    finally:
+        for _, d in KEPT.values():
+            shutil.rmtree(d, ignore_errors=True)
+        if RESULTS["dir"] is not None:
+            shutil.rmtree(RESULTS["dir"], ignore_errors=True)
+
+
+def _main() -> None:
     t_start = time.perf_counter()
     secs = {}
 
@@ -4338,6 +4788,7 @@ def main() -> None:
         return out
 
     device, card = phase("device", phase_device)
+    _register_single()
     phase("build", phase_build)
     t0 = time.perf_counter()
     scene = synthetic_scene(load_config(overrides=CFG), device=device)
@@ -4384,6 +4835,8 @@ def main() -> None:
         phase("train_quad", phase_train_quad, scene, device, quad, gan)
     del quad, gan
     by_path["train_gan"] = phase("train_gan", phase_train_gan, scene, device)
+    by_path["diagnostics"], by_path["single"], timings["gather_windows"][
+        "single"] = phase("diagnostics", phase_diagnostics, device)
     by_path["zoo"] = phase("zoo", phase_zoo, scene, device)
     by_path["train_ct"] = phase("train_ct", phase_train_ct, device)
     launches = {"gather_windows": sum(by_path.values()),
@@ -4410,8 +4863,9 @@ def main() -> None:
                      "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"], "unit": spec["unit"],
-                     **({k: t[k] for k in ("one", "patch47", "tri", "quad",
-                                           "sharded", "sharded_streams")}
+                     **({k: t[k] for k in ("one", "single", "patch47", "tri",
+                                           "quad", "sharded",
+                                           "sharded_streams")}
                         if name == "gather_windows" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)

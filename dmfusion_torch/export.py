@@ -20,9 +20,9 @@ for XLA and is ignored) and rebuilds the model from the manifest and the
 widths its param tree gives (a ``.dmx`` records ``model_width`` but no
 ``trans``).  Per-anchor artifacts take arity ``dual`` (two inputs),
 ``tri`` (three: MS, PAN and the MSPAN stream that serving rebuilds from
-the manifest's ``seed``) or ``quad`` (one: dqtl's four MS-geometry
-streams concatenated on the batch axis, served with the stage-1 GAN
-scenes).
+the manifest's ``seed``), ``single`` (one: the MS window) or ``quad``
+(one: dqtl's four MS-geometry streams concatenated on the batch axis,
+served with the stage-1 GAN scenes).
 
     python -m dmfusion_torch.export --weights W.pt [--map] --out X.zip \
         [--config C] [--city CITY] [--model NAME] [--set key=value ...]
@@ -54,6 +54,10 @@ from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
                                         resolve_dense_streams_infer)
 
 ARTIFACT_FORMAT = 1
+
+# PAN-geometry inputs after the MS window, by arity (dual: 1): tri adds
+# MSPAN; single takes the MS window alone (dmfusion's input specs).
+_PAN_INPUTS = {"tri": 2, "single": 0}
 
 # flax's msgpack extension code for an ndarray (flax/serialization.py).
 _EXT_NDARRAY = 1
@@ -91,8 +95,8 @@ def _manifest(cfg: Mapping[str, Any], map_route: bool) -> dict[str, Any]:
         "compute_dtype": str(prec.get("compute_dtype", "bfloat16")),
         "scene_dtype": str(prec.get("scene_dtype", "float32")),
         "input_shapes": [["b", str(ps), str(ps), str(chans)]] + [
-            ["b", str(4 * ps), str(4 * ps), "1"]] * (2 if arity == "tri"
-                                                      else 1),
+            ["b", str(4 * ps), str(4 * ps), "1"]]
+        * _PAN_INPUTS.get(arity, 1),
         "torch_version": torch.__version__,
         "activate": str(cfg["schedule"]["activate"]),
     }
@@ -186,8 +190,8 @@ class TorchClassifier:
     """A loaded artifact: ``manifest``, the config ``cfg`` it was rebuilt
     from, and the model on ``device``.  Per-anchor artifacts take NHWC
     window batches in ``logits(*inputs)`` and ``predict(*inputs)``: ``(ms,
-    pan)`` for arity ``dual``, ``(ms, pan, mspan)`` for ``tri``, and for
-    ``quad`` one ``(4b, ps, ps, C)`` batch of the four streams' windows,
+    pan)`` for arity ``dual``, ``(ms, pan, mspan)`` for ``tri``, ``(ms,)``
+    for ``single``, and for ``quad`` one ``(4b, ps, ps, C)`` batch of the four streams' windows,
     predicted by the fused MS-plus-PAN rule (``(b,)`` labels); map
     artifacts (arity ``dense``, or ``serving: "map"``) take the padded
     scene in ``logits(ms, pan)`` (the (H, W, ncls) map) and
@@ -271,10 +275,10 @@ def load_artifact(path: str | os.PathLike,
         else:
             raise ValueError(f"{path}: no params.npz or params.msgpack")
     arity = manifest["arity"]
-    if arity not in ("dual", "tri", "quad", "dense"):
-        raise ValueError(f"{path}: arity {arity!r} is not ported to "
-                         f"dmfusion_torch yet (ported: 'dual', 'tri', "
-                         f"'quad', 'dense')")
+    if arity not in ("dual", "tri", "quad", "single", "dense"):
+        raise ValueError(f"{path}: arity {arity!r} is not one of the "
+                         f"serving arities ('dual', 'tri', 'quad', "
+                         f"'single', 'dense')")
     act = manifest.get("activate") or (overrides or {}).get(
         "schedule", {}).get("activate")
     if act is None:

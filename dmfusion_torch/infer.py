@@ -1,10 +1,10 @@
 """Serving-side scene inference from an artifact.
 
-Port of ``dmfusion/infer.py`` for the ``dual``, ``tri``, ``quad`` and
-``dense`` arities.  ``ScenePredictor`` runs a loaded classifier over a
-device-resident scene.  Per-anchor artifacts (``dual``; ``tri``, whose
-third stream, MSPAN, is rebuilt from the scene and the manifest's seed as
-the solver builds it; ``quad``, whose four MS-geometry streams are built
+Port of ``dmfusion/infer.py`` for the ``dual``, ``tri``, ``quad``,
+``single`` and ``dense`` arities.  ``ScenePredictor`` runs a loaded
+classifier over a device-resident scene.  Per-anchor artifacts (``dual``;
+``single``, the MS window alone; ``tri``, whose third stream, MSPAN, is
+rebuilt from the scene and the manifest's seed as the solver builds it; ``quad``, whose four MS-geometry streams are built
 from the scene and the stage-1 GAN scenes in ``gan_dir`` as the two-stage
 solver builds them) gather windows (the CUDA kernel on the card, the
 plain gather on the CPU) into fixed-size ``bucket`` batches;
@@ -34,15 +34,16 @@ import torch
 
 from dmfusion_torch.data.scene import (load_gan_scenes, mspan_scene,
                                        quad_streams)
-from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
-                                       gather_tri_fast)
+from dmfusion_torch.ops.gather import (gather_dual_fast, gather_one_fast,
+                                       gather_quad_fast, gather_tri_fast)
 
 
 class ScenePredictor:
     """Per-anchor scene classification through a loaded classifier.
 
     ``dual``: the MS anchor (x, y) owns a ``ps`` window, the PAN anchor
-    (4x, 4y) a ``4*ps`` window, as in training; ``tri`` adds the MSPAN
+    (4x, 4y) a ``4*ps`` window, as in training; ``single`` takes the MS
+    window alone; ``tri`` adds the MSPAN
     window at the PAN anchor, from the MSPAN stream built with ``seed``
     (default: the manifest's, as the artifact was trained with); ``quad``
     gathers four windows at the MS anchor from the streams built with the
@@ -58,10 +59,10 @@ class ScenePredictor:
     def __init__(self, clf, scene, *, bucket: int = 4096,
                  seed: int | None = None, gan_dir: str | None = None):
         arity = clf.manifest["arity"]
-        if arity not in ("dual", "tri", "quad", "dense"):
-            raise ValueError(f"arity {arity!r} is not ported to "
-                             f"dmfusion_torch yet (ported: 'dual', 'tri', "
-                             f"'quad', 'dense')")
+        if arity not in ("dual", "tri", "quad", "single", "dense"):
+            raise ValueError(f"arity {arity!r} is not one of the serving "
+                             f"arities ('dual', 'tri', 'quad', 'single', "
+                             f"'dense')")
         if arity == "quad" and gan_dir is None:
             raise ValueError(
                 "quad (DQTL) artifacts need the stage-1 GAN scene "
@@ -101,6 +102,10 @@ class ScenePredictor:
             self.streams = quad_streams(
                 scene, *load_gan_scenes(gan_dir, size), clf.device)
             self.gather = gather_quad_fast
+        elif arity == "single":
+            self.streams = (scene.ms,)
+            self.gather = lambda ms, ids, w, ps: (
+                gather_one_fast(ms, ids, w, ps),)
 
     def _map(self) -> np.ndarray:
         """Map artifacts: the whole-scene (H, W) class map from one

@@ -28,7 +28,9 @@ names every layer explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``,
 ``CrossNet``, ``ViT``, ``Swin``, ``SwinDual``, ``CTLSTM``, ``Generator``
 and ``Discriminator`` for the tri_net, dqtl, resnet18, cross_net, vit,
 swin_transformer, swin_T_dual, ct_lstm, generator and discriminator
-trees, each rooted at flax's ``Net`` (tri_net's ``ResBlock_2`` is its
+trees, and ``MSNet`` for an MS-only classifier built of the shared blocks
+(a stem ``ConvBlock_0``, ``ResBlock_i``, ``MLPHead_0``), each rooted at
+flax's ``Net`` (tri_net's ``ResBlock_2`` is its
 MSPAN branch, gmfnet's the trunk's first block: one name, two layers).
 
 The optimizer state goes across the same way (:func:`opt_state_from_optax`,
@@ -125,6 +127,12 @@ _CHILDREN: dict[str, dict[str, tuple[str, str]]] = {
                   "ConvBlock_2": ("dec", "ConvBlock"),
                   "Conv_0": ("out", LEAF)},
     "Discriminator": {**_conv_block(3, "blocks"), "Conv_0": ("out", LEAF)},
+    # An MS-only classifier of the shared blocks (a model of the single
+    # arity): a stem, residual blocks, a head.
+    "MSNet": {"ConvBlock_0": ("stem", "ConvBlock"),
+              **{f"ResBlock_{i}": (f"blocks.{i}", "ResBlock")
+                 for i in range(8)},
+              "MLPHead_0": ("head", "MLPHead")},
     "ResNet18": {"ms_branch": ("ms_branch", "Branch"),
                  "pan_branch": ("pan_branch", "Branch"),
                  "MLPHead_0": ("head", "MLPHead")},

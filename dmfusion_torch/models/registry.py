@@ -1,13 +1,17 @@
 """Model registry: ``Net(cfg)`` by config name.
 
 Port of ``dmfusion/models/registry.py``: every model of dmfusion's zoo,
-and ``vit`` as a second name of vision_transformer.  An unknown name
-raises a ``ValueError`` that lists the known ones.
+``vit`` as a second name of vision_transformer, and any class a caller
+adds with :func:`register`.  An unknown name raises a ``ValueError`` that
+lists the known ones.  A model's arity comes from the fixed table below,
+else from its module's ``ARITY`` (the registered class's own module), else
+"dual", as dmfusion reads it.
 """
 
 from __future__ import annotations
 
 import importlib
+import sys
 from typing import Any, Callable, Mapping
 
 _EXPLICIT: dict[str, Callable] = {}
@@ -22,7 +26,8 @@ _PORTED = {"gmfnet": "gmfnet", "gmfnet_conv": "gmfnet_conv",
            "discriminator": "discriminator"}
 
 # Model input contract (``dmfusion/models/registry.py``): how windows are
-# gathered and fed.  Names absent here are "dual": model(ms, pan).
+# gathered and fed.  Names absent here take their module's ``ARITY``, else
+# "dual": model(ms, pan); "single" is model(ms).
 _ARITY = {
     "dense_fusion": "dense",
     "tri_net": "tri",
@@ -54,19 +59,29 @@ def build_model(cfg: Mapping[str, Any], name: str | None = None):
     return get_model_class(name or cfg["model_name"])(cfg=dict(cfg))
 
 
+def _model_module(key: str):
+    """The module that defines a known model: a registered class's own,
+    else the ported module; None for an unknown name."""
+    if key in _EXPLICIT:
+        name = _EXPLICIT[key].__module__
+        return sys.modules.get(name) or importlib.import_module(name)
+    if key in _PORTED:
+        return importlib.import_module(f"dmfusion_torch.models.{_PORTED[key]}")
+    return None
+
+
 def model_arity(name: str) -> str:
-    return _ARITY.get(name.lower(), "dual")
+    key = name.lower()
+    if key in _ARITY:
+        return _ARITY[key]
+    return getattr(_model_module(key), "ARITY", "dual")
 
 
 def model_map_programs(name: str) -> str | None:
-    """The map-route programs a ported model's module declares
+    """The map-route programs a model's module declares
     (``MAP_PROGRAMS``): "convmap" renders whole-scene maps through
     ``train/steps.py::ConvMapPrograms`` (gmfnet_conv); None otherwise."""
-    key = name.lower()
-    if key not in _PORTED:
-        return None
-    mod = importlib.import_module(f"dmfusion_torch.models.{_PORTED[key]}")
-    return getattr(mod, "MAP_PROGRAMS", None)
+    return getattr(_model_module(name.lower()), "MAP_PROGRAMS", None)
 
 
 def available_models() -> list[str]:

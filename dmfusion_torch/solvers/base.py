@@ -14,9 +14,11 @@ up: the CLI starts it) the solver holds the ``data`` axis's
 dmfusion's ``get_mesh`` builds its mesh.  Every rank draws the same
 splits and batches, as every dmfusion process does; the programs shard
 them.  Only rank 0 (``is_main``) writes: the run slot, checkpoints,
-records, the matrix, the workbook, PNGs and profiles.  Not ported yet:
-the ``use_h5`` patch cache (ROADMAP A13), which raises
-``NotImplementedError``.
+records, the matrix, the workbook, PNGs, profiles and the ``use_h5``
+patch cache: with ``use_h5`` each repeat's ``dataloader`` writes its train
+windows as ``{time}_train_patches.h5`` (``utils/h5cache.py``; ``h5py`` is
+needed, and the machine with the card has none, so there it raises
+``ImportError``).
 """
 
 from __future__ import annotations
@@ -51,17 +53,9 @@ class Split:
         self.unlabeled = unlabeled
 
 
-def _refuse_unported(cfg: Mapping[str, Any]) -> None:
-    if cfg.get("use_h5"):
-        raise NotImplementedError(
-            "use_h5: the patch cache is not ported to dmfusion_torch yet "
-            "(ROADMAP A13)")
-
-
 class BaseSolver:
     def __init__(self, cfg: Mapping[str, Any]):
         cfg = dict(cfg)
-        _refuse_unported(cfg)
         self.mesh = get_mesh(cfg)
         self.is_main = self.mesh is None or self.mesh.is_main
         if "RESULT_output" not in cfg:
@@ -125,6 +119,16 @@ class BaseSolver:
                            valid_ids.astype(np.int32),
                            self.labeled_ids, self.unlabeled_ids)
         self._epoch_rng = rng
+        if cfg.get("use_h5") and self.scene.ms is not None and self.is_main:
+            # The repeat's train windows as an HDF5 cache (dmfusion's
+            # use_h5), once a slot; the two-stage solver has freed the
+            # dual scene, and the cache is dual-only.
+            path = os.path.join(cfg["RESULT_output"],
+                                f"{self.time}_train_patches.h5")
+            if not os.path.exists(path):
+                from dmfusion_torch.utils.h5cache import save_patches
+                os.makedirs(cfg["RESULT_output"], exist_ok=True)
+                save_patches(path, self.scene, self.split.train)
 
     def batches(self, ids: np.ndarray, batch: int, shuffle: bool = False,
                 trim: bool = False, round_to: int = 1):
@@ -185,9 +189,7 @@ class BaseSolver:
         raise NotImplementedError
 
     def visualize(self):
-        raise NotImplementedError(
-            "visualize: t-SNE diagnostics are not ported to dmfusion_torch "
-            "yet (ROADMAP A15)")
+        raise NotImplementedError
 
     def run(self):
         """Repeat loop: split, then train, test and color as configured."""

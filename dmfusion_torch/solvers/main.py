@@ -2,7 +2,9 @@
 
 Port of ``dmfusion/solvers/main.py`` for models of arity ``dual`` (gmfnet,
 gmfnet_conv, resnet18, cross_net, vit, swin_transformer, swin_T_dual,
-ct_lstm), ``tri`` (tri_net) and ``dense`` (dense_fusion).
+ct_lstm), ``tri`` (tri_net), ``dense`` (dense_fusion) and ``single`` (a
+registered model whose module declares ``ARITY = "single"``: the MS window
+alone, through ``SinglePrograms``; no model of the zoo has it).
 Semantics kept:
   * the model comes from the registry by ``model_name``, seeded with
     ``seed + repeat``; the optimizer counts ``ceil(len(train) / batchsize)``
@@ -20,7 +22,10 @@ Semantics kept:
     a test- or color-only run without weights raises
     ``FileNotFoundError``;
   * color() writes ``{time}_pic_1.png`` (labeled pixels) and
-    ``{time}_pic_2.png`` (all pixels), with the port's own PNG writer.
+    ``{time}_pic_2.png`` (all pixels), with the port's own PNG writer;
+  * with ``use_h5`` a dual-arity run trains from the repeat's patch cache
+    (``H5DualPrograms``: rows of the pre-gathered windows, shuffled by the
+    repeat's generator as dmfusion shuffles them), in one process.
 
 Eval and predict batches are rounded up to 4096 anchors on the card (the
 counterpart of dmfusion's fast-gather rule) and to 64 on the CPU; masks
@@ -42,9 +47,10 @@ quad arity (dqtl) trains under ``solvers/twostage.py``, and so do the image
 arity's generator and discriminator, as its stage 1: this solver refuses
 them with a ``ValueError``, as dmfusion's does.  ``proof`` (the
 contourlet diagnostics) renders the lowband and the four directional
-subbands of ``proof.samples`` labeled anchors' MS and PAN windows.  The
-single arity and ``visualize`` are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+subbands of ``proof.samples`` labeled anchors' MS and PAN windows;
+``visualize`` draws the t-SNE scatter of ``visualize.samples`` test
+anchors' logits (``report/viz.py::embedding_scatter``, the t-SNE on the
+run's device).
 
 Under a mesh (``torchrun``, ``mesh.distributed``; ``solvers/base.py``)
 the dual, tri and dense arities train, validate, test and color on every
@@ -57,8 +63,11 @@ mesh: ``dense_streams`` 0, ``train.dense_epoch`` 'auto' is 'minibatch',
 ``train.dense_remat`` 'auto' is 'on' without a probe, and no band probe.
 Rank 0 alone writes; a checkpoint that a phase reads back
 (``train.resume``, a test- or color-only run) is read by rank 0 and
-broadcast.  Models with BatchNorm raise ``NotImplementedError`` naming
-their ROADMAP A14 item.
+broadcast.  ``visualize`` trims its anchors to a multiple of the ranks,
+every rank computes its shard's logits, and rank 0 embeds them all;
+``use_h5`` warns and trains from scene gathers, as dmfusion's
+multi-process run does.  Models with BatchNorm raise
+``NotImplementedError`` naming their ROADMAP A14 item.
 """
 
 from __future__ import annotations
@@ -70,7 +79,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from dmfusion_torch.data.patches import gather_dual
+from dmfusion_torch.data.patches import batched_ids_np, gather_dual
 from dmfusion_torch.data.scene import mspan_scene
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.registry import (build_model, model_arity,
@@ -79,24 +88,22 @@ from dmfusion_torch.ops.contourlet import contourlet_decompose
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
 from dmfusion_torch.parallel import check_model
 from dmfusion_torch.report.png import write_png
-from dmfusion_torch.report.viz import channel_grid
+from dmfusion_torch.report.viz import channel_grid, embedding_scatter
 from dmfusion_torch.solvers.base import BaseSolver
 from dmfusion_torch.train.checkpoint import (AsyncCheckpointWriter, exists,
                                              load_checkpoint, save_checkpoint,
                                              snapshot)
 from dmfusion_torch.train.optim import make_optimizer
 from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
-                                        DualPrograms, TriPrograms,
-                                        resolve_dense_epoch,
+                                        DualPrograms, H5DualPrograms,
+                                        QuadPrograms, SinglePrograms,
+                                        TriPrograms, resolve_dense_epoch,
                                         resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
 
-# Arity -> where its training stands: the ROADMAP item that ports it, or
-# the solver that trains it.
-_UNPORTED_ARITY = {"single": "is not ported to dmfusion_torch yet (ROADMAP "
-                             "A12)",
-                   "quad": "trains under the two-stage solver: pass "
-                           "--solver twostage (ROADMAP A11)"}
+# The per-anchor programs of an arity other than dual (whose map-route
+# models take ConvMapPrograms).
+_PROGRAMS = {"tri": TriPrograms, "single": SinglePrograms}
 
 # The dense memory probes' decisions, per process.  dmfusion also keeps
 # them on disk, because each of its probes is an XLA compile that costs
@@ -224,6 +231,8 @@ class Solver(BaseSolver):
         self.best_params: dict[str, torch.Tensor] | None = None
         self.scene_args: tuple | None = None
         self.color_time = 0.0
+        #: The last ``visualize`` scatter's t-SNE run (rank 0).
+        self.tsne = None
 
     # -- model lifecycle ---------------------------------------------------
     def init_model(self) -> None:
@@ -235,10 +244,14 @@ class Solver(BaseSolver):
                 f"{cfg['model_name']!r} trains as stage 1 of the two-stage "
                 "solver (--solver twostage --set model_name=dqtl "
                 "dqtl.pre_trained=0)")
-        if arity not in ("dual", "tri", "dense"):
+        if arity == "quad":
             raise NotImplementedError(
-                f"model {cfg['model_name']!r} has arity {arity!r}: its "
-                f"training {_UNPORTED_ARITY[arity]}")
+                f"model {cfg['model_name']!r} has arity 'quad': its training "
+                "trains under the two-stage solver: pass --solver twostage "
+                "(ROADMAP A11)")
+        if arity not in ("dual", "tri", "dense", "single"):
+            raise ValueError(f"unsupported model arity {arity!r} for the "
+                             "main solver")
         loss_name = cfg["schedule"]["loss"]
         if loss_name != "Criterion":
             raise ValueError(
@@ -246,9 +259,7 @@ class Solver(BaseSolver):
                 "solver (integer-label classification); use 'Criterion' "
                 "(qua_loss is selected automatically by task 'dqtl')")
         if self.scene_args is None:
-            self.scene_args = (self.scene.ms, self.scene.pan)
-            if arity == "tri":
-                self.scene_args += (mspan_scene(self.scene, cfg["seed"]),)
+            self.scene_args = self._make_scene_args(arity)
         streams = 0
         if arity == "dense":
             if self.mesh is None:  # a mesh's bands run on its ranks
@@ -295,14 +306,24 @@ class Solver(BaseSolver):
         else:
             # A model with a convolutional map route (gmfnet_conv) trains
             # per anchor and maps test and color in one pass.
-            if arity == "tri":
-                cls = TriPrograms
+            if arity in _PROGRAMS:
+                cls = _PROGRAMS[arity]
             elif model_map_programs(cfg["model_name"]) == "convmap":
                 cls = ConvMapPrograms
             else:
                 cls = DualPrograms
             self.programs = cls(model, self.optimizer, cfg, self.scene.width,
                                 self.scene.patch, mesh=self.mesh)
+
+    def _make_scene_args(self, arity: str) -> tuple:
+        """The scenes the arity's programs gather from: ``(ms,)`` (single),
+        ``(ms, pan)`` (dual, dense), ``(ms, pan, mspan)`` (tri)."""
+        if arity == "single":
+            return (self.scene.ms,)
+        args = (self.scene.ms, self.scene.pan)
+        if arity == "tri":
+            args += (mspan_scene(self.scene, self.cfg["seed"]),)
+        return args
 
     def _resolve_dense_memory(self, cfg: dict, streams: int,
                               n_train: int) -> dict:
@@ -361,9 +382,10 @@ class Solver(BaseSolver):
             self.load_records()
             if not cfg.get("nohup") and self.is_main:
                 print(f"[repeat {self.time}] resumed at epoch {self.epoch}")
+        h5 = self._maybe_h5_training()
         saver = self._make_saver()
         try:
-            self._train_loop(cfg, saver, best_loss)
+            self._train_loop(cfg, saver, h5, best_loss)
         finally:
             if saver is not None:
                 saver.close()
@@ -371,6 +393,49 @@ class Solver(BaseSolver):
         self.train_time = self.now() - t0
         self.epoch = 0
         self.save_records()
+
+    # -- the use_h5 cache's input path -------------------------------------
+    def _maybe_h5_training(self):
+        """With ``use_h5`` and this repeat's patch cache on disk (written by
+        ``dataloader``), train from the cached windows instead of the
+        scene (dmfusion's ``dataset_h5`` path): ``(H5DualPrograms over this
+        model and optimizer, (ms, pan) on the device, the rows' labels)``,
+        or None.  Dual-arity programs only (the cache format is dual), and
+        one process: under a ``torch.distributed`` world larger than 1 it
+        warns and the run trains from scene gathers, as dmfusion's
+        multi-process run does."""
+        cfg = self.cfg
+        if not cfg.get("use_h5") or type(self.programs) is not DualPrograms:
+            return None
+        if (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            import warnings
+            warnings.warn("use_h5 training input is single-process; the "
+                          "multi-process run falls back to scene gathers")
+            return None
+        path = os.path.join(cfg["RESULT_output"],
+                            f"{self.time}_train_patches.h5")
+        if not os.path.exists(path):
+            return None
+        from dmfusion_torch.utils.h5cache import read_h5
+        cache = read_h5(path)
+        prog = H5DualPrograms(self.model, self.optimizer, cfg,
+                              self.scene.width, self.scene.patch)
+        args = tuple(torch.from_numpy(cache[k]).to(self.device)
+                     for k in ("ms", "pan"))
+        return prog, args, cache["label"].astype(np.int32)
+
+    def _h5_row_batches(self, n_rows: int, labels_np: np.ndarray,
+                        batch: int):
+        """An epoch's shuffled row batches into the patch cache: (ids,
+        labels, mask) on the device, from this repeat's generator, as
+        dmfusion draws them."""
+        perm = self._epoch_rng.permutation(n_rows).astype(np.int32)
+        chunks, mask, _ = batched_ids_np(perm, batch)
+        labels = labels_np[chunks.reshape(-1)].reshape(chunks.shape)
+        return tuple(torch.from_numpy(a).to(self.device)
+                     for a in (chunks, labels, mask.astype(np.float32)))
 
     def _on_main(self, fn: Callable[[], Any]) -> Any:
         """``fn()``, or under a mesh rank 0's ``fn()`` on every rank
@@ -408,7 +473,7 @@ class Solver(BaseSolver):
             save_checkpoint(self.cur_weights_path(), tree,
                             meta=self._ckpt_meta())
 
-    def _train_loop(self, cfg, saver, best_loss: float) -> None:
+    def _train_loop(self, cfg, saver, h5, best_loss: float) -> None:
         best_epoch = 0
         save_best = cfg["train"]["save_best"]
         val_batches = None  # the same every epoch: built once
@@ -417,19 +482,26 @@ class Solver(BaseSolver):
         # for them, as in dmfusion.
         reuse_train = getattr(self.programs, "dense_epoch_mode",
                               "minibatch") == "full"
+        if h5 is not None:
+            prog, prog_args, h5_labels = h5
 
-        def build_train():
-            ids, labels, mask, _ = self.batches(
-                self.split.train, cfg["batchsize"], shuffle=True,
-                trim=self.TRIM_TRAIN)
-            return ids, labels, mask.float()
+            def build_train():
+                return self._h5_row_batches(len(h5_labels), h5_labels,
+                                            cfg["batchsize"])
+        else:
+            prog, prog_args = self.programs, self.scene_args
+
+            def build_train():
+                ids, labels, mask, _ = self.batches(
+                    self.split.train, cfg["batchsize"], shuffle=True,
+                    trim=self.TRIM_TRAIN)
+                return ids, labels, mask.float()
 
         nxt = build_train()
         while self.epoch < self.EPOCH:
             ep_t0 = self.now()
             ids, labels, mask = nxt
-            losses = self.programs.train_epoch(self.scene_args, ids, labels,
-                                               mask)
+            losses = prog.train_epoch(prog_args, ids, labels, mask)
             # The card may still be running the epoch: build the next
             # epoch's batches first (the same draws as at the top of the
             # next iteration), then fetch the mean loss once.
@@ -614,3 +686,70 @@ class Solver(BaseSolver):
                              os.path.join(out_dir,
                                           f"{self.time}_ct_{tag}_{band}.png"),
                              num_channels=min(most, x.shape[1]))
+
+    def visualize(self) -> None:
+        """t-SNE scatter of test-split logits coloured by target class
+        (dmfusion's ``visualize``, the reference's test-loop diagnostic):
+        ``visualize.samples`` test anchors, drawn from
+        ``default_rng(seed)`` and sorted, through the eval weights, embedded
+        on the run's device (``report/viz.py::embedding_scatter``) and
+        written as ``{time}_tsne_test.png``.  Under a mesh every rank
+        computes the logits and rank 0 embeds and writes them."""
+        cfg = self.cfg
+        self._use_eval_params()
+        ids = np.asarray(self.split.test, np.int32)
+        n = int(cfg.get("visualize", {}).get("samples", 2000))
+        if ids.shape[0] > n:
+            rng = np.random.default_rng(int(cfg["seed"]))
+            ids = np.sort(rng.choice(ids, n, replace=False))
+        ids = self._trim_to_mesh(ids)
+        labels = self.scene.label.reshape(-1)[ids].astype(np.int32)
+        self._scatter(self._anchor_logits(ids), labels, "test")
+
+    def _scatter(self, logits: torch.Tensor, labels: np.ndarray,
+                 tag: str) -> None:
+        """Rank 0: the t-SNE scatter of ``logits`` as
+        ``{time}_tsne_{tag}.png``; its run is kept in ``tsne``."""
+        if not self.is_main:
+            return
+        cfg = self.cfg
+        os.makedirs(cfg["RESULT_output"], exist_ok=True)
+        path = os.path.join(cfg["RESULT_output"],
+                            f"{self.time}_tsne_{tag}.png")
+        self.tsne = embedding_scatter(logits, labels, path,
+                                      seed=int(cfg["seed"]))
+
+    def _trim_to_mesh(self, ids: np.ndarray) -> np.ndarray:
+        """A diagnostic id set trimmed to a multiple of the mesh's ``data``
+        size, as dmfusion trims it: its sharded gathers split the batch
+        evenly."""
+        mesh = getattr(self.programs, "mesh", None)
+        if mesh is None:
+            return ids
+        r = int(mesh.data)
+        return ids[:max((ids.shape[0] // r) * r, 0)]
+
+    @torch.inference_mode()
+    def _anchor_logits(self, ids: np.ndarray) -> torch.Tensor:
+        """(B, C) float32 logits of a small diagnostic id set, on the
+        device: the window gather and the forward for the per-anchor
+        programs (quad: (4B, C), the four streams' rows stream by stream),
+        the anchor-pooled window sums and the head for the dense family (no
+        whole-scene map).  Under a mesh every rank's shard, gathered in
+        rank order on every rank."""
+        prog = self.programs
+        prog.model.eval()
+        ids_t = torch.from_numpy(np.asarray(ids, np.int32)).to(self.device)
+        if isinstance(prog, DensePrograms):
+            ms, pan = self.scene_args
+            pooled = prog._anchor_pooled_fn(ms.shape[0], ms.shape[1])
+            return prog.model.head(pooled(ms, pan, ids_t)).float()
+        logits = prog.model(*prog._gather(self.scene_args, ids_t)).float()
+        if prog.mesh is None:
+            return logits
+        streams = 4 if isinstance(prog, QuadPrograms) else 1
+        per = logits.shape[0] // streams
+        every = prog.mesh.rows(logits.view(streams, per, -1).transpose(0, 1)
+                               .contiguous())
+        return every[:len(ids)].transpose(0, 1).reshape(
+            streams * len(ids), -1)

@@ -35,7 +35,9 @@ needs them; stage 2 trains ``QuadPrograms`` on each rank's shard.  Rank 0
 alone touches the weights dir: the ``pan.npy`` cache, the GAN checkpoints
 (read and broadcast under ``dqtl.load_model``), msgan/pangan, their
 renders and sample grids; and, as in the main solver, the result tree, the
-workbook and its ``streams`` sheet.  ``proof`` keeps its refusal.
+workbook and its ``streams`` sheet.  ``visualize`` scatters the four
+streams' logits of ``visualize.samples // 4`` train anchors
+(``{time}_tsne_streams.png``); ``proof`` keeps its refusal.
 """
 
 from __future__ import annotations
@@ -338,6 +340,25 @@ class TwoStageSolver(Solver):
                 list(self.stream_matrices))
             if self.is_main:
                 expo_stream_results(self.stream_results, self.cfg, self.time)
+
+    def visualize(self) -> None:
+        """The four streams' scatter (dmfusion's ``visualize``, the
+        reference's ``visualize_extract``): ``visualize.samples // 4``
+        train anchors, drawn from ``default_rng(seed)`` and sorted, through
+        all four streams, their logits coloured by stream (M, PAN, GM, GP,
+        the legend's swatches in that order): whether the quadruplet loss
+        pulled the modalities together.  Written as
+        ``{time}_tsne_streams.png`` by rank 0."""
+        cfg = self.cfg
+        self._use_eval_params()
+        ids = np.asarray(self.split.train, np.int32)
+        n = max(1, int(cfg.get("visualize", {}).get("samples", 2000)) // 4)
+        if ids.shape[0] > n:
+            rng = np.random.default_rng(int(cfg["seed"]))
+            ids = np.sort(rng.choice(ids, n, replace=False))
+        ids = self._trim_to_mesh(ids)
+        self._scatter(self._anchor_logits(ids),
+                      np.repeat(np.arange(4), ids.shape[0]), "streams")
 
     def proof(self) -> None:
         """Not a phase of this solver: stage 2 frees the dual scene, as

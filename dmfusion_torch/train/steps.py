@@ -26,14 +26,18 @@ route of gmfnet_conv for test and color.  ``TriPrograms`` is
 PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card;
 ``QuadPrograms`` over the two-stage solver's four MS-geometry streams,
 gathered by ``gather_quad_fast``, with the quadruplet KL loss and the
-fused MS-plus-PAN prediction.
+fused MS-plus-PAN prediction.  ``SinglePrograms`` feeds the MS window
+alone, gathered by ``gather_one_fast`` (the kernel on every batch on the
+card); ``H5DualPrograms`` indexes rows of the ``use_h5`` cache's
+pre-gathered windows, with no gather at all.
 
-Under a mesh (``parallel/mesh.py``) ``DualPrograms``, ``TriPrograms`` and
-``QuadPrograms`` run the ``data`` axis: every rank holds the global
-(steps, B) batches, gathers its contiguous shard of each batch with the
-family's kernel wrapper on ``mesh.shard(ids)`` (``gather_dual_fast``, as
-``ops/gather.py::gather_dual_sharded`` does; ``gather_tri_fast``;
-``gather_quad_fast``: the kernel on every batch on the card), and sums
+Under a mesh (``parallel/mesh.py``) ``DualPrograms``, ``TriPrograms``,
+``SinglePrograms`` and ``QuadPrograms`` run the ``data`` axis: every rank
+holds the global (steps, B) batches, gathers its contiguous shard of each
+batch with the family's kernel wrapper on ``mesh.shard(ids)``
+(``gather_dual_fast``, as ``ops/gather.py::gather_dual_sharded`` does;
+``gather_tri_fast``; ``gather_one_fast``; ``gather_quad_fast``: the kernel
+on every batch on the card), and sums
 what the ranks computed: a step's gradients (the cross-entropy divides by
 the whole batch's real rows), an eval's loss sum and confusion, a
 prediction's class ids in rank order.  ``qua_loss`` is not a sum over
@@ -69,13 +73,14 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from dmfusion_torch.data.patches import gather_dual, gather_quad, gather_tri
+from dmfusion_torch.data.patches import (gather_dual, gather_one,
+                                         gather_quad, gather_tri)
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
                                                 phase_corner_sums, phase_sat,
                                                 sat_window_sums)
-from dmfusion_torch.ops.gather import (gather_dual_fast, gather_quad_fast,
-                                       gather_tri_fast)
+from dmfusion_torch.ops.gather import (gather_dual_fast, gather_one_fast,
+                                       gather_quad_fast, gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.parallel.mesh import Mesh
 from dmfusion_torch.train.losses import cross_entropy, qua_loss
@@ -324,6 +329,35 @@ class TriPrograms(DualPrograms):
     broadcast."""
 
     gathers = (gather_tri, gather_tri_fast)
+
+
+class H5DualPrograms(DualPrograms):
+    """The ``use_h5`` cache's input path (dmfusion's ``H5DualPrograms``,
+    the reference's ``dataset_h5``): ``scene_args`` are the pre-gathered
+    windows of the repeat's patch cache, (N, ps, ps, C) MS and (N, 4ps,
+    4ps, 1) PAN (``utils/h5cache.py``), and batch ids are row indices into
+    them.  An epoch indexes rows: no window gather, no kernel launch.  The
+    cache holds exactly what the plain gather gives, which the kernel
+    equals, so the epoch is the on-the-fly epoch's.  Single-process: the
+    solver trains a mesh from scene gathers, as dmfusion does."""
+
+    def _gather(self, scene_args: tuple, ids_b: torch.Tensor
+                ) -> tuple[torch.Tensor, ...]:
+        rows = ids_b.long()
+        return tuple(a[rows].float() for a in scene_args)
+
+
+class SinglePrograms(DualPrograms):
+    """Single-modality programs (dmfusion's ``SinglePrograms``, the
+    reference's ``dataset_one``): ``scene_args`` is ``(ms,)`` and the model
+    sees the MS window alone.  Every batch on the card, the train batches
+    of 256 included, goes through ``gather_one_fast`` (one window-kernel
+    launch), as the other families' do; dmfusion's ``_use_fast`` rule kept
+    small batches on the XLA gather, which the card's kernel beats at
+    every size.  Under a mesh each rank gathers its own shard."""
+
+    gathers = (lambda ms, ids, w, ps: (gather_one(ms, ids, w, ps),),
+               lambda ms, ids, w, ps: (gather_one_fast(ms, ids, w, ps),))
 
 
 class QuadPrograms(DualPrograms):

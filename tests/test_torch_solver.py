@@ -365,8 +365,6 @@ def test_test_only_without_weights_raises(tmp_path):
 def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="A14"):
         BaseSolver(_port_cfg(tmp_path, mesh={"data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match="A13"):
-        BaseSolver(_port_cfg(tmp_path, use_h5=1))
     # The image arity (stage 1's GAN nets) is refused by the main solver
     # with dmfusion's kind of error, naming the two-stage solver.
     solver = build_solver(_port_cfg(tmp_path, model_name="generator"))
@@ -377,9 +375,6 @@ def test_unported_paths_raise(tmp_path):
     solver.dataloader()
     with pytest.raises(NotImplementedError, match="--solver twostage"):
         solver.train()
-    # proof is ported (tests/test_torch_contourlet.py); visualize is not.
-    with pytest.raises(NotImplementedError, match="A15"):
-        solver.visualize()
     solver = build_solver(_port_cfg(tmp_path, schedule={"loss": "MSE"}))
     solver.dataloader()
     with pytest.raises(ValueError, match="not usable with the main solver"):

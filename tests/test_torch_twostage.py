@@ -146,14 +146,6 @@ def test_stale_shape_refused_with_dmfusions_message(tmp_path, gan):
     assert str(got.value) == str(want.value)
 
 
-def test_visualize_raises_naming_a15(tmp_path):
-    """The stream scatter (t-SNE, matplotlib) is not ported: refused,
-    naming A15."""
-    solver = build_solver(_cfg(tmp_path))
-    with pytest.raises(NotImplementedError, match="A15"):
-        solver.visualize()
-
-
 # -- stage 1 -----------------------------------------------------------------
 
 # One device: on the test suite's 8-device CPU mesh dmfusion would round
