@@ -258,19 +258,13 @@ Phases; any failure exits non-zero before the result line:
                 and through one process: losses within DP_LOSS_ATOL,
                 parameters within DP_PARAM_ATOL, and a mean of the ranks'
                 own means (DDP's rule) outside them; 20 timed steps a
-                rank and a profile of 5 on rank 0 (the all-reduce's
-                share).  Then ``python -m
-                torch.distributed.run --standalone --nproc-per-node 2 -m
-                dmfusion_torch.cli --set mesh.distributed=1 <TRAIN_SET>
-                epoch=1 test.index=0`` as a subprocess (the per-anchor
-                eval under the mesh is held by the val passes, the test
-                phase under the mesh by train_dp_maps' dense run;
-                train_dp_streams colors through it): one
-                ``gmfnet__0_output/``, one finite epoch loss, and each
-                rank's report (device ``cuda:0``, backend gloo) with B1
-                launched twice per gathered batch (train and val), the
-                count computed from the split sizes; the kernels line
-                counts both ranks' launches.
+                rank (B1 twice a step, counted) and a profile of 5 on rank
+                0 (the all-reduce's share); the kernels line counts both
+                ranks' launches in their steps.  The CLI on the data axis
+                runs in train_dp_streams (tri_net, the two-stage solver),
+                train_dp_maps (dense_fusion, and gmfnet_conv through the
+                same per-anchor programs and sharded gather as gmfnet's)
+                and train_tp (gmfnet on the model axis).
   18. train_dp_streams — (run after train_dp) the tri and quad arities
                 and stage 1 on the data axis, DP_RANKS ranks sharing the
                 card over gloo.  Spawned ranks build the same MSPAN (by
@@ -295,7 +289,8 @@ Phases; any failure exits non-zero before the result line:
                 Adam's step bound),
                 summed gradients outside the moments' limit; tri, quad and
                 GAN steps timed a rank, with profiles of the all-reduce's
-                and all-gather's shares on rank 0.  Then two runs of
+                and all-gather's shares on rank 0.  Then two runs, at once
+                (their start-ups overlap), of
                 ``python -m torch.distributed.run --standalone
                 --nproc-per-node 2 -m dmfusion_torch.cli ...
                 mesh.distributed=1``: tri_net (the train phase's set, one
@@ -323,7 +318,8 @@ Phases; any failure exits non-zero before the result line:
                 timed on each rank in turn; dense steps (bf16, batch 256)
                 timed a rank, a profile on rank 0 (the all-reduces' share,
                 the top device ops), and the window-sum and gradient
-                all-reduces timed alone.  Then two runs of ``python -m
+                all-reduces timed alone.  Then two runs, at once, of
+                ``python -m
                 torch.distributed.run --standalone --nproc-per-node 2 -m
                 dmfusion_torch.cli ... mesh.distributed=1``: dense_fusion
                 (train_dense's set, one epoch, test and color) and
@@ -334,7 +330,48 @@ Phases; any failure exits non-zero before the result line:
                 rank's band as ``band_plan`` gives it, and each rank's B2
                 launches (one a map: val, test, color) and B1 launches
                 (twice a gathered batch), counted from the split.
-  20. diagnostics — (run after train_gan, on the solvers that train and
+  20. train_tp — (run after train_dp_maps) the mesh's model axis:
+                TP_RANKS spawned ranks form a data 2 x model 2 mesh sharing
+                the card over gloo (rank r: data index r // 2, model index
+                r % 2), parameters and SGD/Adam moments sharded by
+                ``parallel/partition.py``.  Three f32 SGD steps (TF32 off)
+                from seeded weights, the padded batch first, through the
+                mesh and through one process (ranks 0-2 one model each,
+                broadcast):
+                gmfnet w64 at patch 16 on image6 (batch 256), vit at the
+                config's embed 96, depth 2 with ``trans.num_head=4`` (its
+                heads shard; batch TP_VIT_BATCH), and two steps of
+                dense_fusion w32 on train_dense's crop (its band of
+                ``band_plan(215, 2)`` a data index, B2 once a rank on the
+                band map after them, the map against one process's:
+                argmax agreement at least DPM_AGREE_F32): losses within
+                TP_LOSS_RTOL, parameters within TP_PARAM_RTOL and
+                TP_PARAM_ATOL; gmfnet's gradients summed over every rank,
+                and rank 0's shards broadcast over every rank, outside
+                them; B1 (``gather_dual_sharded`` on the data shard, 2
+                launches) at B 4096 and B 256 bit-equal to the plain
+                ``gather_dual`` and to the model peer's rows; every
+                sharded parameter and Adam moment of gmfnet, vit and
+                dense_fusion of the shard's shape, the bytes a rank holds
+                beside one process's; TP_STEPS timed bf16 Adam steps a rank
+                (B1 twice a step, counted) and a profile of 5 on rank 0
+                (the all-gathers' and all-reduces' share), timed alone
+                after the CLI run.  Meanwhile (the start-ups overlap)
+                ``python -m torch.distributed.run --standalone
+                --nproc-per-node 2 -m dmfusion_torch.cli --set
+                mesh.distributed=1 mesh.model=2
+                <TRAIN_SET> epoch=1 test.index=0 train_rate=0.002
+                verify_rate=0.002`` (data 1 x model 2, gmfnet w64, 23
+                steps): one result tree, finite records, each rank's
+                report (``mesh_model`` 2) with B1
+                launched twice per gathered batch (train and val), counted
+                from the split; the best weights loaded in one process on
+                the card give the run's val OA within TP_VAL_OA_ATOL and
+                val loss within TP_VAL_LOSS_RTOL (bf16: the sharded layers
+                add their bias after the gather).  The kernels line counts
+                the ranks' step launches and the CLI run's (B1) and the
+                band maps' (B2).
+  21. diagnostics — (run after train_gan, on the solvers that train and
                 train_gan trained and kept) ``visualize()`` of the gmfnet
                 solver: its t-SNE of TSNE_POINTS test anchors' logits on
                 the card, ``{time}_tsne_test.png`` written with the
@@ -371,6 +408,7 @@ kernels build in parallel, one ``nvcc`` per source.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import os
 import shutil
@@ -380,12 +418,14 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dmfusion_torch import parallel
 from dmfusion_torch.config import load_config, resolve_device
@@ -412,6 +452,10 @@ from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
 from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
                                   conv_kernel_probe, strip_gather_bench,
                                   time_in_turns)
+from dmfusion_torch.parallel.mesh import all_gather_rows
+from dmfusion_torch.parallel.partition import full_state, shard_model
+from dmfusion_torch.parallel.tensor import shard_dims
+from dmfusion_torch.train import steps as steps_mod
 from dmfusion_torch.train.gan import GanPrograms
 from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
                                         QuadPrograms, TriPrograms)
@@ -578,11 +622,6 @@ DP_GATHER_B = (4096, 4160, 1025, 256)
 # parameters 3e-8 to 2.4e-7 apart (H100 80GB HBM3, 700.00 W).
 DP_LOSS_ATOL, DP_PARAM_ATOL = 1e-5, 1e-6
 DP_PROFILE_STEPS = 5
-# The CLI under torchrun: the train phase's run, cut to one epoch and
-# without test (the val pass is the same per-anchor eval under the mesh, OA
-# at least 0.5; train_dp_maps' dense run tests under the mesh;
-# train_dp_streams colors through the mesh's predict).
-DP_TRAIN_SET = [*TRAIN_SET, "epoch=1", "test.index=0"]
 DP_TIMEOUT = 400
 # The tri and quad arities and stage 1 on the data axis (phase
 # train_dp_streams), DP_RANKS ranks sharing the card over gloo as in
@@ -654,6 +693,46 @@ DPM_DENSE_SET = ["--set", *DENSE_TRAIN_SET, "epoch=1", "nohup=1"]
 DPM_CONV_SET = ["--set", *CONV_TRAIN_SET, "epoch=1", "color.index=0",
                 "test.index=0", "nohup=1"]
 DPM_TIMEOUT = 600
+# The mesh's model axis on the card (phase train_tp): TP_RANKS spawned ranks
+# form a data 2 x model 2 mesh sharing the one H100 over gloo.  Three f32
+# SGD steps (TF32 off) against one process from the same seeded weights,
+# the padded batch first, held to dmfusion's own limits for its TP mesh
+# (tests/test_parallel.py): losses rtol 1e-5, parameters rtol 1e-4 atol
+# 1e-6.  The two differ in the order of the sums (the peers' input
+# gradients added, cuDNN's algorithms at the shards' shapes).
+TP_RANKS, TP_MODEL = 4, 2
+TP_LOSS_RTOL, TP_PARAM_RTOL, TP_PARAM_ATOL = 1e-5, 1e-4, 1e-6
+# vit at the config's trans (embed 96, depth 2, patch 1: 513 tokens) with 4
+# heads, so that they shard on two model ranks; batches of 64 (the padded
+# one 40 real), as the attention's (B, heads, 513, 513) f32 scores of one
+# process and four ranks share the card.
+TP_VIT = {"model_name": "vision_transformer", "trans": {"num_head": 4}}
+TP_VIT_BATCH, TP_VIT_REAL = 64, 40
+# gmfnet's padded batch: 200 real rows of 256 (100 on each data index).
+TP_REAL = 200
+# Timed TP steps a rank (after 3, gmfnet w64, Adam, bf16, batch 256), then
+# a profile of DP_PROFILE_STEPS on rank 0.
+TP_STEPS = 10
+# The CLI under torchrun on two ranks, data 1 x model 2: the train phase's
+# run cut to one epoch, no test, and a tenth of its train and val anchors
+# (23 steps of 256 and 2 val buckets of 4096: a model-axis step of gmfnet
+# w64 took 0.40 s on the two ranks, 230 of them 98 s, "NVIDIA H100 80GB
+# HBM3, 700.00 W"); its val pass is the per-anchor eval on the model axis,
+# its OA recorded (no floor after 23 steps).  Its best weights, loaded in
+# one process on the card, give the run's val confusion again up to bf16
+# rounding: a sharded layer adds its bias after the gather, in bf16, where
+# one process's cuDNN conv fuses it.  So near-tie argmaxes part, and after
+# 23 steps the logits are near-uniform: OA 1.2e-3 apart (10 of 8,192
+# anchors) and the loss sums 2.2e-5; after 230 steps 1.7e-5 and 8.4e-4.
+TP_CLI_RANKS = 2
+TP_CLI_SET = [*TRAIN_SET, "epoch=1", "test.index=0", "train_rate=0.002",
+              "verify_rate=0.002"]
+TP_VAL_OA_ATOL, TP_VAL_LOSS_RTOL = 5e-3, 1e-2
+# The CLI run goes on while the spawned ranks hold their parity (their
+# start-ups overlap); this file, written when it ends, lets the ranks time
+# their steps alone.
+TP_CLI_DONE = "cli_done"
+TP_TIMEOUT = 600
 # The diagnostics phase.  visualize's t-SNE of the trained gmfnet's
 # ``visualize.samples`` (2,000) test logits, on the card and, in float64 on
 # the CPU, by the same function: the joint probabilities relative to the
@@ -1498,10 +1577,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _dp_env(rank: int, port: int) -> None:
-    """What ``torchrun`` sets for a rank of DP_RANKS on this host."""
+def _dp_env(rank: int, port: int, world: int = DP_RANKS) -> None:
+    """What ``torchrun`` sets for a rank of ``world`` on this host."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
-                      WORLD_SIZE=str(DP_RANKS), MASTER_ADDR="localhost",
+                      WORLD_SIZE=str(world), MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
 
 
@@ -1738,8 +1817,12 @@ def _dp_steps(scene, mesh) -> dict:
     def run(i0, i1):
         losses = prog.train_epoch(args, *(t[i0:i1] for t in batches))
         check(bool(torch.isfinite(losses).all()), "train_dp: non-finite loss")
+    before = gather_ops.gather_windows_cuda.launches
     out = _rank_timing(mesh, run, PROFILE_STEPS, DP_PROFILE_STEPS)
-    out.update(rank_batch=mesh.per_rank(TRAIN_BATCH),
+    b1 = gather_ops.gather_windows_cuda.launches - before
+    check(b1 == 2 * chunks.shape[0], f"train_dp: rank {mesh.rank} launched "
+          f"B1 {b1} times in {chunks.shape[0]} steps")
+    out.update(rank_batch=mesh.per_rank(TRAIN_BATCH), b1_launches=b1,
                samples_per_s=TRAIN_BATCH / out["step_ms"] * 1e3)
     return out
 
@@ -1772,13 +1855,13 @@ def _dp_rank(rank: int, port: int, out_dir: str) -> None:
 
 
 def _dp_cli(tmp: str, args: list[str], phase: str = "train_dp",
-            timeout: float = DP_TIMEOUT) -> dict:
-    """``python -m torch.distributed.run --standalone --nproc-per-node 2 -m
-    dmfusion_torch.cli <args> mesh.distributed=1 expo_result=<tmp>/``
-    (``args`` end in ``--set`` overrides), as a user starts it; returns its
-    seconds, output and the ranks' reports."""
+            timeout: float = DP_TIMEOUT, nprocs: int = DP_RANKS) -> dict:
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    <nprocs> -m dmfusion_torch.cli <args> mesh.distributed=1
+    expo_result=<tmp>/`` (``args`` end in ``--set`` overrides), as a user
+    starts it; returns its seconds, output and the ranks' reports."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(DP_RANKS), "-m", "dmfusion_torch.cli",
+           "--nproc-per-node", str(nprocs), "-m", "dmfusion_torch.cli",
            *args, "mesh.distributed=1", f"expo_result={tmp}/"]
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT, *filter(None, [os.environ.get("PYTHONPATH")])]))
@@ -1797,14 +1880,18 @@ def _dp_cli(tmp: str, args: list[str], phase: str = "train_dp",
     return {"run_s": run_s, "reports": reports, "joined": joined}
 
 
-def _spawn_ranks(fn, tmp: str, phase: str, timeout: float) -> list[dict]:
-    """``fn(rank, port, tmp)`` in DP_RANKS spawned processes, all killed
-    by ``timeout`` s; returns each rank's ``rank{r}.json``."""
+def _spawn_ranks(fn, tmp: str, phase: str, timeout: float,
+                 nprocs: int = DP_RANKS, during=None) -> list[dict]:
+    """``fn(rank, port, tmp)`` in ``nprocs`` spawned processes, all killed
+    by ``timeout`` s; ``during()`` runs in this process meanwhile.
+    Returns each rank's ``rank{r}.json``."""
     import torch.multiprocessing as mp
-    ctx = mp.start_processes(fn, args=(_free_port(), tmp), nprocs=DP_RANKS,
+    ctx = mp.start_processes(fn, args=(_free_port(), tmp), nprocs=nprocs,
                              join=False, start_method="spawn")
     deadline = time.perf_counter() + timeout
     try:
+        if during is not None:
+            during()
         while not ctx.join(timeout=5):
             check(time.perf_counter() < deadline,
                   f"{phase}: the spawned ranks ran past {timeout} s")
@@ -1813,7 +1900,7 @@ def _spawn_ranks(fn, tmp: str, phase: str, timeout: float) -> list[dict]:
             if p.is_alive():
                 p.kill()
     ranks = []
-    for r in range(DP_RANKS):
+    for r in range(nprocs):
         with open(os.path.join(tmp, f"rank{r}.json")) as f:
             ranks.append(json.load(f))
     return ranks
@@ -1821,13 +1908,11 @@ def _spawn_ranks(fn, tmp: str, phase: str, timeout: float) -> list[dict]:
 
 def phase_train_dp() -> tuple[int, dict]:
     """The mesh's data axis on the card: two ranks on ``cuda:0`` over gloo.
-    Spawned ranks hold the sharded gather, SGD parity and the step times;
-    then gmfnet is trained (one epoch, no test) by ``torchrun`` through
-    the CLI.
-    Returns B1's launches in the CLI run (both ranks) and the wrapper's
-    times on rank 0."""
-    from dmfusion_torch.config import parse_overrides
-    from dmfusion_torch.solvers import BaseSolver
+    Spawned ranks hold the sharded gather, SGD parity and the step times.
+    Returns B1's launches in the ranks' timed steps (both ranks) and the
+    wrapper's times on rank 0.  The CLI under torchrun on the data axis is
+    driven by train_dp_streams, train_dp_maps (gmfnet_conv per anchor:
+    the same programs and sharded gather) and train_tp (gmfnet)."""
     log(f"train_dp: {DP_RANKS} ranks share one card ({card_line()}) over "
         "gloo: NCCL takes one rank a device.  These numbers hold the path's "
         "correctness and say nothing of scaling across cards.")
@@ -1840,65 +1925,13 @@ def phase_train_dp() -> tuple[int, dict]:
                 f"{r['backend']}: sharded gather bit-equal "
                 f"({', '.join(r['gather']['cases'])}, f32 and bf16); "
                 f"{json.dumps({k: r['gather'][k] for k in ('B4096', 'B4160')})}")
-
-        # The CLI under torchrun, then its split, as the CLI drew it.
-        for spec in KERNELS.values():
-            spec["counter"].launches = 0
-        cli_run = _dp_cli(tmp, ["--set", *DP_TRAIN_SET])
-        launches = {n: spec["counter"].launches
-                    for n, spec in KERNELS.items()}
-        check(not any(launches.values()),
-              f"train_dp: the parent launched {launches}")
-        for line in cli_run["joined"]:
-            log(f"train_dp: {line}")
-        reports = cli_run["reports"]
-        check([r["rank"] for r in reports] == list(range(DP_RANKS)),
-              f"train_dp: rank reports {reports}")
-        for r in reports:
-            check(r["device"] == "cuda:0" and r["backend"] == "gloo"
-                  and r["world"] == r["mesh_data"] == DP_RANKS,
-                  f"train_dp: rank {r['rank']} ran on {r}")
-        cfg = load_config(overrides=parse_overrides(DP_TRAIN_SET))
-        base = BaseSolver({**cfg, "RESULT_output": tmp})
-        base.dataloader()
-        split = base.split
-        del base
-        root = os.path.join(tmp, f"image6_tr{cfg['train_rate']}_ep1_bs"
-                                 f"{TRAIN_BATCH}")
-        check(sorted(os.listdir(root)) == ["gmfnet__0_output"],
-              f"train_dp: result tree {sorted(os.listdir(root))}")
-        out = os.path.join(root, "gmfnet__0_output")
-        files = ["0_curweights.pt", "0_records.json", "0_weights.pt"]
-        check(sorted(os.listdir(out)) == files,
-              f"train_dp: output files {sorted(os.listdir(out))}")
-        with open(os.path.join(out, "0_records.json")) as f:
-            rec = json.load(f)
-        check(rec["Epoch"] == [0] and all(np.isfinite(rec["Loss"]
-                                                      + rec["ValLoss"])),
-              f"train_dp: records {rec}")
-
-        def nb(n, b):
-            return -(-n // b)
-        batches = {"train": nb(len(split.train), TRAIN_BATCH),
-                   "val": nb(len(split.valid), EVAL_BATCH)}
-        want = 2 * sum(batches.values())
-        for r in reports:
-            check(r["gather_windows_launches"] == want,
-                  f"train_dp: rank {r['rank']} launched B1 "
-                  f"{r['gather_windows_launches']} times, the split sizes "
-                  f"give {want} ({batches})")
-        b1 = sum(r["gather_windows_launches"] for r in reports)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    b1 = sum(r["steps"]["b1_launches"] for r in ranks)
     result = {
         "ranks": DP_RANKS, "card": card_line(), "backend": "gloo",
         "model": "gmfnet", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
-        "rank_batch": -(-TRAIN_BATCH // DP_RANKS),
-        "cli_run_s": cli_run["run_s"], "epoch_s": rec["EpochTime"],
-        "loss": rec["Loss"], "val_loss": rec["ValLoss"],
-        "val_oa": rec["ValOA"], "gather_batches_per_rank": batches,
-        "b1_launches_per_rank": want,
-        "b1_launches": b1, "reports": reports,
+        "rank_batch": -(-TRAIN_BATCH // DP_RANKS), "b1_launches": b1,
         "gather": {r["rank"]: r["gather"] for r in ranks},
         "parity": ranks[0]["parity"],
         "steps": {r["rank"]: r["steps"] for r in ranks},
@@ -2295,29 +2328,45 @@ def _dps_rank(rank: int, port: int, out_dir: str) -> None:
         parallel.shutdown()
 
 
+# The splitting solver of each (city, seed), built once for the mesh phases'
+# CLI runs (they all split image6): its scene build is the cost.  The runs
+# of a phase check at once, in threads (:func:`_cli_runs`).
+_SPLIT_SOLVERS: dict = {}
+_SPLIT_LOCK = threading.Lock()
+
+
 def _dps_split(args: list[str]):
-    """The split the CLI run of ``args`` (``--set`` overrides last) draws."""
+    """The split the CLI run of ``args`` (``--set`` overrides last) draws,
+    by a solver of its city and seed that keeps only the labels."""
     from dmfusion_torch.config import parse_overrides
     from dmfusion_torch.solvers import BaseSolver
-    sets = args[args.index("--set") + 1:]
-    cfg = load_config(overrides=parse_overrides(sets))
-    base = BaseSolver({**cfg, "RESULT_output": tempfile.gettempdir()})
-    base.dataloader()
-    return cfg, base.split
+    sets = [a for a in args[args.index("--set") + 1:]
+            if not a.startswith("mesh.")]  # the split of one process
+    cfg = {**load_config(overrides=parse_overrides(sets)),
+           "RESULT_output": tempfile.gettempdir()}
+    key = (cfg["data_city"], cfg["seed"])
+    with _SPLIT_LOCK:
+        if key not in _SPLIT_SOLVERS:
+            _SPLIT_SOLVERS[key] = BaseSolver(cfg)
+            _SPLIT_SOLVERS[key].scene = None  # the split reads the labels
+        base = _SPLIT_SOLVERS[key]
+        base.cfg, base.time = cfg, cfg["index"]
+        base.dataloader()
+        return cfg, base.split
 
 
 def _mesh_reports(run: dict, phase: str, solver: str, b1: int,
-                  b2: int = 0) -> int:
+                  b2: int = 0, data: int = DP_RANKS, model: int = 1) -> int:
     """Each rank's report of a CLI run under torchrun: on ``cuda:0`` over
-    gloo, the solver, and ``b1`` B1 and ``b2`` B2 launches (as the split
-    gives them); returns both ranks' B1 launches."""
+    gloo, a ``data x model`` mesh, the solver, and ``b1`` B1 and ``b2`` B2
+    launches (as the split gives them); returns the ranks' B1 launches."""
     reports = run["reports"]
-    check([r["rank"] for r in reports] == list(range(DP_RANKS)),
+    check([r["rank"] for r in reports] == list(range(data * model)),
           f"{phase}: rank reports {reports}")
     for r in reports:
         check(r["device"] == "cuda:0" and r["backend"] == "gloo"
-              and r["world"] == r["mesh_data"] == DP_RANKS
-              and r["solver"] == solver,
+              and r["world"] == data * model and r["mesh_data"] == data
+              and r["mesh_model"] == model and r["solver"] == solver,
               f"{phase}: rank {r['rank']} ran on {r}")
         check(r["gather_windows_launches"] == b1
               and r["phase_pool_launches"] == b2,
@@ -2329,13 +2378,14 @@ def _mesh_reports(run: dict, phase: str, solver: str, b1: int,
 
 
 def _mesh_cli_run(tmp: str, args: list[str], model: str, files: list[str],
-                  phase: str, timeout: float, test: bool = True):
-    """A CLI run of ``model`` under torchrun (:func:`_dp_cli`): its result
-    tree and output ``files``, finite records of one epoch with a val OA
-    of at least 0.5 and, with ``test``, a test matrix of the test split
-    with OA >= 0.5.  Returns the run, its config, its split and what it
-    measured."""
-    run = _dp_cli(tmp, args, phase, timeout)
+                  phase: str, timeout: float, test: bool = True,
+                  nprocs: int = DP_RANKS, val_oa_min: float = 0.5):
+    """A CLI run of ``model`` under torchrun on ``nprocs`` ranks
+    (:func:`_dp_cli`): its result tree and output ``files``, finite records
+    of one epoch with a val OA of at least ``val_oa_min`` and, with
+    ``test``, a test matrix of the test split with OA >= 0.5.  Returns the
+    run, its config, its split and what it measured."""
+    run = _dp_cli(tmp, args, phase, timeout, nprocs)
     cfg, split = _dps_split(args)
     name = f"{cfg['data_city']}_tr{cfg['train_rate']}_ep1_bs{TRAIN_BATCH}"
     _listing(tmp, [name], "result tree", phase)
@@ -2348,9 +2398,10 @@ def _mesh_cli_run(tmp: str, args: list[str], model: str, files: list[str],
         rec = json.load(f)
     check(rec["Epoch"] == [0] and all(np.isfinite(rec["Loss"]
                                                   + rec["ValLoss"]))
-          and rec["ValOA"][-1] >= 0.5, f"{phase}: {model} records {rec}")
+          and rec["ValOA"][-1] >= val_oa_min,
+          f"{phase}: {model} records {rec}")
     result = {"run_s": run["run_s"], "epoch_s": rec["EpochTime"],
-              "loss": rec["Loss"], "val_loss": rec["ValLoss"],
+              "loss": rec["Loss"], "val_loss": rec["ValLoss"], "out": out,
               "val_oa": rec["ValOA"],
               "color_s": max(r["color_s"] for r in run["reports"]),
               "joined": run["joined"], "reports": run["reports"]}
@@ -2370,6 +2421,26 @@ def _listing(path: str, want: list[str], what: str,
              phase: str = "train_dp_streams") -> None:
     got = sorted(os.listdir(path))
     check(got == sorted(want), f"{phase}: {what} {got}")
+
+
+def _cli_runs(tmp: str, fns: dict, phase: str) -> dict:
+    """Each ``fns[tag](dir)`` (a CLI run under torchrun and its checks) at
+    once, in threads, each in a directory of its own under ``tmp``: their
+    start-ups overlap, and their seconds are read beside each other.  The
+    parent launches no kernel meanwhile.  Returns each run's result."""
+    for spec in KERNELS.values():
+        spec["counter"].launches = 0
+    with ThreadPoolExecutor(len(fns)) as pool:
+        futures = {}
+        for tag, fn in fns.items():
+            d = os.path.join(tmp, tag)
+            os.makedirs(d)
+            futures[tag] = pool.submit(fn, d)
+        runs = {tag: f.result() for tag, f in futures.items()}
+    launches = {n: spec["counter"].launches for n, spec in KERNELS.items()}
+    check(not any(launches.values()),
+          f"{phase}: the parent launched {launches}")
+    return runs
 
 
 def _dps_tri_run(tmp: str) -> dict:
@@ -2448,8 +2519,8 @@ def phase_train_dp_streams() -> tuple[int, dict]:
     ``cuda:0`` over gloo.  Spawned ranks hold the tri and quad shard
     gathers, the quad and GAN parity with one process (and their
     controls) and the step times; then tri_net, and both stages of the
-    two-stage solver, are trained by ``torchrun`` through the CLI (tri_net
-    also colors).  Returns B1's launches in the two CLI runs (both ranks)
+    two-stage solver, are trained by ``torchrun`` through the CLI, the two
+    runs at once (tri_net also colors).  Returns B1's launches in the two CLI runs (both ranks)
     and the wrappers' times on rank 0."""
     log(f"train_dp_streams: {DP_RANKS} ranks share one card ({card_line()}) "
         "over gloo: NCCL takes one rank a device.  These numbers hold the "
@@ -2466,17 +2537,10 @@ def phase_train_dp_streams() -> tuple[int, dict]:
                 f"{r['backend']}: tri and quad shard gathers bit-equal "
                 f"({', '.join(g['cases'])}, f32 and bf16); "
                 f"{json.dumps({k: g[k] for k in ('tri', 'quad')})}")
-        runs = {}
-        for tag, fn in (("tri", _dps_tri_run), ("twostage", _dps_twostage_run)):
-            d = os.path.join(tmp, tag)
-            os.makedirs(d)
-            for spec in KERNELS.values():
-                spec["counter"].launches = 0
-            runs[tag] = fn(d)
-            launches = {n: spec["counter"].launches
-                        for n, spec in KERNELS.items()}
-            check(not any(launches.values()),
-                  f"train_dp_streams: the parent launched {launches}")
+        runs = _cli_runs(tmp, {"tri": _dps_tri_run,
+                               "twostage": _dps_twostage_run},
+                         "train_dp_streams")
+        for tag in runs:
             log(f"train_dp_streams: the {tag} run under torchrun took "
                 f"{runs[tag]['run_s']:.2f} s, val OA "
                 f"{runs[tag]['val_oa']}, B1 "
@@ -2763,7 +2827,8 @@ def phase_train_dp_maps() -> tuple[int, int]:
     ``cuda:0`` over gloo.  Spawned ranks hold dense SGD parity with one
     process (and its control), the band maps against one process's whole
     map, and the dense step's times; then dense_fusion and gmfnet_conv are
-    trained and tested by ``torchrun`` through the CLI.  Returns B1's and
+    trained and tested by ``torchrun`` through the CLI, the two runs at
+    once.  Returns B1's and
     B2's launches in the two CLI runs (both ranks)."""
     log(f"train_dp_maps: {DP_RANKS} ranks share one card ({card_line()}) "
         "over gloo: NCCL takes one rank a device.  These numbers hold the "
@@ -2778,17 +2843,9 @@ def phase_train_dp_maps() -> tuple[int, int]:
             log(f"train_dp_maps: rank {r['rank']} on {r['device']} over "
                 f"{r['backend']}: dense SGD parity {json.dumps(r['parity'])}"
                 f"; maps {json.dumps(r['maps'])}")
-        runs = {}
-        for tag, fn in (("dense", _dpm_dense_run), ("conv", _dpm_conv_run)):
-            d = os.path.join(tmp, tag)
-            os.makedirs(d)
-            for spec in KERNELS.values():
-                spec["counter"].launches = 0
-            runs[tag] = fn(d)
-            launches = {n: spec["counter"].launches
-                        for n, spec in KERNELS.items()}
-            check(not any(launches.values()),
-                  f"train_dp_maps: the parent launched {launches}")
+        runs = _cli_runs(tmp, {"dense": _dpm_dense_run,
+                               "conv": _dpm_conv_run}, "train_dp_maps")
+        for tag in runs:
             log(f"train_dp_maps: the {tag} run under torchrun took "
                 f"{runs[tag]['run_s']:.2f} s, val OA "
                 f"{runs[tag]['val_oa'][-1]:.4f}, test OA "
@@ -2805,6 +2862,461 @@ def phase_train_dp_maps() -> tuple[int, int]:
     log(f"train_dp_maps: {json.dumps(result)}")
     return runs["conv"]["b1_launches"], runs["dense"]["b2_launches"]
 
+
+
+# -- phase train_tp: the mesh's model axis -----------------------------------
+_SUM_GRADS, _TAKE_RANK0 = steps_mod.sum_grads, steps_mod.take_rank0_params
+
+
+def _tp_world_sum(params, mesh) -> None:
+    """The control: the gradients summed over every rank (the model peers'
+    shards of one shape added together, replicated gradients twice)."""
+    _SUM_GRADS(params, dataclasses.replace(mesh, data_group=None))
+
+
+def _tp_shard_broadcast(model, mesh) -> None:
+    """The control: rank 0's shards broadcast over every rank (model index
+    1 starts from model index 0's shards)."""
+    if mesh is not None:
+        with torch.no_grad():
+            mesh.broadcast_all_(model.parameters())
+
+
+def _tp_batches(label: np.ndarray, batch: int, real: int, seed: int,
+                device) -> list[torch.Tensor]:
+    """Three batches of ``batch`` labeled anchors, the first padded to
+    ``real`` real rows: (ids, labels, mask) on the card."""
+    labeled, _ = split_labels(label)
+    ids = np.random.default_rng(seed).choice(labeled, 2 * batch + real,
+                                             replace=False).astype(np.int32)
+    chunks, mask, _ = batched_ids_np(ids, batch)
+    first = [2, 0, 1]  # batched_ids_np pads the last batch
+    chunks, mask = chunks[first], mask[first]
+    return [torch.from_numpy(a).to(device) for a in (
+        chunks, label.reshape(-1)[chunks].astype(np.int32),
+        mask.astype(np.float32))]
+
+
+def _tp_train(mesh, cfg, args, batches, programs, m, patch=None):
+    """The SGD steps of ``batches`` from the seeded weights of ``cfg``'s
+    model through ``programs(model, optimizer, cfg, m)`` on mesh ``m``
+    (None: one process): (losses, the whole parameters flattened) on the
+    CPU, and the programs.  ``patch`` swaps functions of
+    ``train/steps.py`` for the run (the controls)."""
+    from dmfusion_torch.train.optim import make_optimizer
+    for k, v in (patch or {}).items():
+        setattr(steps_mod, k, v)
+    try:
+        model = build_model(cfg).to(mesh.device,
+                                    memory_format=torch.channels_last)
+        init_params(model, torch.Generator().manual_seed(cfg["seed"]))
+        shard_model(model, m)
+        prog = programs(model, make_optimizer(cfg, model.parameters(),
+                                              batches[0].shape[0]), cfg, m)
+        losses = prog.train_epoch(args, *batches)
+        whole = full_state(model, dict(model.named_parameters()))
+        flat = torch.cat([t.detach().reshape(-1) for t in whole.values()])
+        return losses.cpu(), flat.cpu(), prog
+    finally:
+        steps_mod.sum_grads = _SUM_GRADS
+        steps_mod.take_rank0_params = _TAKE_RANK0
+
+
+def _tp_gaps(one, got) -> dict:
+    (l0, p0), (l1, p1) = one, got
+    return {"loss_max_rel": float(((l1 - l0) / l0).abs().max()),
+            "param_max_abs": float((p1 - p0).abs().max()),
+            "param_excess": float(((p1 - p0).abs() / (
+                TP_PARAM_ATOL + TP_PARAM_RTOL * p0.abs())).max())}
+
+
+def _tp_within(g: dict) -> bool:
+    return g["loss_max_rel"] <= TP_LOSS_RTOL and g["param_excess"] <= 1
+
+
+def _from_ranks(mesh, fns: list) -> list:
+    """``fns[i]()`` run on rank ``i``, all at once, and every result on
+    every rank (an error is raised on every rank)."""
+    mine = None
+    if mesh.rank < len(fns):
+        try:
+            mine = (True, fns[mesh.rank]())
+        except Exception as e:  # raised on every rank below
+            mine = (False, e)
+    out = []
+    for i in range(len(fns)):
+        box = [mine if mesh.rank == i else None]
+        dist.broadcast_object_list(box, i)
+        ok, value = box[0]
+        if not ok:
+            raise value
+        out.append(value)
+    return out
+
+
+def _tp_parity(mesh, name, one, cfg, args, batches, programs,
+               controls=False, extra=None):
+    """``name``'s steps on the mesh against ``one``, one process's
+    (losses, parameters): losses within TP_LOSS_RTOL, parameters within
+    TP_PARAM_RTOL and TP_PARAM_ATOL; with ``controls`` the world-group
+    gradient sum and the rank-0 shard broadcast must fall outside them.
+    Returns the readings, the mesh's programs and ``extra(programs)``."""
+    losses, flat, prog = _tp_train(mesh, cfg, args, batches, programs, mesh)
+    mine = _tp_gaps(one, (losses, flat))
+    check(_tp_within(mine), f"train_tp: {name}'s steps on rank {mesh.rank} "
+          f"part from one process's: {mine}")
+    out = {"steps": int(batches[0].shape[0]),
+           "batch": int(batches[0].shape[1]),
+           "real_first": int(batches[2][0].sum()),
+           "losses": {"one_process": one[0].tolist(),
+                      "ranks": losses.tolist()}, "ranks": mine}
+    if controls:
+        for tag, patch in (("world_sum", {"sum_grads": _tp_world_sum}),
+                           ("shard_broadcast",
+                            {"take_rank0_params": _tp_shard_broadcast})):
+            g = _tp_gaps(one, _tp_train(mesh, cfg, args, batches, programs,
+                                        mesh, patch)[:2])
+            check(not _tp_within(g), f"train_tp: the {tag} control passes "
+                  f"the parity check on rank {mesh.rank} ({g}): the check "
+                  "cannot see it")
+            out[tag] = g
+    return out, prog, extra(prog) if extra else None
+
+
+def _tp_parities(scene, mesh) -> dict:
+    """gmfnet w64 (with the two controls) and vit (4 heads) on image6, and
+    dense_fusion w32 on train_dense's crop (bands over the data axis): f32
+    SGD steps on the mesh against one process (ranks 0, 1 and 2 run one
+    model's each, at once, and broadcast them); after the dense steps,
+    each rank's band map (B2 once a rank) against one process's whole
+    map."""
+    f32 = {"schedule": {"optimizer": "SGD"},
+           "precision": {"compute_dtype": "float32",
+                         "scene_dtype": "float32"}}
+    args = (scene.ms, scene.pan)
+
+    def dual(model, opt, cfg, m):
+        return DualPrograms(model, opt, cfg, scene.width, scene.patch,
+                            mesh=m)
+
+    def dense(model, opt, cfg, m):
+        return DensePrograms(model, scene.patch, cfg=cfg, mesh=m,
+                             optimizer=opt)
+
+    ms, pan, label = _dense_crop(scene, DENSE_CROP)
+    plan = DensePrograms(None, scene.patch).band_plan(ms.shape[0], mesh.data)
+    check(plan is not None, "train_tp: the dense crop does not band")
+    labeled = np.flatnonzero(label.reshape(-1)).astype(np.int32)
+    ids = np.random.default_rng(12).choice(labeled, (2, TRAIN_BATCH),
+                                           replace=False)
+
+    def band_map(prog):
+        before = pool_ops.phase_pool_cuda.launches
+        got = prog.predict_map(ms, pan).cpu()
+        return got, pool_ops.phase_pool_cuda.launches - before
+    runs = {  # name: (cfg, args, batches, programs, controls, extra)
+        "gmfnet": (load_config(overrides={**CFG, **f32}), args,
+                   _tp_batches(scene.label, TRAIN_BATCH, TP_REAL, 5,
+                               mesh.device), dual, True, None),
+        "vit": (load_config(overrides={**CFG, **TP_VIT, **f32}), args,
+                _tp_batches(scene.label, TP_VIT_BATCH, TP_VIT_REAL, 7,
+                            mesh.device), dual, False, None),
+        "dense": (load_config(overrides={**DENSE_CFG, **f32}), (ms, pan),
+                  [torch.from_numpy(a).to(mesh.device) for a in (
+                      ids, label.reshape(-1)[ids].astype(np.int32),
+                      np.ones(ids.shape, np.float32))], dense, False,
+                  band_map)}
+
+    def one_process(name):
+        cfg, a, batches, programs, _, extra = runs[name]
+        losses, flat, prog = _tp_train(mesh, cfg, a, batches, programs,
+                                       None)
+        return losses, flat, extra(prog) if extra else None
+    t0 = time.perf_counter()
+    ones = dict(zip(runs, _from_ranks(
+        mesh, [lambda n=n: one_process(n) for n in runs])))
+    out = {"s": {"one_process": time.perf_counter() - t0}}
+    for name, (cfg, a, batches, programs, controls, extra) in runs.items():
+        t0 = time.perf_counter()
+        out[name], prog, got = _tp_parity(mesh, name, ones[name][:2], cfg,
+                                          a, batches, programs, controls,
+                                          extra)
+        out["s"][name] = time.perf_counter() - t0
+    ref = ones["dense"][2]
+    check(got[1] == 1, f"train_tp: the band map launched B2 {got[1]} times "
+          f"on rank {mesh.rank}")
+    agree = float((got[0] == ref[0]).float().mean())
+    check(got[0].shape == ref[0].shape and agree >= DPM_AGREE_F32,
+          f"train_tp: rank {mesh.rank}'s band map against one process's: "
+          f"agreement {agree} (at least {DPM_AGREE_F32})")
+    out["dense"].update(plan=list(plan), band=prog.mesh_band(ms.shape[0]),
+                        map_agree=agree, b2_launches=got[1])
+    return out
+
+
+def _tp_gather(scene, mesh) -> dict:
+    """B1 on this rank's data shard (``gather_dual_sharded``, 2 launches a
+    call) at B 4096 with corner anchors and at B 256: the rows bit-equal to
+    the plain ``gather_dual`` of the shard, and to the model peer's (moved
+    as bytes)."""
+    w, ps, n, h = scene.width, scene.patch, scene.num_pixels, scene.height
+    base = np.random.default_rng(11).integers(0, n, 4096).astype(np.int32)
+    base[:6] = [0, w - 1, (h - 1) * w, n - w, 2 * w - 1, n - 1]
+    out = {"max_abs_err": 0.0}
+    for b in (4096, TRAIN_BATCH):
+        ids = torch.from_numpy(base[:b]).to(mesh.device)
+        before = gather_ops.gather_windows_cuda.launches
+        rows = gather_ops.gather_dual_sharded(scene.ms, scene.pan, ids, w,
+                                              ps, mesh)
+        check(gather_ops.gather_windows_cuda.launches == before + 2,
+              f"train_tp: B {b}: not 2 B1 launches on rank {mesh.rank}")
+        plain = gather_dual(scene.ms, scene.pan, mesh.shard(ids), w, ps)
+        for got, ref in zip(rows, plain, strict=True):
+            out["max_abs_err"] = max(out["max_abs_err"], _max_err(got, ref))
+            check(torch.equal(got, ref), f"train_tp: B {b}: rank "
+                  f"{mesh.rank}'s rows != the plain gather's")
+            peers = all_gather_rows(
+                got.contiguous().view(torch.uint8).reshape(1, -1),
+                mesh.model, mesh.model_group)
+            check(bool((peers == peers[:1]).all()), f"train_tp: B {b}: "
+                  f"rank {mesh.rank}'s rows differ from its model peer's")
+        out[f"B{b}_rows_a_rank"] = int(rows[0].shape[0])
+    return out
+
+
+def _tp_shards(mesh) -> dict:
+    """gmfnet w64, vit and dense_fusion w32 sharded with Adam: every
+    sharded parameter and both its moments of the shard's shape (the whole
+    shape halved on its dimension), and the bytes of parameters and
+    moments a rank holds beside one process's."""
+    from dmfusion_torch.train.optim import make_optimizer
+    out = {}
+    for name, over in (("gmfnet", {}), ("vit", TP_VIT),
+                       ("dense_fusion", {"model_name": "dense_fusion",
+                                         "model_width": 32})):
+        cfg = load_config(overrides={**CFG, **over})
+        model = build_model(cfg).to(mesh.device)
+        whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        one = 3 * sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        shard_model(model, mesh)
+        opt = make_optimizer(cfg, model.parameters())
+        dims = shard_dims(model)
+        held = 0
+        for n, p in model.named_parameters():
+            st = opt.state[p]
+            want = list(whole[n])
+            if n in dims:
+                want[dims[n][1]] //= mesh.model
+            check(tuple(p.shape) == tuple(want)
+                  and st["exp_avg"].shape == st["exp_avg_sq"].shape
+                  == p.shape, f"train_tp: {name}'s {n} on rank "
+                  f"{mesh.rank}: {tuple(p.shape)}, moments "
+                  f"{tuple(st['exp_avg'].shape)}, want {tuple(want)}")
+            held += 3 * p.numel() * p.element_size()
+        out[name] = {"sharded": len(dims), "params": len(whole),
+                     "bytes_a_rank": held, "bytes_one_process": one}
+        del model, opt
+    return out
+
+
+def _tp_steps(scene, mesh) -> dict:
+    """The default run's steps on the model axis (gmfnet w64, Adam, bf16,
+    batch 256: 128 rows a data index, its channels split over two model
+    ranks): TP_STEPS timed after 3, then a profile on rank 0 (the
+    collectives' share); B1 twice a step on every rank."""
+    from dmfusion_torch.train.optim import make_optimizer
+    cfg = load_config(overrides=CFG)
+    labeled, _ = split_labels(scene.label)
+    n = (3 + TP_STEPS + DP_PROFILE_STEPS) * TRAIN_BATCH
+    ids = np.random.default_rng(6).choice(labeled, n, replace=False)
+    chunks = ids.astype(np.int32).reshape(-1, TRAIN_BATCH)
+    batches = [torch.from_numpy(a).to(mesh.device) for a in (
+        chunks, scene.label.reshape(-1)[chunks].astype(np.int32),
+        np.ones(chunks.shape, np.float32))]
+    model = build_model(cfg).to(mesh.device,
+                                memory_format=torch.channels_last)
+    init_params(model, torch.Generator().manual_seed(cfg["seed"]))
+    shard_model(model, mesh)
+    prog = DualPrograms(model, make_optimizer(cfg, model.parameters(),
+                                              chunks.shape[0]),
+                        cfg, scene.width, scene.patch, mesh=mesh)
+    args = (scene.ms, scene.pan)
+
+    def run(i0, i1):
+        losses = prog.train_epoch(args, *(t[i0:i1] for t in batches))
+        check(bool(torch.isfinite(losses).all()), "train_tp: non-finite loss")
+    before = gather_ops.gather_windows_cuda.launches
+    out = _rank_timing(mesh, run, TP_STEPS, DP_PROFILE_STEPS)
+    b1 = gather_ops.gather_windows_cuda.launches - before
+    check(b1 == 2 * chunks.shape[0], f"train_tp: rank {mesh.rank} launched "
+          f"B1 {b1} times in {chunks.shape[0]} steps")
+    out.update(rank_batch=mesh.per_rank(TRAIN_BATCH), b1_launches=b1,
+               samples_per_s=TRAIN_BATCH / out["step_ms"] * 1e3)
+    return out
+
+
+def _tp_rank(rank: int, port: int, out_dir: str) -> None:
+    """One of phase train_tp's spawned ranks (data index ``rank // 2``,
+    model index ``rank % 2``): join the group, build the image6 scene and
+    write what the B1 rows, the parity steps, the shards and the timed
+    steps found to ``rank{r}.json``."""
+    _dp_env(rank, port, TP_RANKS)
+    cfg = load_config(overrides={**CFG, "mesh": {"distributed": 1,
+                                                 "model": TP_MODEL}})
+    check(parallel.maybe_initialize_distributed(cfg),
+          "train_tp: the rank did not join")
+    try:
+        mesh = parallel.get_mesh(cfg)
+        check(mesh is not None and mesh.data == TP_RANKS // TP_MODEL
+              and mesh.model == TP_MODEL and mesh.rank == rank
+              and mesh.data_index == rank // TP_MODEL
+              and mesh.model_index == rank % TP_MODEL
+              and mesh.backend == "gloo"
+              and mesh.device == torch.device("cuda", 0),
+              f"train_tp: rank {rank}'s mesh {mesh}")
+        secs, t0 = {}, time.perf_counter()
+        scene = synthetic_scene(load_config(overrides=CFG),
+                                device=mesh.device)
+        secs["scene"] = time.perf_counter() - t0
+        tf32 = _no_tf32()
+        try:
+            parity = _tp_parities(scene, mesh)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, \
+                torch.backends.cudnn.allow_tf32 = tf32
+        result = {"rank": rank, "device": str(mesh.device),
+                  "backend": mesh.backend,
+                  "grid": [mesh.data_index, mesh.model_index],
+                  "parity": parity}
+        secs["parity"] = time.perf_counter() - t0 - sum(secs.values())
+        for part, fn in (("gather", _tp_gather), ("shards", _tp_shards),
+                         ("steps", _tp_steps)):
+            if part == "steps":  # timed alone: after the CLI run
+                t0 = time.perf_counter()
+                while not os.path.exists(os.path.join(out_dir, TP_CLI_DONE)):
+                    check(time.perf_counter() - t0 < TP_TIMEOUT,
+                          "train_tp: the CLI run never ended")
+                    time.sleep(0.2)
+                secs["wait"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            result[part] = (fn(mesh) if part == "shards"
+                            else fn(scene, mesh))
+            secs[part] = time.perf_counter() - t0
+        result["parts_s"] = secs
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+    finally:
+        parallel.shutdown()
+
+
+def _tp_reload(scene, out: str, cfg, split, rec: tuple) -> dict:
+    """The CLI run's best weights loaded in one process on the card: the
+    val confusion they give (loss sum, OA) over the run's val buckets,
+    against the run's records."""
+    from dmfusion_torch.train.checkpoint import load_checkpoint
+    model = build_model(cfg).to(scene.ms.device,
+                                memory_format=torch.channels_last)
+    model.load_state_dict(load_checkpoint(
+        os.path.join(out, "0_weights.pt"), None, strict=True))
+    prog = DualPrograms(model, None, cfg, scene.width, scene.patch)
+    ids, mask, _ = batched_ids_np(split.valid.astype(np.int32), EVAL_BATCH)
+    labels = scene.label.reshape(-1)[ids].astype(np.int32)
+    loss_sum, conf = prog.eval_epoch(
+        (scene.ms, scene.pan), *(torch.from_numpy(a).to(scene.ms.device)
+                                 for a in (ids, labels,
+                                           mask.astype(np.float32))))
+    oa = float(aa_oa(conf.cpu().numpy())[1])
+    loss = float(loss_sum)
+    got = {"val_oa": oa, "val_loss": loss, "run_val_oa": rec[0],
+           "run_val_loss": rec[1], "oa_gap": abs(oa - rec[0]),
+           "loss_rel_gap": abs(loss - rec[1]) / abs(rec[1])}
+    check(int(conf.sum()) == len(split.valid)
+          and got["oa_gap"] <= TP_VAL_OA_ATOL
+          and got["loss_rel_gap"] <= TP_VAL_LOSS_RTOL,
+          f"train_tp: the best weights in one process do not give the "
+          f"run's val confusion again: {got}")
+    return got
+
+
+def phase_train_tp(scene) -> tuple[int, int]:
+    """The mesh's model axis on the card.  Spawned ranks (data 2 x model
+    2, sharing ``cuda:0`` over gloo) hold B1's rows, SGD parity of gmfnet,
+    vit and dense_fusion with one process (and gmfnet's two controls) and
+    the shards' shapes and bytes; meanwhile gmfnet is trained (one epoch,
+    no test) by ``torchrun`` on two ranks, data 1 x model 2, through the
+    CLI, and its best weights are loaded in one process; then the spawned
+    ranks time their steps alone.  Returns B1's launches on the path (the
+    ranks' timed steps and the CLI run) and B2's (the ranks' band
+    maps)."""
+    log(f"train_tp: {TP_RANKS} ranks (data {TP_RANKS // TP_MODEL} x model "
+        f"{TP_MODEL}) share one card ({card_line()}) over gloo.  These "
+        "numbers hold the path's correctness and say nothing of scaling "
+        "across cards.")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_tp_")
+    got = {}
+
+    def cli_run():
+        """The CLI run under torchrun and the reload, while the spawned
+        ranks hold their parity; then the flag that lets them time their
+        steps alone."""
+        for spec in KERNELS.values():
+            spec["counter"].launches = 0
+        args = ["--set", *TP_CLI_SET, f"mesh.model={TP_MODEL}"]
+        cli_dir = os.path.join(tmp, "cli")
+        os.makedirs(cli_dir)
+        run, cfg, split, cli = _mesh_cli_run(
+            cli_dir, args, "gmfnet", ["0_curweights.pt", "0_records.json",
+                                      "0_weights.pt"], "train_tp",
+            TP_TIMEOUT, test=False, nprocs=TP_CLI_RANKS, val_oa_min=0.0)
+        launches = {n: spec["counter"].launches
+                    for n, spec in KERNELS.items()}
+        check(not any(launches.values()),
+              f"train_tp: the parent launched {launches}")
+        batches = {"train": -(-len(split.train) // TRAIN_BATCH),
+                   "val": -(-len(split.valid) // EVAL_BATCH)}
+        want = 2 * sum(batches.values())
+        b1 = _mesh_reports(run, "train_tp", "main", want,
+                           data=TP_CLI_RANKS // TP_MODEL, model=TP_MODEL)
+        t0 = time.perf_counter()
+        reload = _tp_reload(scene, cli["out"], cfg, split,
+                            (cli["val_oa"][-1], cli["val_loss"][-1]))
+        reload["s"] = time.perf_counter() - t0
+        log(f"train_tp: the CLI run under torchrun took {cli['run_s']:.2f} "
+            f"s, val OA {cli['val_oa'][-1]:.4f}; in one process "
+            f"{json.dumps(reload)}")
+        got.update(cli=cli, batches=batches, want=want, b1=b1,
+                   reload=reload)
+        open(os.path.join(tmp, TP_CLI_DONE), "w").close()
+    try:
+        t0 = time.perf_counter()
+        ranks = _spawn_ranks(_tp_rank, tmp, "train_tp", TP_TIMEOUT, TP_RANKS,
+                             during=cli_run)
+        ranks_s = time.perf_counter() - t0
+        for r in ranks:
+            log(f"train_tp: rank {r['rank']} (data, model) {r['grid']}: "
+                f"parity {json.dumps(r['parity'])}; B1 rows "
+                f"{json.dumps(r['gather'])}; shards "
+                f"{json.dumps(r['shards'])}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    cli, b1_cli = got["cli"], got["b1"]
+    b1_ranks = sum(r["steps"]["b1_launches"] for r in ranks)
+    b2 = sum(r["parity"]["dense"]["b2_launches"] for r in ranks)
+    result = {
+        "ranks": TP_RANKS, "grid": [TP_RANKS // TP_MODEL, TP_MODEL],
+        "card": card_line(), "backend": "gloo", "ranks_s": ranks_s,
+        "parity": ranks[0]["parity"], "shards": ranks[0]["shards"],
+        "parts_s": {r["rank"]: r["parts_s"] for r in ranks},
+        "steps": {r["rank"]: r["steps"] for r in ranks},
+        "cli_run": {k: v for k, v in cli.items() if k != "out"},
+        "cli_gather_batches_per_rank": got["batches"],
+        "cli_b1_launches_per_rank": got["want"], "cli_b1_launches": b1_cli,
+        "reload": got["reload"], "b1_launches": b1_ranks + b1_cli,
+        "b2_launches": b2, "phase_s": time.perf_counter() - t_phase}
+    log(f"train_tp: {json.dumps(result)}")
+    return b1_ranks + b1_cli, b2
 
 
 def _dense_crop(scene, rows: int):
@@ -4824,6 +5336,8 @@ def _main() -> None:
         "sharded_streams"] = phase("train_dp_streams", phase_train_dp_streams)
     by_path["train_dp_maps"], pool_by_path["train_dp_maps"] = \
         phase("train_dp_maps", phase_train_dp_maps)
+    by_path["train_tp"], pool_by_path["train_tp"] = \
+        phase("train_tp", phase_train_tp, scene)
     pool_by_path["train_dense"] = phase("train_dense", phase_train_dense,
                                         scene, device)
     by_path["train_conv"], timings["gather_windows"]["patch47"] = \

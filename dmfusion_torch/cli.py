@@ -11,18 +11,21 @@ it, pass everything through ``--set``.  The run is on ``cuda:0`` unless
 ``--set device=cpu``, and raises without a card.  ``debug.nans`` turns on
 autograd's anomaly detection.  ``main(argv)`` returns the solver.
 
-Data-parallel ranks (the mesh's ``data`` axis, ``parallel/mesh.py``):
+Ranks on the mesh (``parallel/mesh.py``): the ``data`` axis, and with
+``mesh.model=M`` the ``model`` axis (tensor parallelism, M ranks a data
+index, ``parallel/partition.py``):
 
     torchrun --standalone --nproc-per-node N -m dmfusion_torch.cli \
-        --set mesh.distributed=1 ...
+        --set mesh.distributed=1 [mesh.model=M] ...
 
 (or ``python -m torch.distributed.run``).  The process group comes up
 before the solver exists, which allocates the run slot (under a mesh
 rank 0 allocates it and the others receive it), and goes down at the
 end, also on an error.  Each rank prints its backend and device when it
 joins, and one ``[dmfusion] rank report {...}`` JSON line at the end: its
-rank, device, backend, the solver, the window kernel's and the pool
-kernel's launches and the phases' seconds (with ``--solver twostage`` also
+rank, device, backend, the mesh's axes (``mesh_data``, ``mesh_model``),
+the solver, the window kernel's and the pool kernel's launches and the
+phases' seconds (with ``--solver twostage`` also
 stage 1's epochs and seconds, 0 when ``dqtl.pre_trained`` skips it; for the
 dense arity the rank's band, ``dense_band``: ``out_start``, ``s0``,
 ``need`` and ``band`` rows, null when the scene runs whole on every
@@ -91,6 +94,7 @@ def _report(solver) -> None:
         "device": str(solver.device),
         "backend": str(torch.distributed.get_backend()),
         "mesh_data": mesh.data if mesh is not None else 1,
+        "mesh_model": mesh.model if mesh is not None else 1,
         "solver": solver.cfg.get("solver", "main"),
         "gather_windows_launches": gather_windows_cuda.launches,
         "phase_pool_launches": phase_pool_cuda.launches,

@@ -147,7 +147,11 @@ def save_artifact(path: str | os.PathLike, cfg: Mapping[str, Any],
     """Package ``model`` and its manifest into one zip at ``path``.
     ``map_route``: serve the whole-scene class map of a model with a
     convolutional map route (``MAP_PROGRAMS``, gmfnet_conv) instead of
-    its per-anchor forward."""
+    its per-anchor forward.  A model sharded over the mesh's model axis is
+    packaged whole: its tree gathers the shards from its model peers
+    (``params_to_flax``), so every peer calls this, and the artifact is a
+    one-process model's.  A training run's checkpoints hold the whole
+    model already, and ``main`` exports from them."""
     if map_route and model_map_programs(cfg["model_name"]) != "convmap":
         raise ValueError(
             f"--map: model {cfg['model_name']!r} has no convolutional map "

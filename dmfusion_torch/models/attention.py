@@ -16,6 +16,14 @@ learned patch embedding.  flax's arithmetic is kept:
 Attention is an explicit ``softmax(q kᵀ) v`` in plain tensor ops, one
 order of operations on every backend; dmfusion computes it outside any
 Pallas kernel too.
+
+Under the mesh's ``model`` axis, when the placement shards the heads
+(``parallel/partition.py``: the head count divides the axis), a rank
+computes its own heads' ``softmax(q kᵀ) v``: ``query``, ``key`` and
+``value`` give its heads' features and biases with no gather, and
+``out`` is row-parallel (its heads' rows of the product, the peers'
+partial sums added, then the whole bias, once).  Otherwise the layer runs
+every head, its MLP's denses column-sharded like any other.
 """
 
 from __future__ import annotations
@@ -25,7 +33,9 @@ from typing import Any, Callable, Mapping
 import torch
 from torch import nn
 
-from dmfusion_torch.models.common import LayerNorm, SameConv2d, tree_shape
+from dmfusion_torch.models.common import (LayerNorm, Linear, SameConv2d,
+                                          tree_shape)
+from dmfusion_torch.parallel.tensor import copy_to_model
 
 
 class MultiHeadAttention(nn.Module):
@@ -39,16 +49,26 @@ class MultiHeadAttention(nn.Module):
             raise ValueError(f"embed dim {dim} is not a multiple of {heads} "
                              f"heads")
         self.heads = heads
-        self.query = nn.Linear(dim, dim)
-        self.key = nn.Linear(dim, dim)
-        self.value = nn.Linear(dim, dim)
-        self.out = nn.Linear(dim, dim)
+        self.head_dim = dim // heads
+        self.query = Linear(dim, dim)
+        self.key = Linear(dim, dim)
+        self.value = Linear(dim, dim)
+        self.out = Linear(dim, dim)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, N, h * head_dim) -> (B, h, N, head_dim): every head, or this
+        rank's under sharded heads."""
         b, n, d = x.shape
-        return x.reshape(b, n, self.heads, d // self.heads).transpose(1, 2)
+        return x.reshape(b, n, d // self.head_dim,
+                         self.head_dim).transpose(1, 2)
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor) -> torch.Tensor:
+        tp = self.query.tp
+        if tp is not None and tp.mode == "heads":
+            # The peers' input gradients (each of its own heads) summed.
+            same = kv_in is q_in
+            q_in = copy_to_model(q_in, tp.axis)
+            kv_in = q_in if same else copy_to_model(kv_in, tp.axis)
         q = self._split(self.query(q_in))
         k = self._split(self.key(kv_in))
         v = self._split(self.value(kv_in))
@@ -67,8 +87,8 @@ class MultiHeadAttention(nn.Module):
 class _MLP(nn.Module):
     def __init__(self, dim: int, act: Callable):
         super().__init__()
-        self.fc_0 = nn.Linear(dim, 4 * dim)
-        self.fc_1 = nn.Linear(4 * dim, dim)
+        self.fc_0 = Linear(dim, 4 * dim)
+        self.fc_1 = Linear(4 * dim, dim)
         self.act = act
 
     def mlp(self, x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,12 @@ reproduce the flax modules' arithmetic:
 
 Parameters are float32; ``precision.compute_dtype: bfloat16`` runs the
 forward under ``torch.autocast``.
+
+Under the mesh's ``model`` axis (``parallel/partition.py``) a conv or
+dense layer whose weight the placement shards computes its shard of the
+output features (:class:`SameConv2d`, :class:`Linear`:
+``parallel/tensor.py::sharded_product``); unsharded, both are torch's
+layers.
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from dmfusion_torch.parallel.tensor import sharded_product, unsharded
 
 GROUPNORM_EPS = 1e-6
 LAYERNORM_EPS = 1e-6
@@ -66,16 +74,31 @@ def _same_pads(size: int, kernel: int, stride: int) -> tuple[int, int]:
 
 class SameConv2d(nn.Conv2d):
     """Conv2d with flax/XLA ``SAME`` padding: the odd pixel of padding
-    goes after, not before."""
+    goes after, not before.  Its output channels may be sharded over the
+    model axis (``tp``)."""
+
+    tp = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
         top, bottom = _same_pads(x.shape[-2], kh, sh)
         left, right = _same_pads(x.shape[-1], kw, sw)
-        if top == bottom and left == right:
-            return F.conv2d(x, self.weight, self.bias, self.stride, (top, left))
-        x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride)
+        pad = (top, left)
+        if top != bottom or left != right:
+            x = F.pad(x, (left, right, top, bottom))
+            pad = 0
+        return sharded_product(
+            self, x, lambda x, w, b: F.conv2d(x, w, b, self.stride, pad), 1)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose output features may be sharded over the model
+    axis (``tp``)."""
+
+    tp = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return sharded_product(self, x, F.linear, -1)
 
 
 class GroupNorm(nn.GroupNorm):
@@ -149,8 +172,8 @@ class MLPHead(nn.Module):
     def __init__(self, in_features: int, num_classes: int, hidden: int = 0,
                  act: Callable = F.relu):
         super().__init__()
-        self.hidden = nn.Linear(in_features, hidden) if hidden else None
-        self.out = nn.Linear(hidden or in_features, num_classes)
+        self.hidden = Linear(in_features, hidden) if hidden else None
+        self.out = Linear(hidden or in_features, num_classes)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -212,8 +235,10 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     LeCun-normal (variance 1/fan_in), biases zero, norm scales one; a
     module with a ``flax_init(generator)`` method initializes its own
     parameters (the dense family's WSConv, alpha and raw head params, the
-    transformers' position, modality and class embeddings)."""
-    with torch.no_grad():
+    transformers' position, modality and class embeddings).  A model
+    sharded over the mesh's model axis draws the whole tensors, as one
+    process does, and keeps its shards of them."""
+    with torch.no_grad(), unsharded(model):
         for m in model.modules():
             if hasattr(m, "flax_init"):
                 m.flax_init(generator)

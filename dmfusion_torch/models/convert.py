@@ -42,6 +42,13 @@ count.  One optimizer over a tree of models (the GAN's one Adam over both
 generators, ``{"gP", "gM"}``, and one over both discriminators) takes a
 mapping of modules in place of the model, and its moments are trees keyed
 the same way.
+
+A model sharded over the mesh's ``model`` axis
+(``parallel/partition.py::shard_model``) converts from and to the whole
+flax tree: a whole tree loads as this rank's shards, and
+:func:`params_to_flax` (with it :func:`opt_state_to_optax`) gathers the
+shards from the rank's model peers first, a collective that every peer
+calls in the same order.
 """
 
 from __future__ import annotations
@@ -51,6 +58,9 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from dmfusion_torch.parallel.tensor import (gather_dim, shard_dims,
+                                            shard_state, slice_dim)
 
 LEAF = "leaf"    # a module whose params are kernel/bias/scale/gain leaves
 PARAM = "param"  # a raw parameter, same array in both frameworks
@@ -304,9 +314,11 @@ def params_from_flax(tree: Mapping[str, Any], root: str = "Net"
 
 
 def load_flax_params(model: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
-    """Load a flax tree into ``model``; raises on any flax leaf left unused
-    and on any torch parameter left unset."""
-    state = params_from_flax(tree, getattr(model, "flax_root", "Net"))
+    """Load a flax tree into ``model`` (this rank's shards of a sharded
+    model); raises on any flax leaf left unused and on any torch parameter
+    left unset."""
+    state = shard_state(model, params_from_flax(
+        tree, getattr(model, "flax_root", "Net")))
     want = model.state_dict()
     unused = sorted(set(state) - set(want))
     unset = sorted(set(want) - set(state))
@@ -340,6 +352,41 @@ def _leaf_to_flax(module: nn.Module, name: str, p: torch.Tensor,
     raise ValueError(f"{type(module).__name__}.{name} has no flax counterpart")
 
 
+def _walk(model: nn.Module):
+    """Every torch parameter of ``model`` in the flax tree's order: ``(flax
+    path of the leaf's module or raw parameter, torch name, kind, scope
+    module, owner module, parameter name)``; an LSTM cell comes once, its
+    parameter name None."""
+    def walk(module: nn.Module, scope: str, fpath: tuple, prefix: str):
+        for fname, (attr, kind) in _CHILDREN[scope].items():
+            tname = f"{prefix}.{attr}" if prefix else attr
+            here = (*fpath, fname)
+            if kind == PARAM:
+                yield here, tname, kind, module, module, attr
+                continue
+            try:
+                child = module.get_submodule(attr)
+            except AttributeError:  # an absent optional layer (shortcut)
+                continue
+            if kind == LSTM_CELL:
+                yield here, tname, kind, module, child, None
+            elif kind not in _LEAVES:
+                # The class check picks gmfnet's PAN variant.
+                if type(child).__name__ == _SCOPE_CLASS.get(kind, kind):
+                    yield from walk(child, kind, here, tname)
+            else:
+                for pname, _ in child.named_parameters(recurse=False):
+                    yield here, f"{tname}.{pname}", kind, module, child, pname
+
+    yield from walk(model, getattr(model, "flax_root", "Net"), (), "")
+
+
+def _node(tree: dict, path: tuple) -> dict:
+    for key in path:
+        tree = tree.setdefault(key, {})
+    return tree
+
+
 def params_to_flax(model: nn.Module,
                    values: Mapping[str, torch.Tensor] | None = None
                    ) -> dict[str, Any]:
@@ -347,51 +394,69 @@ def params_to_flax(model: nn.Module,
 
     With ``values`` (parameter name -> tensor of its shape, e.g. an Adam
     moment), those tensors are laid out in the tree instead of the
-    parameters."""
+    parameters.  A sharded model's shards (and values) are gathered from
+    its model peers: the tree is the whole model's."""
     tree: dict[str, Any] = {}
     seen = 0
+    dims = shard_dims(model)
 
     def value(name: str, p: torch.Tensor) -> torch.Tensor:
-        return p if values is None else values[name]
+        t = (p if values is None else values[name]).detach()
+        return gather_dim(t, *dims[name]) if name in dims else t
 
-    def walk(module: nn.Module, scope: str, node: dict[str, Any],
-             prefix: str):
-        nonlocal seen
-        for fname, (attr, kind) in _CHILDREN[scope].items():
-            tname = f"{prefix}.{attr}" if prefix else attr
-            if kind == PARAM:
-                node[fname] = value(tname, getattr(module, attr)).detach().to(
-                    "cpu", torch.float32).numpy()
-                seen += 1
-                continue
-            try:
-                child = module.get_submodule(attr)
-            except AttributeError:  # an absent optional layer (shortcut)
-                continue
-            if kind == LSTM_CELL:
-                params = dict(child.named_parameters(recurse=False))
-                node[fname] = _lstm_to_flax({
-                    n: value(f"{tname}.{n}", p) for n, p in params.items()})
-                seen += len(params)
-                continue
-            if kind not in _LEAVES:
-                # The class check picks gmfnet's PAN variant.
-                if type(child).__name__ == _SCOPE_CLASS.get(kind, kind):
-                    walk(child, kind, node.setdefault(fname, {}), tname)
-                continue
-            leaves = node.setdefault(fname, {})
-            for pname, p in child.named_parameters(recurse=False):
-                leaf, arr = _leaf_to_flax(child, pname,
-                                          value(f"{tname}.{pname}", p),
-                                          kind, getattr(module, "heads", 0))
-                leaves[leaf] = arr
-                seen += 1
-
-    walk(model, getattr(model, "flax_root", "Net"), tree, "")
+    for fpath, tname, kind, scope, owner, pname in _walk(model):
+        if kind == PARAM:
+            _node(tree, fpath[:-1])[fpath[-1]] = value(
+                tname, getattr(owner, pname)).to("cpu", torch.float32).numpy()
+            seen += 1
+        elif kind == LSTM_CELL:
+            params = dict(owner.named_parameters(recurse=False))
+            _node(tree, fpath[:-1])[fpath[-1]] = _lstm_to_flax({
+                n: value(f"{tname}.{n}", p) for n, p in params.items()})
+            seen += len(params)
+        else:
+            leaf, arr = _leaf_to_flax(owner, pname,
+                                      value(tname, getattr(owner, pname)),
+                                      kind, getattr(scope, "heads", 0))
+            _node(tree, fpath)[leaf] = arr
+            seen += 1
     total = len(model.state_dict())
     if seen != total:
         raise ValueError(f"{total - seen} torch parameters have no flax name")
     return tree
+
+
+def flax_leaves(model: nn.Module):
+    """Every flax leaf of ``model``'s tree, in its order: ``(flax path,
+    flax shape, torch name, torch dimension of each flax axis)``.  A leaf
+    with no one torch parameter (an LSTM cell's gate kernels, stacked
+    into one) has torch name None.  The shapes are the parameters' own (a
+    model's before it is sharded)."""
+    for fpath, tname, kind, scope, owner, pname in _walk(model):
+        if kind == PARAM:
+            p = getattr(owner, pname)
+            yield fpath, tuple(p.shape), tname, tuple(range(p.ndim))
+        elif kind == LSTM_CELL:
+            for sub, leaves in _lstm_to_flax({
+                    n: p.detach() for n, p in
+                    owner.named_parameters(recurse=False)}).items():
+                for leaf, arr in leaves.items():
+                    yield (*fpath, sub, leaf), arr.shape, None, None
+        else:
+            p = getattr(owner, pname)
+            leaf, arr = _leaf_to_flax(owner, pname, p.detach(), kind,
+                                      getattr(scope, "heads", 0))
+            yield ((*fpath, leaf), arr.shape, tname,
+                   _AXES.get((kind, leaf, p.ndim), tuple(range(p.ndim))))
+
+
+# The torch dimension of each flax axis of a leaf, by (kind, flax leaf,
+# torch ndim): HWIO against OIHW, (in, out) against (out, in), the heads
+# axes flattened heads-major (a head_dim axis has none of its own).
+_AXES = {(LEAF, "kernel", 4): (2, 3, 1, 0), (LEAF, "kernel", 2): (1, 0),
+         (HEADS_IN, "kernel", 2): (1, 0, None),
+         (HEADS_IN, "bias", 1): (0, None),
+         (HEADS_OUT, "kernel", 2): (1, None, 0)}
 
 
 # Per optimizer: the optax moment trees and the torch state key of each,
@@ -482,10 +547,13 @@ def opt_state_from_optax(state: Mapping[str, Any],
         if set(tree) != set(names.values()):
             raise ValueError(f"optax {tkey} tree does not cover the model's "
                              f"parameters")
+    dims = {k: shard_dims(m) for k, m in models.items()}
     for group in optimizer.param_groups:
         group["count"] = n
     for p, key in names.items():
-        st = {tkey: torch.empty_like(p).copy_(tree[key])
+        dim = dims[key[0]].get(key[1])
+        st = {tkey: torch.empty_like(p).copy_(
+                  tree[key] if dim is None else slice_dim(tree[key], *dim))
               for tkey, tree in trees.items()}
         if name == "Adam":
             st["step"] = torch.tensor(float(n))

@@ -33,6 +33,14 @@ the whole scene and gathers 16 of its rows per anchor
 table of :func:`sat_window_sums`).  ``train.dense_remat`` (anything but
 'off') recomputes each conv block in the backward instead of storing its
 activations (``torch.utils.checkpoint``), as flax's ``nn.remat`` does.
+
+Under the mesh's ``model`` axis the placement (``parallel/partition.py``)
+shards the kernels at rest, with their Adam moments, and the model
+gathers every sharded leaf on use (``parallel/tensor.py::use``): dmfusion's
+bands take the parameters replicated into ``shard_map``
+(``dmfusion/train/steps.py:726-727``), so the model peers of a band
+compute the same band.  The gathers sit inside each checkpointed block, so
+the backward's recompute gathers again.
 """
 
 from __future__ import annotations
@@ -48,6 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from dmfusion_torch.models.common import activation_fn, dtypes, tree_shape
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops.pool import phase_pool
+from dmfusion_torch.parallel.tensor import use
 from dmfusion_torch.utils.misc import parse_switch
 
 ARITY = "dense"
@@ -194,7 +203,7 @@ class WSConv(nn.Module):
         self.bias.zero_()
 
     def standardized(self) -> torch.Tensor:
-        w = self.weight
+        w = use(self, "weight")
         mu = w.mean(dim=(1, 2, 3), keepdim=True)
         var = w.var(dim=(1, 2, 3), keepdim=True, unbiased=False)
         fan_in = w[0].numel()
@@ -202,7 +211,7 @@ class WSConv(nn.Module):
         return wn * (self.gain * self.act_gain)[:, None, None, None]
 
     def forward(self, x: torch.Tensor, stride: int = 1) -> torch.Tensor:
-        k = self.weight.shape[-1]
+        k = self.weight.shape[-1]  # a shard keeps the kernel's size
         if self.padding == "SAME" and stride != 1:
             # flax pads the odd pixel after; no caller needs that yet.
             raise ValueError("WSConv: SAME padding runs at stride 1 only")
@@ -222,7 +231,7 @@ class GateConv(nn.Conv2d):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x.to(self.dtype), self.weight.to(self.dtype))
+        y = F.conv2d(x.to(self.dtype), use(self, "weight").to(self.dtype))
         return y + self.bias.to(self.dtype)[:, None, None]
 
 
@@ -279,6 +288,8 @@ class Net(nn.Module):
     probed with it off."""
 
     flax_root = "DenseNet"
+    #: Under the model axis every sharded leaf is gathered on use.
+    tp_gather_on_use = True
 
     @classmethod
     def widths_from_tree(cls, tree: Mapping[str, Any]) -> dict[str, Any]:
@@ -368,11 +379,11 @@ class Net(nn.Module):
     def head(self, pooled_feats: torch.Tensor) -> torch.Tensor:
         """(..., w) pooled features -> (..., ncls) f32 logits."""
         dt = self.compute_dtype
-        x = (pooled_feats.to(dt) @ self.head1_kernel.to(dt)
+        x = (pooled_feats.to(dt) @ use(self, "head1_kernel").to(dt)
              + self.head1_bias.to(dt))
         x = self.act(x)
         # Compute-dtype operands, f32 products and sums, f32 bias after.
-        return (x.float() @ self.head2_kernel.to(dt).float()
+        return (x.float() @ use(self, "head2_kernel").to(dt).float()
                 + self.head2_bias.float())
 
     def logits_s2d(self, scene_ms: torch.Tensor, scene_pan: torch.Tensor,

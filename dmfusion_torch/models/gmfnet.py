@@ -6,7 +6,10 @@ Port of ``dmfusion/models/gmfnet.py``: ``Net(cfg)`` called as
 (B, classes) float32 logits.  Both branches reach MS resolution at width
 ``w``; a per-channel sigmoid gate ``z`` fuses them as
 ``z * h_ms + (1 - z) * h_pan``; a two-stage strided residual trunk and an
-MLP head classify.
+MLP head classify.  Under the mesh's ``model`` axis every conv and dense
+kernel that the placement shards computes its output channels' shard
+(``models/common.py``); the norms and the gate run on the gathered
+channels.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ from torch import nn
 
 from dmfusion_torch.models.common import (ConvBlock, MLPHead, PanPyramid,
                                           PanSpaceToDepth, ResBlock,
-                                          activation_fn, dtypes,
+                                          SameConv2d, activation_fn, dtypes,
                                           tree_shape)
 from dmfusion_torch.models.registry import register
 
@@ -47,7 +50,7 @@ class Net(nn.Module):
         pan_cls = PanPyramid if self.pan_kind == "pyramid" else PanSpaceToDepth
         self.pan = pan_cls(1, (w // 2, w), act)
         self.pan_res = ResBlock(w, w, 1, act)
-        self.fusion_gate = nn.Conv2d(2 * w, w, 1)
+        self.fusion_gate = SameConv2d(2 * w, w, 1)
         self.trunk = nn.Sequential(ResBlock(w, 2 * w, 2, act),
                                    ResBlock(2 * w, 2 * w, 1, act),
                                    ResBlock(2 * w, 4 * w, 2, act))

@@ -9,6 +9,10 @@ one ``pos`` embedding over the joined sequence; a learned ``cls`` token
 leads it.  ``trans.depth`` pre-norm self-attention blocks (``block_{i}``),
 a final LayerNorm and a linear head on the class token give the logits.
 At patch 16 and ``trans.patch_size`` 1 the sequence is 513 tokens.
+Under the mesh's ``model`` axis the attention heads shard when the head
+count divides the axis (``models/attention.py``), the convs and denses
+compute their shards (``models/common.py``), and ``pos``, ``modality``
+and ``cls`` are gathered on use.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from dmfusion_torch.models.attention import (PatchEmbed, SelfAttnBlock,
 from dmfusion_torch.models.common import (LayerNorm, MLPHead, PanPyramid,
                                           activation_fn, dtypes, tree_shape)
 from dmfusion_torch.models.registry import register
+from dmfusion_torch.parallel.tensor import use
 
 
 @register("vit")
@@ -73,9 +78,9 @@ class Net(nn.Module):
             t_ms = self.ms_embed(ms)
             t_pan = self.pan_embed(self.pan(pan))
             dt = t_ms.dtype
-            mod = self.modality.to(dt)
+            mod = use(self, "modality").to(dt)
             tokens = torch.cat([t_ms + mod[0], t_pan + mod[1]],
-                               dim=1) + self.pos.to(dt)
-            cls = self.cls.to(dt).expand(tokens.shape[0], 1, -1)
+                               dim=1) + use(self, "pos").to(dt)
+            cls = use(self, "cls").to(dt).expand(tokens.shape[0], 1, -1)
             x = self.norm(self.blocks(torch.cat([cls, tokens], dim=1)))
             return self.head(x[:, 0])

@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed`` (port of
-``dmfusion/parallel``; the ``data`` axis only)."""
+"""The mesh over ``torch.distributed`` (port of ``dmfusion/parallel``):
+the ``data`` axis (``mesh.py``) and the ``model`` axis, its placement
+(``partition.py``) and its layers' collectives (``tensor.py``)."""
 
 from dmfusion_torch.parallel.mesh import (A14_ITEMS, Mesh,  # noqa: F401
                                           check_model, choose_backend,

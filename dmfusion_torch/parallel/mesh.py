@@ -1,11 +1,19 @@
-"""The mesh's ``data`` axis over ``torch.distributed``.
+"""The mesh's ``data`` and ``model`` axes over ``torch.distributed``.
 
 Port of ``dmfusion/parallel/mesh.py``.  dmfusion lays a ``('data',
 'model')`` mesh over every device of every process and lets XLA insert
-the collectives.  Here each rank is one process started by ``torchrun``:
+the collectives.  Here each rank is one process started by ``torchrun``,
+and the ranks form the same grid, ``(world // model, model)`` in rank
+order (``devices.reshape(n // model, model)``): rank ``r`` has data index
+``r // model`` and model index ``r % model``.  The model peers of a data
+index hold the same batch rows and split the sharded parameters between
+them (``parallel/partition.py``, ``parallel/tensor.py``); the data axis
+below runs between the ranks of one model index.  With ``model`` 1 the
+data axis is every rank:
 every rank holds the scene, the weights and the same seeded ``(steps, B)``
 id, label and mask arrays, gathers and runs its contiguous shard of each
-batch, and the collectives are explicit (:class:`Mesh`'s methods).  A step
+batch, and the collectives are explicit (:class:`Mesh`'s methods: over the
+rank's data group, the ranks of its model index).  A step
 sums the ranks' gradients, so it equals one step on the whole batch, as
 dmfusion's does: a row-wise loss divides by the whole batch's count, and a
 batch-level loss (dqtl's ``qua_loss``) runs on the whole batch's rows
@@ -17,8 +25,7 @@ What has no counterpart: ``batch_sharding``, ``replicate`` and
 code, and eager torch has no sharding constraint; a rank simply holds its
 rows (:meth:`Mesh.shard`).  ``make_global_batches`` assembles one global
 array from every process's copy; here every rank keeps the global arrays
-and takes its rows.  The ``model`` axis (Megatron splits,
-``dmfusion/parallel/partition.py``) is not ported (:data:`A14_ITEMS`).
+and takes its rows.
 
 The dense family splits the scene's rows instead of the batch: every rank
 holds the whole batch and computes one halo'd row band
@@ -51,8 +58,11 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 #: What still waits under a mesh, by the ROADMAP A14 item that ports it.
 A14_ITEMS = {
     "batchnorm": "ROADMAP A14 item 5: SyncBatchNorm",
-    "model": "ROADMAP A14 item 6: the model axis (tensor parallelism)",
+    "model": "ROADMAP A14 item 7: the model axis for the tri, single and "
+             "conv-map families, the two-stage solver and the models whose "
+             "leaves map to torch parameters other than one to one",
 }
+
 
 
 def unported(what: str, item: str) -> NotImplementedError:
@@ -145,21 +155,50 @@ def shutdown() -> None:
         dist.destroy_process_group()
 
 
+def _axis_groups(world: int, model: int) -> tuple[list, list]:
+    """``(data groups by model index, model groups by data index)`` of the
+    ``(world // model, model)`` grid.  Every rank makes every group, in the
+    same order (``dist.new_group``'s rule)."""
+    data = world // model
+    return ([dist.new_group([d * model + m for d in range(data)])
+             for m in range(model)],
+            [dist.new_group([d * model + m for m in range(model)])
+             for d in range(data)])
+
+
 @dataclass(frozen=True)
 class Mesh:
-    """The ranks of the ``data`` axis (``data``: every rank of the default
-    process group): this process's rank, its device and the group's
-    backend.  Every method that communicates is a collective: every rank
-    calls it, in the same order."""
+    """The ``(data, model)`` grid of the ranks: this process's (world)
+    rank, its device and the group's backend, the size of the ``model``
+    axis, and the groups of this rank's data axis (the ranks of its model
+    index; None: every rank, when ``model`` is 1) and of its model peers
+    (the ranks of its data index).  Every method that communicates is a
+    collective: every rank of its group calls it, in the same order.  The
+    data axis's methods (shards, sums, rows) run over the data group and
+    the data index; :meth:`broadcast`, :meth:`from_rank0` and
+    :meth:`barrier` over every rank."""
 
     data: int
     rank: int
     device: torch.device
     backend: str
+    model: int = 1
+    data_group: Any = None
+    model_group: Any = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
+
+    @property
+    def data_index(self) -> int:
+        """This rank's place on the data axis: ``rank // model``."""
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's place among its model peers: ``rank % model``."""
+        return self.rank % self.model
 
     # -- shards --------------------------------------------------------------
     def per_rank(self, b: int) -> int:
@@ -169,7 +208,7 @@ class Mesh:
     def bounds(self, b: int) -> tuple[int, int]:
         """This rank's real rows ``[lo, hi)`` of a batch of ``b``."""
         per = self.per_rank(b)
-        lo = min(self.rank * per, b)
+        lo = min(self.data_index * per, b)
         return lo, min(lo + per, b)
 
     def shard(self, x: torch.Tensor, fill: float | None = None
@@ -191,26 +230,27 @@ class Mesh:
 
     # -- collectives ---------------------------------------------------------
     def sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns it."""
-        dist.all_reduce(t)
+        """Sum ``t`` over the data axis, in place; returns it."""
+        dist.all_reduce(t, group=self.data_group)
         return t
 
     def sum_all_(self, tensors: Iterable[torch.Tensor]) -> None:
-        """Sum same-dtype tensors over the ranks in place, as one flat
+        """Sum same-dtype tensors over the data axis in place, as one flat
         collective (a step's gradients)."""
         self._flat(list(tensors), self.sum_)
 
     def mean_all_(self, tensors: Iterable[torch.Tensor]) -> None:
-        """Average same-dtype tensors over the ranks in place, as one flat
-        collective (the GAN's gradients and losses: the mean of the ranks'
-        equal shards' means is the whole batch's mean)."""
+        """Average same-dtype tensors over the data axis in place, as one
+        flat collective (the GAN's gradients and losses: the mean of the
+        ranks' equal shards' means is the whole batch's mean)."""
         def mean(flat):
-            dist.all_reduce(flat)
+            dist.all_reduce(flat, group=self.data_group)
             flat /= self.data
         self._flat(list(tensors), mean)
 
     def broadcast_all_(self, tensors: Iterable[torch.Tensor]) -> None:
-        """Overwrite same-dtype tensors with rank 0's, as one collective."""
+        """Overwrite same-dtype tensors with rank 0's, as one collective
+        over every rank."""
         self._flat(list(tensors), lambda flat: dist.broadcast(flat, 0))
 
     @staticmethod
@@ -223,16 +263,10 @@ class Mesh:
             t.copy_(part.view_as(t))
 
     def rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` (the same shape on each) stacked along axis 0
-        in rank order: ``(data * n, ...)``.  ``all_gather_single`` where
-        torch has it (torch 2.13 deprecates ``all_gather_into_tensor`` for
-        it), else ``all_gather_into_tensor``; gloo takes CUDA tensors for
-        either."""
-        out = t.new_empty((self.data * t.shape[0], *t.shape[1:]))
-        gather = getattr(dist, "all_gather_single", None) \
-            or dist.all_gather_into_tensor
-        gather(out, t.contiguous())
-        return out
+        """Every data rank's ``t`` (the same shape on each) stacked along
+        axis 0 in data order: ``(data * n, ...)``
+        (:func:`all_gather_rows`)."""
+        return all_gather_rows(t, self.data, self.data_group)
 
     def batch_rows(self, t: torch.Tensor, b: int) -> torch.Tensor:
         """A batch of ``b`` rows rebuilt on every rank, in batch order, from
@@ -245,11 +279,11 @@ class Mesh:
         rank's gradient into each rank's rows: ``data`` times too much)."""
         per = t.shape[0]
         every = self.rows(t.detach())
-        lo = self.rank * per
+        lo = self.data_index * per
         return torch.cat([every[:lo], t, every[lo + per:]])[:b]
 
     def sum_live(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` summed over the ranks, with this rank's ``t`` live and the
+        """``t`` summed over the data axis, with this rank's ``t`` live and the
         others' detached: the gradient of the sum reaches this rank's
         ``t`` alone, so the ranks' summed parameter gradients are those of
         the sum (``torch.distributed.nn``'s ``all_reduce`` would reduce
@@ -284,40 +318,67 @@ class Mesh:
         dist.barrier()
 
 
-def get_mesh(cfg: Mapping[str, Any] | None = None) -> Mesh | None:
-    """The run's mesh over the process group's ranks, or None on one rank
-    (as ``dmfusion/solvers/base.py:81-82`` drops a one-device mesh).
+def all_gather_rows(t: torch.Tensor, size: int, group: Any = None
+                    ) -> torch.Tensor:
+    """Every member's ``t`` (the same shape on each) of ``group`` (``size``
+    ranks; None: every rank) stacked along axis 0 in group order:
+    ``(size * n, ...)``.  ``all_gather_single`` where torch has it (torch
+    2.13 deprecates ``all_gather_into_tensor`` for it), else
+    ``all_gather_into_tensor``; gloo takes CUDA tensors for either."""
+    out = t.new_empty((size * t.shape[0], *t.shape[1:]))
+    gather = getattr(dist, "all_gather_single", None) \
+        or dist.all_gather_into_tensor
+    gather(out, t.contiguous(), group=group)
+    return out
 
-    ``mesh.data: -1`` means every rank; an explicit ``mesh.data`` must
-    equal the world size (dmfusion's ``devices[:n]`` would leave ranks
-    idle, which no run here wants).  ``mesh.model > 1`` raises.  A run
-    that asked for ``mesh.distributed`` without a process group raises:
+
+def get_mesh(cfg: Mapping[str, Any] | None = None) -> Mesh | None:
+    """The run's ``(data, model)`` mesh over the process group's ranks, or
+    None on one rank (as ``dmfusion/solvers/base.py:81-82`` drops a
+    one-device mesh).
+
+    A world that ``mesh.model`` does not divide raises dmfusion's
+    ``ValueError``.  ``mesh.data: -1`` means ``world // model``; an
+    explicit ``mesh.data`` must equal it (dmfusion's ``devices[:n]`` would
+    leave ranks idle, which no run here wants).  A run that asked for
+    ``mesh.distributed`` without a process group raises:
     :func:`maybe_initialize_distributed` comes first (the CLI calls it).
-    The mesh's device is the CPU under ``device: cpu``, else the current
-    card, which :func:`maybe_initialize_distributed` chose for the rank.
+    Under ``mesh.model > 1`` every rank makes the grid's data and model
+    groups.  The mesh's device is the CPU under ``device: cpu``, else the
+    current card, which :func:`maybe_initialize_distributed` chose for the
+    rank.
     """
     m = (cfg or {}).get("mesh", {})
-    if int(m.get("model", 1)) > 1:
-        raise unported(f"mesh.model {m.get('model')}", "model")
     if wants_distributed(cfg) and not is_distributed():
         raise RuntimeError(
             "mesh.distributed is set but no process group is up: call "
             "dmfusion_torch.parallel.maybe_initialize_distributed(cfg) "
             "first (python -m dmfusion_torch.cli does), under torchrun")
     world = dist.get_world_size() if is_distributed() else 1
+    model = int(m.get("model", 1))
+    if model < 1 or world % model:
+        raise ValueError(f"{world} devices not divisible by model axis "
+                         f"{model}")
     data = int(m.get("data", -1))
-    if data not in (-1, world):
+    if data not in (-1, world // model):
         raise NotImplementedError(
-            f"mesh.data {data} with {world} rank(s): the port's data axis "
-            "is every rank (mesh.data: -1, or the world size); start as "
-            "many ranks as the axis needs with torchrun --nproc-per-node")
+            f"mesh.data {data} with {world} rank(s) and mesh.model {model}: "
+            "the port's data axis is every rank not on the model axis "
+            "(mesh.data: -1, or the world size over mesh.model); start as "
+            "many ranks as the mesh needs with torchrun --nproc-per-node")
     if world == 1:
         return None
     on_cpu = str((cfg or {}).get("device", "")).lower() == "cpu"
-    return Mesh(data=world, rank=dist.get_rank(),
+    rank = dist.get_rank()
+    groups = {}
+    if model > 1:
+        data_groups, model_groups = _axis_groups(world, model)
+        groups = {"data_group": data_groups[rank % model],
+                  "model_group": model_groups[rank // model]}
+    return Mesh(data=world // model, rank=rank,
                 device=torch.device("cpu") if on_cpu
                 else torch.device("cuda", torch.cuda.current_device()),
-                backend=str(dist.get_backend()))
+                backend=str(dist.get_backend()), model=model, **groups)
 
 
 def check_model(model: torch.nn.Module) -> None:

@@ -9,9 +9,9 @@ valid ids and identical per-epoch batches.  Batches are (steps, B) id,
 label and mask tensors, moved to the device once per call.
 
 Under ``torchrun`` with ``mesh.distributed`` (the process group already
-up: the CLI starts it) the solver holds the ``data`` axis's
-:class:`~dmfusion_torch.parallel.Mesh`, built from the config as
-dmfusion's ``get_mesh`` builds its mesh.  Every rank draws the same
+up: the CLI starts it) the solver holds the
+:class:`~dmfusion_torch.parallel.Mesh` of its ``data`` and ``model``
+axes, built from the config as dmfusion's ``get_mesh`` builds its mesh.  Every rank draws the same
 splits and batches, as every dmfusion process does; the programs shard
 them.  Only rank 0 (``is_main``) writes: the run slot, checkpoints,
 records, the matrix, the workbook, PNGs, profiles and the ``use_h5``

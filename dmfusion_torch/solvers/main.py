@@ -68,6 +68,17 @@ every rank computes its shard's logits, and rank 0 embeds them all;
 ``use_h5`` warns and trains from scene gathers, as dmfusion's
 multi-process run does.  Models with BatchNorm raise
 ``NotImplementedError`` naming their ROADMAP A14 item.
+
+With ``mesh.model > 1`` (the mesh's ``model`` axis,
+``parallel/partition.py``) the dual arity's gmfnet and vit and the dense
+family train, validate, test and color as above, each rank holding its
+shards of the seeded whole parameters (sharded after ``init_params``,
+before the optimizer, whose moments take the shards' shapes).  Every save
+gathers the whole parameters and moments over the model group first and a
+load takes the rank's shards of the file, so a checkpoint holds the whole
+model in one process's layout.  Every other family raises
+``NotImplementedError`` naming ROADMAP A14 item 7, and so does the
+two-stage solver.
 """
 
 from __future__ import annotations
@@ -86,7 +97,10 @@ from dmfusion_torch.models.registry import (build_model, model_arity,
                                             model_map_programs)
 from dmfusion_torch.ops.contourlet import contourlet_decompose
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
-from dmfusion_torch.parallel import check_model
+from dmfusion_torch.parallel import check_model, unported
+from dmfusion_torch.parallel.partition import (full_opt_state, full_state,
+                                               shard_model, shard_opt_state)
+from dmfusion_torch.parallel.tensor import shard_state
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import channel_grid, embedding_scatter
 from dmfusion_torch.solvers.base import BaseSolver
@@ -100,6 +114,12 @@ from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
                                         TriPrograms, resolve_dense_epoch,
                                         resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
+
+# The (arity, model) pairs that run on the mesh's model axis: the dual
+# arity's gmfnet and vit, the dense family (dmfusion's TP tests pin these
+# three).  The rest raises, naming ROADMAP A14 item 7.
+_MODEL_AXIS = {("dual", "gmfnet"), ("dual", "vit"),
+               ("dual", "vision_transformer"), ("dense", "dense_fusion")}
 
 # The per-anchor programs of an arity other than dual (whose map-route
 # models take ConvMapPrograms).
@@ -252,6 +272,11 @@ class Solver(BaseSolver):
         if arity not in ("dual", "tri", "dense", "single"):
             raise ValueError(f"unsupported model arity {arity!r} for the "
                              "main solver")
+        if (self.mesh is not None and self.mesh.model > 1
+                and (arity, str(cfg["model_name"]).lower())
+                not in _MODEL_AXIS):
+            raise unported(f"model {cfg['model_name']!r} (arity {arity!r}) "
+                           f"on mesh.model {self.mesh.model}", "model")
         loss_name = cfg["schedule"]["loss"]
         if loss_name != "Criterion":
             raise ValueError(
@@ -288,6 +313,9 @@ class Solver(BaseSolver):
             model = model.to(self.device, memory_format=torch.channels_last)
         init_params(model, torch.Generator().manual_seed(
             int(cfg["seed"]) + int(self.time)))
+        # The model axis: every rank keeps its shards of the seeded whole
+        # parameters, before the optimizer fills its moments.
+        shard_model(model, self.mesh)
         self.model = model
         n_train = len(self.split.train) if self.split else 0
         if arity == "dense":
@@ -371,13 +399,14 @@ class Solver(BaseSolver):
         self.epoch = 0
         if cfg["train"].get("resume") and self._on_main(
                 lambda: exists(self.cur_weights_path())):
+            template = self._whole_tree()
             ckpt = self._on_main(lambda: load_checkpoint(
-                self.cur_weights_path(),
-                {"params": self.model.state_dict(),
-                 "opt_state": self.optimizer.state_dict(), "epoch": 0},
+                self.cur_weights_path(), template,
                 expect=self._ckpt_meta(), lenient=self._ckpt_lenient()))
-            self.model.load_state_dict(ckpt["params"])
-            self.optimizer.load_state_dict(ckpt["opt_state"])
+            self.model.load_state_dict(shard_state(self.model,
+                                                   ckpt["params"]))
+            self.optimizer.load_state_dict(shard_opt_state(
+                self.model, self.optimizer, ckpt["opt_state"]))
             self.epoch = int(ckpt["epoch"]) + 1
             self.load_records()
             if not cfg.get("nohup") and self.is_main:
@@ -450,21 +479,30 @@ class Solver(BaseSolver):
             return None
         return AsyncCheckpointWriter()
 
+    def _whole_tree(self, epoch: int = 0) -> dict:
+        """``{"params", "opt_state", "epoch"}`` of the whole model: on the
+        model axis the shards and their moments gathered over the model
+        group (a collective: every rank calls it), the live tensors
+        otherwise.  A checkpoint's layout, and its load's template."""
+        return {"params": full_state(self.model),
+                "opt_state": full_opt_state(self.model, self.optimizer),
+                "epoch": epoch}
+
     def _save_best(self, saver) -> None:
+        best = full_state(self.model, self.best_params)  # every rank
         if not self.is_main:
             return
         if saver is not None:
-            saver.save(self.best_weights_path(), self.best_params,
+            saver.save(self.best_weights_path(), best,
                        copy=False, meta=self._ckpt_meta())
         else:
-            save_checkpoint(self.best_weights_path(), self.best_params,
+            save_checkpoint(self.best_weights_path(), best,
                             meta=self._ckpt_meta())
 
     def _save_current(self, saver) -> None:
+        tree = self._whole_tree(self.epoch)  # every rank
         if not self.is_main:
             return
-        tree = {"params": self.model.state_dict(),
-                "opt_state": self.optimizer.state_dict(), "epoch": self.epoch}
         if saver is not None:
             # copy=True: the next epoch's steps update these tensors in place.
             saver.save(self.cur_weights_path(), tree, copy=True,
@@ -556,7 +594,7 @@ class Solver(BaseSolver):
     def _load_eval_params(self) -> dict[str, torch.Tensor]:
         """The parameters test and color use: the best ones (in memory, or
         from ``{time}_weights.pt``), or the current ones without
-        ``save_best``."""
+        ``save_best``; on the model axis this rank's shards of them."""
         cfg = self.cfg
         if self.programs is None:
             self.init_model()
@@ -566,9 +604,14 @@ class Solver(BaseSolver):
             path = self.best_weights_path()
         else:
             path = self.cur_weights_path()
-        return self._on_main(lambda: self._read_eval_params(path))
+        template = self._whole_tree()
+        return shard_state(self.model, self._on_main(
+            lambda: self._read_eval_params(path, template)))
 
-    def _read_eval_params(self, path: str) -> dict[str, torch.Tensor]:
+    def _read_eval_params(self, path: str, template: dict
+                          ) -> dict[str, torch.Tensor]:
+        """The whole parameters in ``path`` (``template``: a whole tree of
+        :meth:`_whole_tree`)."""
         cfg = self.cfg
         if not exists(path):
             raise FileNotFoundError(
@@ -580,13 +623,11 @@ class Solver(BaseSolver):
                 "set train.resume: 1 to reuse the newest unfinished "
                 "slot, or train first.")
         if cfg["train"]["save_best"]:
-            return load_checkpoint(path, self.model.state_dict(),
+            return load_checkpoint(path, template["params"],
                                    expect=self._ckpt_meta(),
                                    lenient=self._ckpt_lenient())
-        ckpt = load_checkpoint(
-            path, {"params": self.model.state_dict(),
-                   "opt_state": self.optimizer.state_dict(), "epoch": 0},
-            expect=self._ckpt_meta(), lenient=self._ckpt_lenient())
+        ckpt = load_checkpoint(path, template, expect=self._ckpt_meta(),
+                               lenient=self._ckpt_lenient())
         return ckpt["params"]
 
     def _use_eval_params(self) -> None:

@@ -55,7 +55,7 @@ from dmfusion_torch.ops.ihs import pan2ms
 from dmfusion_torch.ops.image import (render_tensor, scene_to_tiles,
                                       tiles_to_scene)
 from dmfusion_torch.ops.metrics import per_stream_results
-from dmfusion_torch.parallel import check_model
+from dmfusion_torch.parallel import check_model, unported
 from dmfusion_torch.report.excel import expo_stream_results
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import save_image_grid
@@ -75,6 +75,9 @@ class TwoStageSolver(Solver):
 
     def __init__(self, cfg):
         super().__init__(cfg)
+        if self.mesh is not None and self.mesh.model > 1:
+            raise unported(f"the two-stage solver on mesh.model "
+                           f"{self.mesh.model}", "model")
         self.ms_gan: np.ndarray | None = None
         self.pan_gan: np.ndarray | None = None
         self.stream_matrices: np.ndarray | None = None

@@ -13,6 +13,11 @@ parameters, a ``state_dict``) and ``{time}_curweights.pt`` (``{"params",
     from the file or of another shape, and warns which;
   * :class:`AsyncCheckpointWriter` writes on a worker thread.
 
+On the mesh's ``model`` axis a rank holds shards: the solver gathers the
+whole parameters and moments over the model group before it hands a tree
+here (``parallel/partition.py::full_state``, ``full_opt_state``), so a
+file is the same as a one-process run's and loads there.
+
 In torch, ``optimizer.step()`` updates parameters and moments in place and
 ``state_dict()`` returns references to them, so a tree held for later (the
 best parameters, an asynchronous save) must be a real copy taken before

@@ -63,6 +63,16 @@ rank's band through the model (its pool is the pool kernel on the card)
 and score the anchors it owns, or gather every rank's owned rows of the
 int32 class map.  A scene too small to band runs whole on every rank, and
 then nothing is summed over the ranks.
+
+On the mesh's ``model`` axis (``parallel/partition.py``) the model peers of
+a data index hold the same rows, and the data axis above runs between the
+ranks of one model index (the mesh's data group): the shard is
+``mesh.shard`` at the data index, the band ``band_plan(ms_rows,
+mesh.data)``'s at the data index, and only the data group sums.  The model
+computes with its shards (``parallel/tensor.py``), each rank's gradients,
+a shard's or a replicated parameter's, are already its own, and
+:func:`take_rank0_params` broadcasts rank 0's whole parameters before each
+rank keeps its shards of them.
 """
 
 from __future__ import annotations
@@ -83,6 +93,8 @@ from dmfusion_torch.ops.gather import (gather_dual_fast, gather_one_fast,
                                        gather_quad_fast, gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.parallel.mesh import Mesh
+from dmfusion_torch.parallel.partition import full_state
+from dmfusion_torch.parallel.tensor import shard_state
 from dmfusion_torch.train.losses import cross_entropy, qua_loss
 from dmfusion_torch.train.optim import reset_state
 
@@ -121,14 +133,29 @@ def assemble_bands(pieces: list[torch.Tensor], h: int,
 @torch.no_grad()
 def take_rank0_params(model: torch.nn.Module, mesh: Mesh | None) -> None:
     """Under a mesh, overwrite ``model``'s parameters with rank 0's, as DDP
-    starts."""
-    if mesh is not None:
+    starts.  On the model axis rank 0 holds a shard: every rank gathers its
+    whole parameters over its model group, rank 0's whole parameters are
+    broadcast, and every rank keeps its shard of them (broadcasting rank
+    0's shard itself would overwrite every model index's shard with model
+    index 0's)."""
+    if mesh is None:
+        return
+    if mesh.model == 1:
         mesh.broadcast_all_(model.parameters())
+        return
+    whole = full_state(model, dict(model.named_parameters()))
+    mesh.broadcast_all_(whole.values())
+    params = dict(model.named_parameters())
+    for name, t in shard_state(model, whole).items():
+        if t is not params[name]:
+            params[name].copy_(t)
 
 
 def sum_grads(params, mesh: Mesh) -> None:
-    """Sum the gradients of ``params`` over the ranks, in one flat
-    collective (a parameter without a gradient counts as zeros)."""
+    """Sum the gradients of ``params`` over the data axis, in one flat
+    collective (a parameter without a gradient counts as zeros).  On the
+    model axis every gradient, a shard's or a replicated parameter's, is
+    already this rank's own: the model peers' are not added."""
     grads = []
     for p in params:
         if p.grad is None:
@@ -632,7 +659,8 @@ class DensePrograms:
         plan = self.mesh_plan(ms_rows)
         if plan is None:
             return None
-        out_start, s0, _ = self.band_slices(plan, self.mesh.rank, ms_rows)
+        out_start, s0, _ = self.band_slices(plan, self.mesh.data_index,
+                                            ms_rows)
         return {"out_start": out_start, "s0": s0, "need": plan[4],
                 "band": plan[2]}
 
@@ -752,7 +780,7 @@ class DensePrograms:
         The band is checkpointed end to end unless the model's remat is
         off, as dmfusion checkpoints its shard_map; the sum stays outside,
         so the backward does not repeat the collective."""
-        ps, i = self.patch, self.mesh.rank
+        ps, i = self.patch, self.mesh.data_index
         dt = self.model.compute_dtype
 
         def band_win(ms, pan, ids_b):
@@ -845,7 +873,7 @@ class DensePrograms:
         forward), then ``(b, logits, own)`` for every batch ``b``, each
         anchor read from the band's owned rows (clamped where the rank does
         not own it: ``own`` masks those)."""
-        i, band = self.mesh.rank, plan[2]
+        i, band = self.mesh.data_index, plan[2]
         logits = self._band_piece(
             ms, pan, plan, i, lambda bm, bp: self.model(bm, bp, self.patch))
         flat = logits.reshape(-1, logits.shape[-1])
@@ -925,7 +953,8 @@ class DensePrograms:
         """``band_fn(band_ms, band_pan)`` over this rank's band; every
         rank's owned rows gathered (``Mesh.rows``) and assembled, on every
         rank."""
-        piece = self._band_piece(ms, pan, plan, self.mesh.rank, band_fn)
+        piece = self._band_piece(ms, pan, plan, self.mesh.data_index,
+                                 band_fn)
         pieces = self.mesh.rows(piece).split(plan[2])
         return assemble_bands(list(pieces), plan[0], plan[2])
 
