@@ -336,41 +336,55 @@ Phases; any failure exits non-zero before the result line:
                 r % 2), parameters and SGD/Adam moments sharded by
                 ``parallel/partition.py``.  Three f32 SGD steps (TF32 off)
                 from seeded weights, the padded batch first, through the
-                mesh and through one process (ranks 0-2 one model each,
-                broadcast):
-                gmfnet w64 at patch 16 on image6 (batch 256), vit at the
-                config's embed 96, depth 2 with ``trans.num_head=4`` (its
-                heads shard; batch TP_VIT_BATCH), and two steps of
-                dense_fusion w32 on train_dense's crop (its band of
-                ``band_plan(215, 2)`` a data index, B2 once a rank on the
-                band map after them, the map against one process's:
-                argmax agreement at least DPM_AGREE_F32): losses within
+                mesh and through one process (the one-process runs spread
+                over the ranks, broadcast): gmfnet w64 at patch 16 on
+                image6 (batch 256), vit at the config's embed 96, depth 2
+                with ``trans.num_head=4`` (its heads shard; batch
+                TP_VIT_BATCH), two steps of dense_fusion w32 on
+                train_dense's crop (its band of ``band_plan(215, 2)`` a
+                data index, B2 once a rank on the band map after them, the
+                map against one process's: argmax agreement at least
+                DPM_AGREE_F32), and TP_FAMILIES at the config's widths
+                (tri_net, gmfnet_conv at patch 47, swin_transformer,
+                ct_lstm, dqtl replicated; resnet18, cross_net, swin_T_dual
+                and the single arity one step each): losses within
                 TP_LOSS_RTOL, parameters within TP_PARAM_RTOL and
-                TP_PARAM_ATOL; gmfnet's gradients summed over every rank,
-                and rank 0's shards broadcast over every rank, outside
-                them; B1 (``gather_dual_sharded`` on the data shard, 2
-                launches) at B 4096 and B 256 bit-equal to the plain
-                ``gather_dual`` and to the model peer's rows; every
-                sharded parameter and Adam moment of gmfnet, vit and
-                dense_fusion of the shard's shape, the bytes a rank holds
-                beside one process's; TP_STEPS timed bf16 Adam steps a rank
-                (B1 twice a step, counted) and a profile of 5 on rank 0
-                (the all-gathers' and all-reduces' share), timed alone
-                after the CLI run.  Meanwhile (the start-ups overlap)
-                ``python -m torch.distributed.run --standalone
-                --nproc-per-node 2 -m dmfusion_torch.cli --set
-                mesh.distributed=1 mesh.model=2
-                <TRAIN_SET> epoch=1 test.index=0 train_rate=0.002
-                verify_rate=0.002`` (data 1 x model 2, gmfnet w64, 23
-                steps): one result tree, finite records, each rank's
-                report (``mesh_model`` 2) with B1
-                launched twice per gathered batch (train and val), counted
-                from the split; the best weights loaded in one process on
-                the card give the run's val OA within TP_VAL_OA_ATOL and
-                val loss within TP_VAL_LOSS_RTOL (bf16: the sharded layers
-                add their bias after the gather).  The kernels line counts
-                the ranks' step launches and the CLI run's (B1) and the
-                band maps' (B2).
+                TP_PARAM_ATOL; gmfnet's, tri_net's and dqtl's gradients
+                summed over every rank, and rank 0's gmfnet shards
+                broadcast over every rank, outside them; dqtl's model peers
+                bit-equal after its steps; three GAN steps at gan_width 32,
+                replicated, the same noise on every rank, within the data
+                axis's GAN limits (DPS_GAN_LOSS_RTOL, DPS_GAN_MOMENT_RTOL,
+                Adam's step bound), summed gradients outside them, the
+                model peers bit-equal; B1 on the data shard
+                (``gather_dual_sharded``, ``gather_tri_fast``,
+                ``gather_quad_fast``: 2, 3 and 4 launches) at B 4096 and B
+                256 bit-equal to the plain gathers and to the model peer's
+                rows; every sharded parameter and Adam moment of gmfnet,
+                vit, dense_fusion and the sharded TP_FAMILIES of the
+                shard's shape, the bytes a rank holds beside one
+                process's; TP_STEPS timed bf16 Adam steps a rank of gmfnet
+                (B1 twice a step) and of tri_net (3 times), counted, and a
+                profile of 5 on rank 0 (the all-gathers' and all-reduces'
+                share), timed alone after the CLI runs.  Meanwhile (the
+                start-ups overlap) two runs of ``python -m
+                torch.distributed.run --standalone --nproc-per-node 2 -m
+                dmfusion_torch.cli ... mesh.distributed=1 mesh.model=2``
+                (data 1 x model 2) go at once: ``--set <TRAIN_SET> epoch=1
+                test.index=0 train_rate=0.002 verify_rate=0.002`` (gmfnet
+                w64, 23 steps): one result tree, finite records, each
+                rank's report (``mesh_model`` 2) with B1 launched twice per
+                gathered batch (train and val), counted from the split; the
+                best weights loaded in one process on the card give the
+                run's val OA within TP_VAL_OA_ATOL and val loss within
+                TP_VAL_LOSS_RTOL (bf16: the sharded layers add their bias
+                after the gather); and TP_TWOSTAGE_SET (``--solver
+                twostage``, dqtl replicated: one GAN epoch, 23 stage-2
+                steps): one result tree and weights dir, the GAN scenes
+                finite in [0, 1], finite records, B1 4 times a gathered
+                batch on each rank.  The kernels line counts the ranks'
+                step launches and both CLI runs' (B1) and the band maps'
+                (B2).
   21. diagnostics — (run after train_gan, on the solvers that train and
                 train_gan trained and kept) ``visualize()`` of the gmfnet
                 solver: its t-SNE of TSNE_POINTS test anchors' logits on
@@ -458,7 +472,8 @@ from dmfusion_torch.parallel.tensor import shard_dims
 from dmfusion_torch.train import steps as steps_mod
 from dmfusion_torch.train.gan import GanPrograms
 from dmfusion_torch.train.steps import (DensePrograms, DualPrograms,
-                                        QuadPrograms, TriPrograms)
+                                        QuadPrograms, SinglePrograms,
+                                        TriPrograms)
 
 BUCKET = 4096
 REQUESTS = 32
@@ -759,6 +774,37 @@ SINGLE_SET = [f"model_name={SINGLE_NAME}", "data_city=image6", "epoch=1",
               "time=1", "train_rate=0.002", "verify_rate=0.002",
               "test.index=0", "color.index=0", "nohup=1"]
 SINGLE_BUCKETS, SINGLE_REQUESTS = 16, 4
+# The rest of the zoo on the model axis (phase train_tp), at the config's
+# widths: name -> (its programs' kind, its config, its controls).  Three
+# f32 SGD steps each against one process, the padded batch (TP_REAL of
+# 256) first, at the TP limits: tri_net w64 (the gradients summed over
+# every rank must miss), gmfnet_conv at patch 47, swin_transformer,
+# ct_lstm (the contourlet on the card) and dqtl with its parameters
+# replicated, as the two-stage solver keeps them (the world-group sum
+# must miss; the model peers end bit-equal); TP_ONE_STEP take one step.
+TP_FAMILIES = {
+    "tri_net": ("tri", {"model_name": "tri_net"}, ("world_sum",)),
+    "gmfnet_conv": ("conv", {"model_name": "gmfnet_conv",
+                             "patch_size": 47}, ()),
+    "swin_transformer": ("dual", {"model_name": "swin_transformer"}, ()),
+    "ct_lstm": ("dual", {"model_name": "ct_lstm"}, ()),
+    "dqtl": ("quad", {"model_name": "dqtl"}, ("world_sum",)),
+    "resnet18": ("dual", {"model_name": "resnet18", "model_width": 32}, ()),
+    "cross_net": ("dual", {"model_name": "cross_net"}, ()),
+    "swin_T_dual": ("dual", {"model_name": "swin_T_dual"}, ()),
+    SINGLE_NAME: ("single", {"model_name": SINGLE_NAME}, ())}
+TP_ONE_STEP = ("resnet18", "cross_net", "swin_T_dual", SINGLE_NAME)
+# The two-stage solver under torchrun on two ranks, data 1 x model 2, its
+# parameters replicated: train_dp_streams' run (one GAN epoch over the 272
+# image6 tiles, one stage-2 epoch, no test, no color) cut as the gmfnet
+# TP run is, to a tenth of its train and val anchors (23 steps of 256 and
+# 2 val buckets of 4096); B1 4 a gathered batch on each rank.
+TP_TWOSTAGE_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
+                   "dqtl.pre_trained=0", "dqtl.save_model=1",
+                   f"dqtl.epochs={DPS_GAN_EPOCHS}", "data_city=image6",
+                   f"epoch={DPS_STAGE2_EPOCHS}", "time=1", "color.index=0",
+                   "test.index=0", "train_rate=0.002", "verify_rate=0.002",
+                   "nohup=1"]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # One entry per CUDA source of the driven paths.
 KERNELS = {
@@ -1912,7 +1958,8 @@ def phase_train_dp() -> tuple[int, dict]:
     Returns B1's launches in the ranks' timed steps (both ranks) and the
     wrapper's times on rank 0.  The CLI under torchrun on the data axis is
     driven by train_dp_streams, train_dp_maps (gmfnet_conv per anchor:
-    the same programs and sharded gather) and train_tp (gmfnet)."""
+    the same programs and sharded gather) and train_tp (gmfnet and the
+    two-stage solver on the model axis)."""
     log(f"train_dp: {DP_RANKS} ranks share one card ({card_line()}) over "
         "gloo: NCCL takes one rank a device.  These numbers hold the path's "
         "correctness and say nothing of scaling across cards.")
@@ -2166,7 +2213,7 @@ def _gan_nets(cfg, device) -> list:
                       "discriminator")]
 
 
-def _dps_gan_parity(quad, mesh) -> dict:
+def _dps_gan_parity(quad, mesh, phase: str = "train_dp_streams") -> dict:
     """Three ``GanPrograms`` steps at gan_width 32, f32 (TF32 off), on
     GAN_PARITY_PIC crops, 4 tiles a step (2 a rank), from seeded weights
     and the same noise (drawn on the CPU), through the mesh and through
@@ -2174,7 +2221,7 @@ def _dps_gan_parity(quad, mesh) -> dict:
     moments within DPS_GAN_MOMENT_RTOL of the largest, the parameters
     within Adam's step bound; summing the ranks' gradients must move the
     moments past their limit."""
-    pic, bs = GAN_PARITY_PIC, 2 * DP_RANKS
+    pic, bs = GAN_PARITY_PIC, 2 * mesh.data
     m, p = (t.reshape(PARITY_STEPS, bs, pic, pic, -1)
             for t in _gan_tiles(quad, pic, PARITY_STEPS * bs))
     gen = torch.Generator().manual_seed(CFG["seed"])
@@ -2219,12 +2266,12 @@ def _dps_gan_parity(quad, mesh) -> dict:
     check(loss_rel <= DPS_GAN_LOSS_RTOL and gaps["moments"]
           <= DPS_GAN_MOMENT_RTOL * scale
           and gaps["params"] <= 4 * lr * PARITY_STEPS,
-          f"train_dp_streams: two ranks' GAN steps (losses {loss_rel} "
-          f"relative, {gaps}, moments up to {scale}) from one process's on "
-          f"rank {mesh.rank}")
-    check(control > DPS_GAN_MOMENT_RTOL, f"train_dp_streams: summed GAN "
-          f"gradients pass the parity check (moments {control} of the "
-          "largest apart)")
+          f"{phase}: the mesh's GAN steps (losses {loss_rel} relative, "
+          f"{gaps}, moments up to {scale}) from one process's on rank "
+          f"{mesh.rank}")
+    check(control > DPS_GAN_MOMENT_RTOL, f"{phase}: summed GAN gradients "
+          f"pass the parity check (moments {control} of the largest "
+          "apart)")
     return {"gan_width": GAN_WIDTH, "pic": pic, "batch": bs,
             "steps": PARITY_STEPS,
             "losses_d_g": {k: v["losses"].tolist() for k, v in out.items()},
@@ -2233,7 +2280,8 @@ def _dps_gan_parity(quad, mesh) -> dict:
             "param_bound": 4 * lr * PARITY_STEPS,
             "moments_max_abs": gaps["moments"], "moments_max": scale,
             "moment_rtol": DPS_GAN_MOMENT_RTOL,
-            "summed_moments_max_rel": control}
+            "summed_moments_max_rel": control,
+            "mesh_digest": _digest(out["two_ranks"]["params"]).tolist()}
 
 
 def _dps_steps(scene, mspan, quad, mesh) -> dict:
@@ -2461,52 +2509,58 @@ def _dps_tri_run(tmp: str) -> dict:
             "b1_launches_per_rank": want, "b1_launches": b1}
 
 
-def _dps_twostage_run(tmp: str) -> dict:
-    """Both stages of the two-stage solver by two ranks through torchrun,
-    without test: one result tree and one weights dir; the GAN scenes of
-    the scene's shape, finite in [0, 1]; finite records; 4 B1 launches a
-    gathered batch of stage 2 on each rank."""
-    run = _dp_cli(tmp, DPS_TWOSTAGE_SET, "train_dp_streams", DPS_TIMEOUT)
-    cfg, split = _dps_split(DPS_TWOSTAGE_SET)
-    epochs = DPS_STAGE2_EPOCHS
+def _dps_twostage_run(tmp: str, args: list[str] = DPS_TWOSTAGE_SET,
+                      phase: str = "train_dp_streams",
+                      timeout: float = DPS_TIMEOUT, nprocs: int = DP_RANKS,
+                      model: int = 1) -> dict:
+    """Both stages of the two-stage solver by ``nprocs`` ranks through
+    torchrun (``args``; a ``data x model`` mesh of ``nprocs // model`` x
+    ``model``), without test: one result tree and one weights dir; the GAN
+    scenes of the scene's shape, finite in [0, 1]; finite records; 4 B1
+    launches a gathered batch of stage 2 on each rank."""
+    run = _dp_cli(tmp, args, phase, timeout, nprocs)
+    cfg, split = _dps_split(args)
+    epochs = int(cfg["epoch"])
     name = f"image6_tr{cfg['train_rate']}_ep{epochs}_bs{TRAIN_BATCH}"
     wname = cfg["dqtl"]["WEIGHTS"].strip("/")
-    _listing(tmp, [name, wname], "two-stage result tree")
+    _listing(tmp, [name, wname], "two-stage result tree", phase)
     root = os.path.join(tmp, name)
-    _listing(root, ["dqtl__0_output"], "two-stage run")
+    _listing(root, ["dqtl__0_output"], "two-stage run", phase)
     out = os.path.join(root, "dqtl__0_output")
     _listing(out, ["0_curweights.pt", "0_records.json", "0_weights.pt"],
-             "two-stage output")
+             "two-stage output", phase)
     wdir = os.path.join(tmp, wname)
     d = cfg["dqtl"]
     _listing(wdir, [d[k] for k in ("check_gH", "check_gZ", "check_dH",
                                    "check_dZ")]
              + ["fake_ms.png", "fake_pan.png", "msgan.npy", "pan.npy",
-                "pangan.npy", "saved_images"], "weights dir")
+                "pangan.npy", "saved_images"], "weights dir", phase)
     _listing(os.path.join(wdir, "saved_images"),
-             ["f_m_0.png", "f_p_0.png", "m.png", "p.png"], "sample grids")
+             ["f_m_0.png", "f_p_0.png", "m.png", "p.png"], "sample grids",
+             phase)
     size = (2001, 2101, 4)
     for f in ("msgan.npy", "pangan.npy"):
         arr = np.load(os.path.join(wdir, f))
         check(arr.shape == size and arr.dtype == np.float32
               and bool(np.isfinite(arr).all()) and 0 <= arr.min()
-              and arr.max() <= 1, f"train_dp_streams: {f} {arr.shape} "
+              and arr.max() <= 1, f"{phase}: {f} {arr.shape} "
               f"{arr.dtype} [{arr.min()}, {arr.max()}]")
     with open(os.path.join(out, "0_records.json")) as f:
         rec = json.load(f)
     check(rec["Epoch"] == list(range(epochs))
           and all(np.isfinite(rec["Loss"] + rec["ValLoss"])),
-          f"train_dp_streams: two-stage records {rec}")
+          f"{phase}: two-stage records {rec}")
     batches = {"train": len(split.train) // TRAIN_BATCH * epochs,
                "val": -(-len(split.valid) // EVAL_BATCH) * epochs}
-    b1 = _mesh_reports(run, "train_dp_streams", "twostage",
-                       4 * sum(batches.values()))
+    b1 = _mesh_reports(run, phase, "twostage", 4 * sum(batches.values()),
+                       data=nprocs // model, model=model)
+    gan_epochs = int(cfg["dqtl"]["epochs"])
     for r in run["reports"]:
-        check(r["stage1_epochs"] == DPS_GAN_EPOCHS and r["stage1_s"] > 0,
-              f"train_dp_streams: rank {r['rank']}'s stage 1 {r}")
+        check(r["stage1_epochs"] == gan_epochs and r["stage1_s"] > 0,
+              f"{phase}: rank {r['rank']}'s stage 1 {r}")
     return {"run_s": run["run_s"],
             "stage1_s": max(r["stage1_s"] for r in run["reports"]),
-            "stage1_epochs": DPS_GAN_EPOCHS, "stage2_epochs": epochs,
+            "stage1_epochs": gan_epochs, "stage2_epochs": epochs,
             "epoch_s": rec["EpochTime"],
             "loss": rec["Loss"], "val_loss": rec["ValLoss"],
             "val_oa": rec["ValOA"], "gather_batches_per_rank": batches,
@@ -2897,12 +2951,14 @@ def _tp_batches(label: np.ndarray, batch: int, real: int, seed: int,
         mask.astype(np.float32))]
 
 
-def _tp_train(mesh, cfg, args, batches, programs, m, patch=None):
+def _tp_train(mesh, cfg, args, batches, programs, m, patch=None,
+              shard=True):
     """The SGD steps of ``batches`` from the seeded weights of ``cfg``'s
     model through ``programs(model, optimizer, cfg, m)`` on mesh ``m``
     (None: one process): (losses, the whole parameters flattened) on the
     CPU, and the programs.  ``patch`` swaps functions of
-    ``train/steps.py`` for the run (the controls)."""
+    ``train/steps.py`` for the run (the controls); ``shard`` False keeps
+    the parameters replicated, as the two-stage solver does."""
     from dmfusion_torch.train.optim import make_optimizer
     for k, v in (patch or {}).items():
         setattr(steps_mod, k, v)
@@ -2910,7 +2966,8 @@ def _tp_train(mesh, cfg, args, batches, programs, m, patch=None):
         model = build_model(cfg).to(mesh.device,
                                     memory_format=torch.channels_last)
         init_params(model, torch.Generator().manual_seed(cfg["seed"]))
-        shard_model(model, m)
+        if shard:
+            shard_model(model, m)
         prog = programs(model, make_optimizer(cfg, model.parameters(),
                                               batches[0].shape[0]), cfg, m)
         losses = prog.train_epoch(args, *batches)
@@ -2935,18 +2992,19 @@ def _tp_within(g: dict) -> bool:
 
 
 def _from_ranks(mesh, fns: list) -> list:
-    """``fns[i]()`` run on rank ``i``, all at once, and every result on
-    every rank (an error is raised on every rank)."""
-    mine = None
-    if mesh.rank < len(fns):
+    """``fns[i]()`` run on rank ``i`` modulo the world, the ranks at once,
+    and every result on every rank (an error is raised on every rank)."""
+    world = dist.get_world_size()
+    mine = {}
+    for i in range(mesh.rank, len(fns), world):
         try:
-            mine = (True, fns[mesh.rank]())
+            mine[i] = (True, fns[i]())
         except Exception as e:  # raised on every rank below
-            mine = (False, e)
+            mine[i] = (False, e)
     out = []
     for i in range(len(fns)):
-        box = [mine if mesh.rank == i else None]
-        dist.broadcast_object_list(box, i)
+        box = [mine.get(i)]
+        dist.broadcast_object_list(box, i % world)
         ok, value = box[0]
         if not ok:
             raise value
@@ -2954,14 +3012,22 @@ def _from_ranks(mesh, fns: list) -> list:
     return out
 
 
+# The controls a parity run may take: the world-group gradient sum, the
+# rank-0 shard broadcast.
+TP_CONTROLS = {"world_sum": {"sum_grads": _tp_world_sum},
+               "shard_broadcast": {"take_rank0_params": _tp_shard_broadcast}}
+
+
 def _tp_parity(mesh, name, one, cfg, args, batches, programs,
-               controls=False, extra=None):
+               controls=(), extra=None, shard=True):
     """``name``'s steps on the mesh against ``one``, one process's
     (losses, parameters): losses within TP_LOSS_RTOL, parameters within
-    TP_PARAM_RTOL and TP_PARAM_ATOL; with ``controls`` the world-group
-    gradient sum and the rank-0 shard broadcast must fall outside them.
-    Returns the readings, the mesh's programs and ``extra(programs)``."""
-    losses, flat, prog = _tp_train(mesh, cfg, args, batches, programs, mesh)
+    TP_PARAM_RTOL and TP_PARAM_ATOL; each of ``controls`` (TP_CONTROLS)
+    must fall outside them.  ``shard`` False keeps the parameters
+    replicated.  Returns the readings, the mesh's programs and
+    ``extra(programs)``."""
+    losses, flat, prog = _tp_train(mesh, cfg, args, batches, programs, mesh,
+                                   shard=shard)
     mine = _tp_gaps(one, (losses, flat))
     check(_tp_within(mine), f"train_tp: {name}'s steps on rank {mesh.rank} "
           f"part from one process's: {mine}")
@@ -2970,26 +3036,36 @@ def _tp_parity(mesh, name, one, cfg, args, batches, programs,
            "real_first": int(batches[2][0].sum()),
            "losses": {"one_process": one[0].tolist(),
                       "ranks": losses.tolist()}, "ranks": mine}
-    if controls:
-        for tag, patch in (("world_sum", {"sum_grads": _tp_world_sum}),
-                           ("shard_broadcast",
-                            {"take_rank0_params": _tp_shard_broadcast})):
-            g = _tp_gaps(one, _tp_train(mesh, cfg, args, batches, programs,
-                                        mesh, patch)[:2])
-            check(not _tp_within(g), f"train_tp: the {tag} control passes "
-                  f"the parity check on rank {mesh.rank} ({g}): the check "
-                  "cannot see it")
-            out[tag] = g
+    for tag in controls:
+        g = _tp_gaps(one, _tp_train(mesh, cfg, args, batches, programs, mesh,
+                                    TP_CONTROLS[tag], shard)[:2])
+        check(not _tp_within(g), f"train_tp: {name}'s {tag} control passes "
+              f"the parity check on rank {mesh.rank} ({g}): the check "
+              "cannot see it")
+        out[tag] = g
     return out, prog, extra(prog) if extra else None
 
 
-def _tp_parities(scene, mesh) -> dict:
-    """gmfnet w64 (with the two controls) and vit (4 heads) on image6, and
-    dense_fusion w32 on train_dense's crop (bands over the data axis): f32
-    SGD steps on the mesh against one process (ranks 0, 1 and 2 run one
-    model's each, at once, and broadcast them); after the dense steps,
-    each rank's band map (B2 once a rank) against one process's whole
-    map."""
+def _peers_equal(mesh, model) -> bool:
+    """Whether this rank's whole parameters equal its model peers', bit for
+    bit (by :func:`_digest`)."""
+    whole = full_state(model, dict(model.named_parameters()))
+    d = _digest(torch.cat([t.detach().reshape(-1) for t in whole.values()]))
+    peers = all_gather_rows(d[None], mesh.model, mesh.model_group)
+    return bool((peers == peers[:1]).all())
+
+
+def _tp_parities(scene, conv_scene, mspan, quad, mesh) -> dict:
+    """f32 SGD steps on the mesh against one process (the one-process runs
+    spread over the ranks, at once, and broadcast): gmfnet w64 (with the
+    world-sum and shard-broadcast controls) and vit (4 heads) on image6,
+    dense_fusion w32 on train_dense's crop (bands over the data axis;
+    after its steps each rank's band map, B2 once a rank, against one
+    process's whole map), then the rest of the zoo (TP_FAMILIES: tri_net
+    with its world-sum control, gmfnet_conv at patch 47, swin_transformer,
+    ct_lstm, dqtl replicated with its world-sum control, TP_ONE_STEP one
+    step each), and the GAN quartet replicated (:func:`_dps_gan_parity`).
+    The replicated runs' model peers end bit-equal."""
     f32 = {"schedule": {"optimizer": "SGD"},
            "precision": {"compute_dtype": "float32",
                          "scene_dtype": "float32"}}
@@ -3003,6 +3079,11 @@ def _tp_parities(scene, mesh) -> dict:
         return DensePrograms(model, scene.patch, cfg=cfg, mesh=m,
                              optimizer=opt)
 
+    def family(cls, patch=scene.patch):
+        def programs(model, opt, cfg, m):
+            return cls(model, opt, cfg, scene.width, patch, mesh=m)
+        return programs
+
     ms, pan, label = _dense_crop(scene, DENSE_CROP)
     plan = DensePrograms(None, scene.patch).band_plan(ms.shape[0], mesh.data)
     check(plan is not None, "train_tp: the dense crop does not band")
@@ -3014,86 +3095,146 @@ def _tp_parities(scene, mesh) -> dict:
         before = pool_ops.phase_pool_cuda.launches
         got = prog.predict_map(ms, pan).cpu()
         return got, pool_ops.phase_pool_cuda.launches - before
-    runs = {  # name: (cfg, args, batches, programs, controls, extra)
-        "gmfnet": (load_config(overrides={**CFG, **f32}), args,
-                   _tp_batches(scene.label, TRAIN_BATCH, TP_REAL, 5,
-                               mesh.device), dual, True, None),
-        "vit": (load_config(overrides={**CFG, **TP_VIT, **f32}), args,
-                _tp_batches(scene.label, TP_VIT_BATCH, TP_VIT_REAL, 7,
-                            mesh.device), dual, False, None),
-        "dense": (load_config(overrides={**DENSE_CFG, **f32}), (ms, pan),
-                  [torch.from_numpy(a).to(mesh.device) for a in (
+
+    def batches(seed, n=3, batch=TRAIN_BATCH, real=TP_REAL):
+        return [t[:n] for t in _tp_batches(scene.label, batch, real, seed,
+                                           mesh.device)]
+    runs = {  # name: the run's settings
+        "gmfnet": {"cfg": {}, "args": args, "batches": batches(5),
+                   "programs": dual,
+                   "controls": ("world_sum", "shard_broadcast")},
+        "vit": {"cfg": TP_VIT, "args": args,
+                "batches": batches(7, batch=TP_VIT_BATCH, real=TP_VIT_REAL),
+                "programs": dual},
+        "dense": {"cfg": DENSE_CFG, "args": (ms, pan),
+                  "batches": [torch.from_numpy(a).to(mesh.device) for a in (
                       ids, label.reshape(-1)[ids].astype(np.int32),
-                      np.ones(ids.shape, np.float32))], dense, False,
-                  band_map)}
+                      np.ones(ids.shape, np.float32))],
+                  "programs": dense, "extra": band_map}}
+    fam_args = {"tri": (scene.ms, scene.pan, mspan), "quad": quad,
+                "single": (scene.ms,),
+                "conv": (conv_scene.ms, conv_scene.pan)}
+    fam_programs = {"tri": family(TriPrograms), "quad": family(QuadPrograms),
+                    "single": family(SinglePrograms),
+                    "conv": family(DualPrograms, conv_scene.patch),
+                    "dual": dual}
+    for i, (name, (kind, over, controls)) in enumerate(TP_FAMILIES.items()):
+        runs[name] = {"cfg": over, "args": fam_args.get(kind, args),
+                      "batches": batches(20 + i, 1 if name in TP_ONE_STEP
+                                         else 3),
+                      "programs": fam_programs[kind], "controls": controls,
+                      "shard": kind != "quad"}
+    for r in runs.values():
+        r["cfg"] = load_config(overrides={**CFG, **r["cfg"], **f32})
 
     def one_process(name):
-        cfg, a, batches, programs, _, extra = runs[name]
-        losses, flat, prog = _tp_train(mesh, cfg, a, batches, programs,
-                                       None)
+        r = runs[name]
+        losses, flat, prog = _tp_train(mesh, r["cfg"], r["args"],
+                                       r["batches"], r["programs"], None)
+        extra = r.get("extra")
         return losses, flat, extra(prog) if extra else None
     t0 = time.perf_counter()
     ones = dict(zip(runs, _from_ranks(
         mesh, [lambda n=n: one_process(n) for n in runs])))
     out = {"s": {"one_process": time.perf_counter() - t0}}
-    for name, (cfg, a, batches, programs, controls, extra) in runs.items():
+    for name, r in runs.items():
         t0 = time.perf_counter()
-        out[name], prog, got = _tp_parity(mesh, name, ones[name][:2], cfg,
-                                          a, batches, programs, controls,
-                                          extra)
+        out[name], prog, got = _tp_parity(
+            mesh, name, ones[name][:2], r["cfg"], r["args"], r["batches"],
+            r["programs"], r.get("controls", ()), r.get("extra"),
+            r.get("shard", True))
+        if name == "dense":
+            dense_got, band = got, prog.mesh_band(ms.shape[0])
+        if not r.get("shard", True):
+            check(_peers_equal(mesh, prog.model), f"train_tp: {name}'s "
+                  f"replicated parameters on rank {mesh.rank} differ from "
+                  "its model peer's")
+            out[name]["peers_bit_equal"] = True
+        out[name]["sharded"] = len(shard_dims(prog.model))
         out["s"][name] = time.perf_counter() - t0
-    ref = ones["dense"][2]
+        del prog
+    got, ref = dense_got, ones["dense"][2]
     check(got[1] == 1, f"train_tp: the band map launched B2 {got[1]} times "
           f"on rank {mesh.rank}")
     agree = float((got[0] == ref[0]).float().mean())
     check(got[0].shape == ref[0].shape and agree >= DPM_AGREE_F32,
           f"train_tp: rank {mesh.rank}'s band map against one process's: "
           f"agreement {agree} (at least {DPM_AGREE_F32})")
-    out["dense"].update(plan=list(plan), band=prog.mesh_band(ms.shape[0]),
-                        map_agree=agree, b2_launches=got[1])
+    out["dense"].update(plan=list(plan), band=band, map_agree=agree,
+                        b2_launches=got[1])
+    t0 = time.perf_counter()
+    out["gan"] = _dps_gan_parity(quad, mesh, "train_tp")
+    digest = torch.tensor(out["gan"].pop("mesh_digest"))
+    digests = all_gather_rows(digest[None], mesh.model, mesh.model_group)
+    check(bool((digests == digests[:1]).all()), f"train_tp: the GAN's "
+          f"replicated parameters on rank {mesh.rank} differ from its model "
+          "peer's")
+    out["gan"]["peers_bit_equal"] = True
+    out["s"]["gan"] = time.perf_counter() - t0
     return out
 
 
-def _tp_gather(scene, mesh) -> dict:
-    """B1 on this rank's data shard (``gather_dual_sharded``, 2 launches a
-    call) at B 4096 with corner anchors and at B 256: the rows bit-equal to
-    the plain ``gather_dual`` of the shard, and to the model peer's (moved
-    as bytes)."""
+def _tp_gather(scene, mspan, quad, mesh) -> dict:
+    """B1 on this rank's data shard: ``gather_dual_sharded`` (2 launches a
+    call), ``gather_tri_fast`` (3) and ``gather_quad_fast`` (4) of
+    ``mesh.shard(ids)``, at B 4096 with corner anchors and at B 256: the
+    rows bit-equal to the plain gather of the shard, and to the model
+    peer's (moved as bytes)."""
     w, ps, n, h = scene.width, scene.patch, scene.num_pixels, scene.height
     base = np.random.default_rng(11).integers(0, n, 4096).astype(np.int32)
     base[:6] = [0, w - 1, (h - 1) * w, n - w, 2 * w - 1, n - 1]
     out = {"max_abs_err": 0.0}
-    for b in (4096, TRAIN_BATCH):
-        ids = torch.from_numpy(base[:b]).to(mesh.device)
-        before = gather_ops.gather_windows_cuda.launches
-        rows = gather_ops.gather_dual_sharded(scene.ms, scene.pan, ids, w,
-                                              ps, mesh)
-        check(gather_ops.gather_windows_cuda.launches == before + 2,
-              f"train_tp: B {b}: not 2 B1 launches on rank {mesh.rank}")
-        plain = gather_dual(scene.ms, scene.pan, mesh.shard(ids), w, ps)
-        for got, ref in zip(rows, plain, strict=True):
-            out["max_abs_err"] = max(out["max_abs_err"], _max_err(got, ref))
-            check(torch.equal(got, ref), f"train_tp: B {b}: rank "
-                  f"{mesh.rank}'s rows != the plain gather's")
-            peers = all_gather_rows(
-                got.contiguous().view(torch.uint8).reshape(1, -1),
-                mesh.model, mesh.model_group)
-            check(bool((peers == peers[:1]).all()), f"train_tp: B {b}: "
-                  f"rank {mesh.rank}'s rows differ from its model peer's")
-        out[f"B{b}_rows_a_rank"] = int(rows[0].shape[0])
+    cases = {  # tag: (wrapper, plain gather, streams)
+        "dual": (lambda *a: gather_ops.gather_dual_sharded(*a, mesh),
+                 lambda *a: gather_dual(*a[:-3], mesh.shard(a[-3]),
+                                        *a[-2:]),
+                 (scene.ms, scene.pan)),
+        "tri": (lambda *a: gather_ops.gather_tri_fast(
+                    *a[:-3], mesh.shard(a[-3]), *a[-2:]),
+                lambda *a: gather_tri(*a[:-3], mesh.shard(a[-3]), *a[-2:]),
+                (scene.ms, scene.pan, mspan)),
+        "quad": (lambda *a: gather_ops.gather_quad_fast(
+                     *a[:-3], mesh.shard(a[-3]), *a[-2:]),
+                 lambda *a: gather_quad(*a[:-3], mesh.shard(a[-3]), *a[-2:]),
+                 quad)}
+    for tag, (wrapper, plain_fn, streams) in cases.items():
+        for b in (4096, TRAIN_BATCH):
+            ids = torch.from_numpy(base[:b]).to(mesh.device)
+            before = gather_ops.gather_windows_cuda.launches
+            rows = wrapper(*streams, ids, w, ps)
+            launched = gather_ops.gather_windows_cuda.launches - before
+            check(launched == len(streams), f"train_tp: {tag} B {b}: "
+                  f"{launched} B1 launches on rank {mesh.rank}")
+            plain = plain_fn(*streams, ids, w, ps)
+            for got, ref in zip(rows, plain, strict=True):
+                out["max_abs_err"] = max(out["max_abs_err"],
+                                         _max_err(got, ref))
+                check(torch.equal(got, ref), f"train_tp: {tag} B {b}: "
+                      f"rank {mesh.rank}'s rows != the plain gather's")
+                peers = all_gather_rows(
+                    got.contiguous().view(torch.uint8).reshape(1, -1),
+                    mesh.model, mesh.model_group)
+                check(bool((peers == peers[:1]).all()), f"train_tp: {tag} "
+                      f"B {b}: rank {mesh.rank}'s rows differ from its "
+                      "model peer's")
+            out[f"{tag}_B{b}_rows_a_rank"] = int(rows[0].shape[0])
     return out
 
 
 def _tp_shards(mesh) -> dict:
-    """gmfnet w64, vit and dense_fusion w32 sharded with Adam: every
-    sharded parameter and both its moments of the shard's shape (the whole
-    shape halved on its dimension), and the bytes of parameters and
-    moments a rank holds beside one process's."""
+    """gmfnet w64, vit, dense_fusion w32 and every sharded model of
+    TP_FAMILIES at the config's widths, sharded with Adam: every sharded
+    parameter and both its moments of the shard's shape (the whole shape
+    halved on its dimension), and the bytes of parameters and moments a
+    rank holds beside one process's."""
     from dmfusion_torch.train.optim import make_optimizer
     out = {}
-    for name, over in (("gmfnet", {}), ("vit", TP_VIT),
-                       ("dense_fusion", {"model_name": "dense_fusion",
-                                         "model_width": 32})):
+    models = [("gmfnet", {}), ("vit", TP_VIT),
+              ("dense_fusion", {"model_name": "dense_fusion",
+                                "model_width": 32})]
+    models += [(name, over) for name, (kind, over, _) in TP_FAMILIES.items()
+               if kind != "quad"]
+    for name, over in models:
         cfg = load_config(overrides={**CFG, **over})
         model = build_model(cfg).to(mesh.device)
         whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
@@ -3114,54 +3255,67 @@ def _tp_shards(mesh) -> dict:
                   f"{mesh.rank}: {tuple(p.shape)}, moments "
                   f"{tuple(st['exp_avg'].shape)}, want {tuple(want)}")
             held += 3 * p.numel() * p.element_size()
+        check(bool(dims), f"train_tp: {name} shards nothing")
         out[name] = {"sharded": len(dims), "params": len(whole),
                      "bytes_a_rank": held, "bytes_one_process": one}
         del model, opt
     return out
 
 
-def _tp_steps(scene, mesh) -> dict:
-    """The default run's steps on the model axis (gmfnet w64, Adam, bf16,
-    batch 256: 128 rows a data index, its channels split over two model
-    ranks): TP_STEPS timed after 3, then a profile on rank 0 (the
-    collectives' share); B1 twice a step on every rank."""
+def _tp_steps(scene, mspan, mesh) -> dict:
+    """The default run's steps on the model axis (Adam, bf16, batch 256:
+    128 rows a data index, the channels split over two model ranks), of
+    gmfnet w64 (B1 twice a step) and tri_net w64 (3 times): TP_STEPS timed
+    after 3, then a profile on rank 0 (the collectives' share)."""
     from dmfusion_torch.train.optim import make_optimizer
-    cfg = load_config(overrides=CFG)
     labeled, _ = split_labels(scene.label)
     n = (3 + TP_STEPS + DP_PROFILE_STEPS) * TRAIN_BATCH
-    ids = np.random.default_rng(6).choice(labeled, n, replace=False)
-    chunks = ids.astype(np.int32).reshape(-1, TRAIN_BATCH)
-    batches = [torch.from_numpy(a).to(mesh.device) for a in (
-        chunks, scene.label.reshape(-1)[chunks].astype(np.int32),
-        np.ones(chunks.shape, np.float32))]
-    model = build_model(cfg).to(mesh.device,
-                                memory_format=torch.channels_last)
-    init_params(model, torch.Generator().manual_seed(cfg["seed"]))
-    shard_model(model, mesh)
-    prog = DualPrograms(model, make_optimizer(cfg, model.parameters(),
-                                              chunks.shape[0]),
-                        cfg, scene.width, scene.patch, mesh=mesh)
-    args = (scene.ms, scene.pan)
+    rng = np.random.default_rng(6)
+    out = {"b1_launches": 0}
+    for name, cls, args in (("gmfnet", DualPrograms, (scene.ms, scene.pan)),
+                            ("tri_net", TriPrograms,
+                             (scene.ms, scene.pan, mspan))):
+        cfg = load_config(overrides={**CFG, "model_name": name})
+        chunks = rng.choice(labeled, n, replace=False).astype(
+            np.int32).reshape(-1, TRAIN_BATCH)
+        batches = [torch.from_numpy(a).to(mesh.device) for a in (
+            chunks, scene.label.reshape(-1)[chunks].astype(np.int32),
+            np.ones(chunks.shape, np.float32))]
+        model = build_model(cfg).to(mesh.device,
+                                    memory_format=torch.channels_last)
+        init_params(model, torch.Generator().manual_seed(cfg["seed"]))
+        shard_model(model, mesh)
+        prog = cls(model, make_optimizer(cfg, model.parameters(),
+                                         chunks.shape[0]),
+                   cfg, scene.width, scene.patch, mesh=mesh)
 
-    def run(i0, i1):
-        losses = prog.train_epoch(args, *(t[i0:i1] for t in batches))
-        check(bool(torch.isfinite(losses).all()), "train_tp: non-finite loss")
-    before = gather_ops.gather_windows_cuda.launches
-    out = _rank_timing(mesh, run, TP_STEPS, DP_PROFILE_STEPS)
-    b1 = gather_ops.gather_windows_cuda.launches - before
-    check(b1 == 2 * chunks.shape[0], f"train_tp: rank {mesh.rank} launched "
-          f"B1 {b1} times in {chunks.shape[0]} steps")
-    out.update(rank_batch=mesh.per_rank(TRAIN_BATCH), b1_launches=b1,
-               samples_per_s=TRAIN_BATCH / out["step_ms"] * 1e3)
+        def run(i0, i1, prog=prog, args=args, batches=batches, name=name):
+            losses = prog.train_epoch(args, *(t[i0:i1] for t in batches))
+            check(bool(torch.isfinite(losses).all()),
+                  f"train_tp: non-finite {name} loss")
+        before = gather_ops.gather_windows_cuda.launches
+        got = _rank_timing(mesh, run, TP_STEPS, DP_PROFILE_STEPS)
+        b1 = gather_ops.gather_windows_cuda.launches - before
+        check(b1 == len(args) * chunks.shape[0], f"train_tp: rank "
+              f"{mesh.rank} launched B1 {b1} times in {chunks.shape[0]} "
+              f"{name} steps")
+        got.update(rank_batch=mesh.per_rank(TRAIN_BATCH), b1_launches=b1,
+                   samples_per_s=TRAIN_BATCH / got["step_ms"] * 1e3)
+        out[name] = got
+        out["b1_launches"] += b1
+        del prog, model
     return out
 
 
 def _tp_rank(rank: int, port: int, out_dir: str) -> None:
     """One of phase train_tp's spawned ranks (data index ``rank // 2``,
-    model index ``rank % 2``): join the group, build the image6 scene and
-    write what the B1 rows, the parity steps, the shards and the timed
-    steps found to ``rank{r}.json``."""
+    model index ``rank % 2``): join the group, build the image6 scenes
+    (patch 16, its MSPAN and the four quad streams over seeded stage-1
+    stand-ins; patch 47 for gmfnet_conv) and write what the parity steps,
+    the B1 rows, the shards and the timed steps found to
+    ``rank{r}.json``."""
     _dp_env(rank, port, TP_RANKS)
+    _register_single()
     cfg = load_config(overrides={**CFG, "mesh": {"distributed": 1,
                                                  "model": TP_MODEL}})
     check(parallel.maybe_initialize_distributed(cfg),
@@ -3178,13 +3332,18 @@ def _tp_rank(rank: int, port: int, out_dir: str) -> None:
         secs, t0 = {}, time.perf_counter()
         scene = synthetic_scene(load_config(overrides=CFG),
                                 device=mesh.device)
+        conv_scene = synthetic_scene(load_config(overrides=CONV_CFG),
+                                     device=mesh.device)
+        mspan = mspan_scene(scene, CFG["seed"])
+        quad = quad_streams(scene, *gan_scenes(scene), mesh.device)
         secs["scene"] = time.perf_counter() - t0
         tf32 = _no_tf32()
         try:
-            parity = _tp_parities(scene, mesh)
+            parity = _tp_parities(scene, conv_scene, mspan, quad, mesh)
         finally:
             torch.backends.cuda.matmul.allow_tf32, \
                 torch.backends.cudnn.allow_tf32 = tf32
+        del conv_scene
         result = {"rank": rank, "device": str(mesh.device),
                   "backend": mesh.backend,
                   "grid": [mesh.data_index, mesh.model_index],
@@ -3200,8 +3359,9 @@ def _tp_rank(rank: int, port: int, out_dir: str) -> None:
                     time.sleep(0.2)
                 secs["wait"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            result[part] = (fn(mesh) if part == "shards"
-                            else fn(scene, mesh))
+            result[part] = {"gather": lambda: fn(scene, mspan, quad, mesh),
+                            "shards": lambda: fn(mesh),
+                            "steps": lambda: fn(scene, mspan, mesh)}[part]()
             secs[part] = time.perf_counter() - t0
         result["parts_s"] = secs
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -3239,16 +3399,36 @@ def _tp_reload(scene, out: str, cfg, split, rec: tuple) -> dict:
     return got
 
 
+def _tp_gmfnet_run(tmp: str) -> dict:
+    """gmfnet trained (one epoch, no test) by ``torchrun`` on two ranks,
+    data 1 x model 2, through the CLI (B1 2 a gathered batch a rank)."""
+    args = ["--set", *TP_CLI_SET, f"mesh.model={TP_MODEL}"]
+    run, cfg, split, cli = _mesh_cli_run(
+        tmp, args, "gmfnet", ["0_curweights.pt", "0_records.json",
+                              "0_weights.pt"], "train_tp",
+        TP_TIMEOUT, test=False, nprocs=TP_CLI_RANKS, val_oa_min=0.0)
+    batches = {"train": -(-len(split.train) // TRAIN_BATCH),
+               "val": -(-len(split.valid) // EVAL_BATCH)}
+    want = 2 * sum(batches.values())
+    b1 = _mesh_reports(run, "train_tp", "main", want,
+                       data=TP_CLI_RANKS // TP_MODEL, model=TP_MODEL)
+    return {**cli, "cfg": cfg, "split": split,
+            "gather_batches_per_rank": batches,
+            "b1_launches_per_rank": want, "b1_launches": b1}
+
+
 def phase_train_tp(scene) -> tuple[int, int]:
     """The mesh's model axis on the card.  Spawned ranks (data 2 x model
-    2, sharing ``cuda:0`` over gloo) hold B1's rows, SGD parity of gmfnet,
-    vit and dense_fusion with one process (and gmfnet's two controls) and
-    the shards' shapes and bytes; meanwhile gmfnet is trained (one epoch,
-    no test) by ``torchrun`` on two ranks, data 1 x model 2, through the
-    CLI, and its best weights are loaded in one process; then the spawned
-    ranks time their steps alone.  Returns B1's launches on the path (the
-    ranks' timed steps and the CLI run) and B2's (the ranks' band
-    maps)."""
+    2, sharing ``cuda:0`` over gloo) hold SGD parity with one process of
+    every family (gmfnet, vit, dense_fusion and TP_FAMILIES; the controls;
+    dqtl and the GAN quartet replicated, their model peers bit-equal),
+    B1's dual, tri and quad rows and the shards' shapes and bytes;
+    meanwhile two CLI runs under ``torchrun`` on two ranks, data 1 x model
+    2, go at once: gmfnet (one epoch, no test; its best weights loaded in
+    one process) and both stages of the two-stage solver (TP_TWOSTAGE_SET);
+    then the spawned ranks time gmfnet's and tri_net's steps alone.
+    Returns B1's launches on the path (the ranks' timed steps and both CLI
+    runs) and B2's (the ranks' band maps)."""
     log(f"train_tp: {TP_RANKS} ranks (data {TP_RANKS // TP_MODEL} x model "
         f"{TP_MODEL}) share one card ({card_line()}) over gloo.  These "
         "numbers hold the path's correctness and say nothing of scaling "
@@ -3257,42 +3437,29 @@ def phase_train_tp(scene) -> tuple[int, int]:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_tp_")
     got = {}
 
-    def cli_run():
-        """The CLI run under torchrun and the reload, while the spawned
-        ranks hold their parity; then the flag that lets them time their
-        steps alone."""
-        for spec in KERNELS.values():
-            spec["counter"].launches = 0
-        args = ["--set", *TP_CLI_SET, f"mesh.model={TP_MODEL}"]
-        cli_dir = os.path.join(tmp, "cli")
-        os.makedirs(cli_dir)
-        run, cfg, split, cli = _mesh_cli_run(
-            cli_dir, args, "gmfnet", ["0_curweights.pt", "0_records.json",
-                                      "0_weights.pt"], "train_tp",
-            TP_TIMEOUT, test=False, nprocs=TP_CLI_RANKS, val_oa_min=0.0)
-        launches = {n: spec["counter"].launches
-                    for n, spec in KERNELS.items()}
-        check(not any(launches.values()),
-              f"train_tp: the parent launched {launches}")
-        batches = {"train": -(-len(split.train) // TRAIN_BATCH),
-                   "val": -(-len(split.valid) // EVAL_BATCH)}
-        want = 2 * sum(batches.values())
-        b1 = _mesh_reports(run, "train_tp", "main", want,
-                           data=TP_CLI_RANKS // TP_MODEL, model=TP_MODEL)
+    def cli_runs():
+        """The two CLI runs under torchrun at once, while the spawned ranks
+        hold their parity; then the flag that lets them time their steps
+        alone."""
+        got.update(_cli_runs(tmp, {
+            "gmfnet": _tp_gmfnet_run,
+            "twostage": lambda d: _dps_twostage_run(
+                d, TP_TWOSTAGE_SET + [f"mesh.model={TP_MODEL}"], "train_tp",
+                TP_TIMEOUT, TP_CLI_RANKS, TP_MODEL)}, "train_tp"))
+        cli = got["gmfnet"]
         t0 = time.perf_counter()
-        reload = _tp_reload(scene, cli["out"], cfg, split,
+        reload = _tp_reload(scene, cli.pop("out"), cli.pop("cfg"),
+                            cli.pop("split"),
                             (cli["val_oa"][-1], cli["val_loss"][-1]))
-        reload["s"] = time.perf_counter() - t0
-        log(f"train_tp: the CLI run under torchrun took {cli['run_s']:.2f} "
-            f"s, val OA {cli['val_oa'][-1]:.4f}; in one process "
-            f"{json.dumps(reload)}")
-        got.update(cli=cli, batches=batches, want=want, b1=b1,
-                   reload=reload)
+        cli["reload"] = {**reload, "s": time.perf_counter() - t0}
+        log(f"train_tp: the gmfnet run under torchrun took "
+            f"{cli['run_s']:.2f} s, val OA {cli['val_oa'][-1]:.4f}; in one "
+            f"process {json.dumps(cli['reload'])}")
         open(os.path.join(tmp, TP_CLI_DONE), "w").close()
     try:
         t0 = time.perf_counter()
         ranks = _spawn_ranks(_tp_rank, tmp, "train_tp", TP_TIMEOUT, TP_RANKS,
-                             during=cli_run)
+                             during=cli_runs)
         ranks_s = time.perf_counter() - t0
         for r in ranks:
             log(f"train_tp: rank {r['rank']} (data, model) {r['grid']}: "
@@ -3301,7 +3468,7 @@ def phase_train_tp(scene) -> tuple[int, int]:
                 f"{json.dumps(r['shards'])}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    cli, b1_cli = got["cli"], got["b1"]
+    b1_cli = sum(run["b1_launches"] for run in got.values())
     b1_ranks = sum(r["steps"]["b1_launches"] for r in ranks)
     b2 = sum(r["parity"]["dense"]["b2_launches"] for r in ranks)
     result = {
@@ -3310,11 +3477,11 @@ def phase_train_tp(scene) -> tuple[int, int]:
         "parity": ranks[0]["parity"], "shards": ranks[0]["shards"],
         "parts_s": {r["rank"]: r["parts_s"] for r in ranks},
         "steps": {r["rank"]: r["steps"] for r in ranks},
-        "cli_run": {k: v for k, v in cli.items() if k != "out"},
-        "cli_gather_batches_per_rank": got["batches"],
-        "cli_b1_launches_per_rank": got["want"], "cli_b1_launches": b1_cli,
-        "reload": got["reload"], "b1_launches": b1_ranks + b1_cli,
-        "b2_launches": b2, "phase_s": time.perf_counter() - t_phase}
+        "cli_runs": {k: {kk: vv for kk, vv in v.items() if kk != "reports"}
+                     for k, v in got.items()},
+        "b1_launches_ranks": b1_ranks, "b1_launches_cli": b1_cli,
+        "b1_launches": b1_ranks + b1_cli, "b2_launches": b2,
+        "phase_s": time.perf_counter() - t_phase}
     log(f"train_tp: {json.dumps(result)}")
     return b1_ranks + b1_cli, b2
 

@@ -19,9 +19,11 @@ over the flattened head axes, heads major (leaf kinds ``HEADS_IN`` and
 ct_lstm's ``OptimizedLSTMCell_0`` holds one kernel per gate and side
 (``ii`` ... ``io``, ``(in, h)``, no bias; ``hi`` ... ``ho``, ``(h, h)``
 with a bias): the port's LSTM stacks them, gates i, f, g, o, into one
-input and one hidden ``nn.Linear``-layout weight and one bias (kind
-``LSTM_CELL``).  Conversion in either direction raises on anything left
-unmatched, so a tree of another model or width never loads in part.  The
+input weight ``(4, h, in)``, one hidden weight ``(4, h, h)`` (each gate
+in ``nn.Linear`` layout) and one bias ``(4, h)`` (kind ``LSTM_CELL``), so
+that flax's hidden axis is torch dimension 1 of all three.  Conversion
+in either direction raises on anything left unmatched, so a tree of
+another model or width never loads in part.  The
 root scope is the model class's ``flax_root``: ``Net`` for gmfnet,
 ``DenseNet`` for dense_fusion, ``ConvNet`` for gmfnet_conv (whose tree
 names every layer explicitly), and ``TriNet``, ``DQTL``, ``ResNet18``,
@@ -250,8 +252,8 @@ def _lstm_to_torch(cell: Mapping[str, Any], where: str
                    ) -> dict[str, torch.Tensor]:
     """OptimizedLSTMCell's ``i{g}`` kernels ``(in, h)`` and ``h{g}``
     kernels ``(h, h)`` and biases, gates i, f, g, o, -> the port's LSTM's
-    ``input_weight`` ``(4h, in)``, ``hidden_weight`` ``(4h, h)`` and
-    ``hidden_bias`` ``(4h,)``."""
+    ``input_weight`` ``(4, h, in)``, ``hidden_weight`` ``(4, h, h)`` and
+    ``hidden_bias`` ``(4, h)``."""
     want = {f"i{g}": {"kernel"} for g in _GATES}
     want.update({f"h{g}": {"kernel", "bias"} for g in _GATES})
     got = {k: set(v) for k, v in cell.items()}
@@ -260,11 +262,11 @@ def _lstm_to_torch(cell: Mapping[str, Any], where: str
                          f"{sorted(got)}")
 
     def stack(prefix, leaf):
-        return torch.cat([_f32(cell[f"{prefix}{g}"][leaf]) for g in _GATES],
-                         dim=-1)
+        return torch.stack([_f32(cell[f"{prefix}{g}"][leaf]).t()
+                            for g in _GATES]).contiguous()
 
-    return {"input_weight": stack("i", "kernel").t().contiguous(),
-            "hidden_weight": stack("h", "kernel").t().contiguous(),
+    return {"input_weight": stack("i", "kernel"),
+            "hidden_weight": stack("h", "kernel"),
             "hidden_bias": stack("h", "bias")}
 
 
@@ -272,7 +274,7 @@ def _lstm_to_flax(weights: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """The inverse of :func:`_lstm_to_torch`."""
     def split(name):
         a = weights[name].detach().to("cpu", torch.float32).numpy()
-        return np.split(a.T if a.ndim == 2 else a, len(_GATES), axis=-1)
+        return [g.T for g in a]
 
     tree: dict[str, Any] = {}
     for prefix, name in (("i", "input_weight"), ("h", "hidden_weight")):
@@ -428,10 +430,10 @@ def params_to_flax(model: nn.Module,
 
 def flax_leaves(model: nn.Module):
     """Every flax leaf of ``model``'s tree, in its order: ``(flax path,
-    flax shape, torch name, torch dimension of each flax axis)``.  A leaf
-    with no one torch parameter (an LSTM cell's gate kernels, stacked
-    into one) has torch name None.  The shapes are the parameters' own (a
-    model's before it is sharded)."""
+    flax shape, torch name, torch dimension of each flax axis)``.  An LSTM
+    cell's gate leaves name the stacked tensor that holds them (four
+    leaves a tensor).  The shapes are the parameters' own (a model's
+    before it is sharded)."""
     for fpath, tname, kind, scope, owner, pname in _walk(model):
         if kind == PARAM:
             p = getattr(owner, pname)
@@ -441,7 +443,12 @@ def flax_leaves(model: nn.Module):
                     n: p.detach() for n, p in
                     owner.named_parameters(recurse=False)}).items():
                 for leaf, arr in leaves.items():
-                    yield (*fpath, sub, leaf), arr.shape, None, None
+                    # kernel (in, h) -> (gate, h, in); bias (h,) -> (gate, h)
+                    name = ("hidden_bias" if leaf == "bias" else
+                            "input_weight" if sub[0] == "i" else
+                            "hidden_weight")
+                    yield ((*fpath, sub, leaf), arr.shape, f"{tname}.{name}",
+                           (2, 1) if leaf == "kernel" else (1,))
         else:
             p = getattr(owner, pname)
             leaf, arr = _leaf_to_flax(owner, pname, p.detach(), kind,

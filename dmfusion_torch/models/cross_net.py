@@ -22,6 +22,7 @@ from dmfusion_torch.models.attention import (CrossAttnBlock, PatchEmbed,
 from dmfusion_torch.models.common import (MLPHead, PanPyramid, activation_fn,
                                           dtypes)
 from dmfusion_torch.models.registry import register
+from dmfusion_torch.parallel.tensor import use
 
 
 @register("cross_net")
@@ -71,8 +72,8 @@ class Net(nn.Module):
                             enabled=self.compute_dtype == torch.bfloat16):
             t_ms = self.ms_embed(ms)
             t_pan = self.pan_embed(self.pan(pan))
-            t_ms = t_ms + self.pos_ms.to(t_ms.dtype)
-            t_pan = t_pan + self.pos_pan.to(t_pan.dtype)
+            t_ms = t_ms + use(self, "pos_ms").to(t_ms.dtype)
+            t_pan = t_pan + use(self, "pos_pan").to(t_pan.dtype)
             for ms_x, pan_x, ms_s, pan_s in zip(self.ms_from_pan,
                                                 self.pan_from_ms,
                                                 self.ms_self, self.pan_self):

@@ -28,6 +28,7 @@ from dmfusion_torch.models.common import (ConvBlock, MLPHead, activation_fn,
                                           dtypes, tree_shape)
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops.contourlet import contourlet_decompose
+from dmfusion_torch.parallel.tensor import use
 
 
 class LevelEmbed(nn.Module):
@@ -45,41 +46,52 @@ class LevelEmbed(nn.Module):
 class LSTM(nn.Module):
     """flax ``nn.RNN(OptimizedLSTMCell(features))`` over a (B, T, in)
     sequence, returning the last hidden state.  The four gates are stacked
-    in the order i, f, g, o: ``input_weight`` holds flax's ``ii``, ``if``,
-    ``ig``, ``io`` kernels (no bias), ``hidden_weight`` and
-    ``hidden_bias`` its ``hi``, ``hf``, ``hg``, ``ho`` kernels and biases.
-    Each step: ``gates = dense_h(h) + dense_i(x)``; ``i, f, o`` sigmoid,
-    ``g`` tanh; ``c = f c + i g``; ``h = o tanh(c)``.  The carry starts at
-    zero in float32 (flax's ``param_dtype``), so under bf16 the gates are
-    bf16 and the carry stays float32, as in flax."""
+    on dimension 0 in the order i, f, g, o: ``input_weight`` ``(4, h,
+    in)`` holds flax's ``ii``, ``if``, ``ig``, ``io`` kernels (no bias),
+    ``hidden_weight`` ``(4, h, h)`` and ``hidden_bias`` ``(4, h)`` its
+    ``hi``, ``hf``, ``hg``, ``ho`` kernels and biases, each gate in
+    ``nn.Linear`` layout.  Each step: ``gates = dense_h(h) + dense_i(x)``
+    on the stacks flattened to ``(4h, .)``; ``i, f, o`` sigmoid, ``g``
+    tanh; ``c = f c + i g``; ``h = o tanh(c)``.  The carry starts at zero
+    in float32 (flax's ``param_dtype``), so under bf16 the gates are bf16
+    and the carry stays float32, as in flax.
+
+    On the mesh's model axis every gate kernel shards its hidden columns,
+    dimension 1 of both weights (``parallel/partition.py``); the cell
+    gathers them on use, once a forward (``tp_mode``), and the bias stays
+    whole."""
+
+    tp_mode = "gather"
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
         self.features = features
-        self.input_weight = nn.Parameter(torch.zeros(4 * features,
+        self.input_weight = nn.Parameter(torch.zeros(4, features,
                                                      in_features))
-        self.hidden_weight = nn.Parameter(torch.zeros(4 * features,
-                                                      features))
-        self.hidden_bias = nn.Parameter(torch.zeros(4 * features))
+        self.hidden_weight = nn.Parameter(torch.zeros(4, features, features))
+        self.hidden_bias = nn.Parameter(torch.zeros(4, features))
 
     def flax_init(self, generator: torch.Generator) -> None:
         """flax's initializers: the input kernels LeCun normal, each
         gate's recurrent kernel orthogonal, the biases zero.  The draws
         are made on the (CPU) generator's device and copied in."""
         w = torch.randn(self.input_weight.shape, generator=generator)
-        self.input_weight.copy_(w / self.input_weight.shape[1] ** 0.5)
+        self.input_weight.copy_(w / self.input_weight.shape[2] ** 0.5)
         q = torch.empty(4, self.features, self.features)
         for gate in q:
             nn.init.orthogonal_(gate, generator=generator)
-        self.hidden_weight.copy_(q.reshape(self.hidden_weight.shape))
+        self.hidden_weight.copy_(q)
         self.hidden_bias.zero_()
 
     def forward(self, seq: torch.Tensor) -> torch.Tensor:
         b, steps, _ = seq.shape
+        w_in = use(self, "input_weight")
+        w_in = w_in.reshape(-1, w_in.shape[-1])
+        w_h = use(self, "hidden_weight").reshape(-1, self.features)
+        bias = self.hidden_bias.reshape(-1)
         c = h = seq.new_zeros(b, self.features, dtype=torch.float32)
         for t in range(steps):
-            gates = (F.linear(h, self.hidden_weight, self.hidden_bias)
-                     + F.linear(seq[:, t], self.input_weight))
+            gates = (F.linear(h, w_h, bias) + F.linear(seq[:, t], w_in))
             i, f, g, o = gates.chunk(4, dim=-1)
             c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
             h = torch.sigmoid(o) * torch.tanh(c)

@@ -178,7 +178,14 @@ class WSConv(nn.Module):
     ``gain`` and ``bias`` per output channel, all f32.  The stride is a
     call argument: the parameters do not depend on it, which lets a
     shift-and-stitch scene route run a stride-2 conv at stride 1 with the
-    same weights (``models/gmfnet_conv.py``)."""
+    same weights (``models/gmfnet_conv.py``).
+
+    On the mesh's model axis (gmfnet_conv's layers; dense_fusion gathers
+    every leaf) the rule shards ``weight``'s output channels and keeps
+    ``gain`` and ``bias`` whole: the layer gathers the weight on use
+    (``tp_mode``) and standardizes it whole, as one process does."""
+
+    tp_mode = "gather"
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  act_gain: float = 1.0, dtype: torch.dtype = torch.bfloat16,
@@ -223,7 +230,10 @@ class WSConv(nn.Module):
 
 class GateConv(nn.Conv2d):
     """flax ``nn.Conv`` 1x1 with bias in the compute dtype: the conv's
-    output is rounded before the bias add."""
+    output is rounded before the bias add.  A sharded weight is gathered
+    on use (``tp_mode``)."""
+
+    tp_mode = "gather"
 
     def __init__(self, in_features: int, features: int,
                  dtype: torch.dtype = torch.bfloat16):

@@ -19,10 +19,13 @@ Two routes, one set of weights:
     applies the head per position and interleaves the 16 maps back.  Its
     entry for anchor (x, y) is that anchor's window-route logits.
 
-Convolutions run NCHW on channels-last memory.  Numerics follow flax: the
-compute dtype is set by explicit casts, not autocast (``head2`` computes
-in f32 under bf16 compute); the pooled sums are f32, rows (dim 2) then
-columns (dim 3), each from low to high with the first term cast to f32.
+On the mesh's model axis the WSConvs and the gate gather their sharded
+weights on use, and the heads are column-parallel (``models/common.py``'s
+``Linear``).  Convolutions run NCHW on channels-last memory.  Numerics
+follow flax: the compute dtype is set by explicit casts, not autocast
+(``head2`` computes in f32 under bf16 compute); the pooled sums are f32,
+rows (dim 2) then columns (dim 3), each from low to high with the first
+term cast to f32.
 """
 
 from __future__ import annotations
@@ -33,10 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dmfusion_torch.models.common import activation_fn, dtypes, tree_shape
+from dmfusion_torch.models.common import (Linear, activation_fn, dtypes,
+                                          tree_shape)
 from dmfusion_torch.models.dense_fusion import (_SQRT2, GateConv, WSConv,
                                                 space_to_depth)
 from dmfusion_torch.models.registry import register
+from dmfusion_torch.parallel.tensor import sharded_product
 
 ARITY = "dual"
 #: train/steps.py renders this model's maps with ConvMapPrograms.
@@ -93,6 +98,23 @@ def _box_sum(x: torch.Tensor, g: int, dim: int) -> torch.Tensor:
     return acc
 
 
+class _HeadLinear(Linear):
+    """``Linear`` in the compute dtype ``dtype``: the product rounded to
+    it, then the bias added in it (flax's ``Dense`` under ``dtype``)."""
+
+    def __init__(self, in_features: int, features: int, dtype: torch.dtype):
+        super().__init__(in_features, features)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+
+        def op(x, w, b):
+            y = F.linear(x, w.to(dt))
+            return y if b is None else y + b.to(dt)
+        return sharded_product(self, x.to(dt), op, -1)
+
+
 def _nchw(x: torch.Tensor) -> torch.Tensor:
     """(H, W, C) -> (1, C, H, W), channels-last memory."""
     return x.permute(2, 0, 1)[None]
@@ -145,8 +167,8 @@ class Net(nn.Module):
         self.t3_sc = ws(2 * w, 4 * w, 1, 1.0)
         for name in ("alpha_ms", "alpha_pan", "alpha1", "alpha2", "alpha3"):
             setattr(self, name, nn.Parameter(torch.tensor(0.2)))
-        self.head1 = nn.Linear(4 * w, 2 * w)
-        self.head2 = nn.Linear(2 * w, ncls)
+        self.head1 = _HeadLinear(4 * w, 2 * w, dt)
+        self.head2 = Linear(2 * w, ncls)
 
     def flax_init(self, generator: torch.Generator) -> None:
         """The residual scales start at 0.2 (the convs and heads initialize
@@ -177,11 +199,7 @@ class Net(nn.Module):
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """(..., 4w) -> (..., ncls) f32: head1 in the compute dtype (the
         bias added after the matmul's rounding), head2 in f32."""
-        dt = self.compute_dtype
-        x = (F.linear(x.to(dt), self.head1.weight.to(dt))
-             + self.head1.bias.to(dt))
-        return F.linear(self.act(x).float(), self.head2.weight,
-                        self.head2.bias)
+        return self.head2(self.act(self.head1(x)).float())
 
     @staticmethod
     def _pool(t: torch.Tensor, g: int) -> torch.Tensor:

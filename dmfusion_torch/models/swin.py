@@ -18,6 +18,11 @@ The token grid is NHWC throughout.  flax's arithmetic is kept:
   * the softmax runs in float32 and is cast back;
   * LayerNorm epsilon 1e-6; the MLP's activation is the config's.
 
+On the mesh's model axis every dense layer is column-parallel
+(``models/common.py``'s ``Linear``: the fused ``qkv``'s output is gathered
+whole before it is split into q, k and v), and ``pos`` and a bias table
+whose heads the rule shards are gathered on use.
+
 The relative index and each shifted block's mask are numpy copies of
 dmfusion's, built once for the block's grid (the grid is fixed by
 ``patch_size``) and held as buffers that are not parameters.
@@ -32,9 +37,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from dmfusion_torch.models.common import (LayerNorm, MLPHead, PanPyramid,
-                                          activation_fn, dtypes, tree_shape)
+from dmfusion_torch.models.common import (LayerNorm, Linear, MLPHead,
+                                          PanPyramid, activation_fn, dtypes,
+                                          tree_shape)
 from dmfusion_torch.models.registry import register
+from dmfusion_torch.parallel.tensor import use
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -83,8 +90,8 @@ class WindowAttention(nn.Module):
     def __init__(self, dim: int, heads: int, window: int):
         super().__init__()
         self.heads = heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
         self.rel_bias = nn.Parameter(torch.zeros((2 * window - 1) ** 2,
                                                  heads))
         self.register_buffer("rel_index", torch.from_numpy(
@@ -105,7 +112,8 @@ class WindowAttention(nn.Module):
         # flax: / jnp.sqrt(jnp.asarray(hd, dtype)), a sqrt in the compute
         # dtype.
         attn = attn / float(torch.tensor(float(hd), dtype=attn.dtype).sqrt())
-        bias = self.rel_bias[self.rel_index].reshape(n, n, self.heads)
+        bias = use(self, "rel_bias")[self.rel_index].reshape(n, n,
+                                                             self.heads)
         attn = attn + bias.permute(2, 0, 1)[None].to(attn.dtype)
         if mask is not None:
             nw = mask.shape[0]
@@ -130,8 +138,8 @@ class SwinBlock(nn.Module):
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, heads, self.ws)
         self.norm2 = LayerNorm(dim)
-        self.fc1 = nn.Linear(dim, 4 * dim)
-        self.fc2 = nn.Linear(4 * dim, dim)
+        self.fc1 = Linear(dim, 4 * dim)
+        self.fc2 = Linear(4 * dim, dim)
         self.act = act
         mask = (torch.from_numpy(_shift_mask(h, w, self.ws, self.shift))
                 if self.shift else None)
@@ -158,7 +166,7 @@ class PatchMerge(nn.Module):
     def __init__(self, dim: int, dim_out: int):
         super().__init__()
         self.norm = LayerNorm(4 * dim)
-        self.reduce = nn.Linear(4 * dim, dim_out)
+        self.reduce = Linear(4 * dim, dim_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
@@ -180,7 +188,7 @@ class SwinEncoder(nn.Module):
         ws = int(tr["window_size"])
         depths = [int(d) for d in tr["depths"]]
         heads = [int(nh) for nh in tr["num_heads"]]
-        self.embed = nn.Linear(in_features, dim)
+        self.embed = Linear(in_features, dim)
         self.pos = nn.Parameter(torch.zeros(1, grid, grid, dim))
         self.stages = nn.ModuleList()
         self.merges = nn.ModuleList()
@@ -201,7 +209,7 @@ class SwinEncoder(nn.Module):
 
     def forward(self, grid: torch.Tensor) -> torch.Tensor:
         x = self.embed(grid)
-        x = x + self.pos.to(x.dtype)
+        x = x + use(self, "pos").to(x.dtype)
         for s, blocks in enumerate(self.stages):
             for block in blocks:
                 x = block(x)

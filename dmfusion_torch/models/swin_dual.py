@@ -15,8 +15,8 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
-from dmfusion_torch.models.common import (MLPHead, PanPyramid, activation_fn,
-                                          dtypes)
+from dmfusion_torch.models.common import (Linear, MLPHead, PanPyramid,
+                                          activation_fn, dtypes)
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.models.swin import SwinEncoder, swin_trans_from_tree
 
@@ -41,7 +41,7 @@ class Net(nn.Module):
         self.ms_encoder = SwinEncoder(cfg, ms_channels, grid, act)
         self.pan_encoder = SwinEncoder(cfg, dim, grid, act)
         out = self.ms_encoder.out_dim
-        self.gate = nn.Linear(2 * out, out)
+        self.gate = Linear(2 * out, out)
         self.head = MLPHead(out, int(cfg["Categories_Number"]), hidden=dim,
                             act=act)
 

@@ -22,8 +22,8 @@ import torch
 from torch import nn
 
 from dmfusion_torch.models.common import (ConvBlock, MLPHead, PanPyramid,
-                                          ResBlock, activation_fn, dtypes,
-                                          tree_shape)
+                                          ResBlock, SameConv2d, activation_fn,
+                                          dtypes, tree_shape)
 from dmfusion_torch.models.registry import register
 
 
@@ -50,7 +50,7 @@ class Net(nn.Module):
         self.pan_res = ResBlock(w, w, 1, act)
         self.mspan = PanPyramid(1, (w // 2, w), act)
         self.mspan_res = ResBlock(w, w, 1, act)
-        self.stream_gate = nn.Conv2d(3 * w, 3, 1)
+        self.stream_gate = SameConv2d(3 * w, 3, 1)
         self.trunk = nn.Sequential(ResBlock(w, 2 * w, 2, act),
                                    ResBlock(2 * w, 4 * w, 2, act))
         self.head = MLPHead(4 * w, int(cfg["Categories_Number"]),

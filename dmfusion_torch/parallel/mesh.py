@@ -58,9 +58,6 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 #: What still waits under a mesh, by the ROADMAP A14 item that ports it.
 A14_ITEMS = {
     "batchnorm": "ROADMAP A14 item 5: SyncBatchNorm",
-    "model": "ROADMAP A14 item 7: the model axis for the tri, single and "
-             "conv-map families, the two-stage solver and the models whose "
-             "leaves map to torch parameters other than one to one",
 }
 
 
@@ -252,6 +249,18 @@ class Mesh:
         """Overwrite same-dtype tensors with rank 0's, as one collective
         over every rank."""
         self._flat(list(tensors), lambda flat: dist.broadcast(flat, 0))
+
+    def sync_peers_(self, tensors: Iterable[torch.Tensor]) -> None:
+        """Overwrite same-dtype tensors with the first model peer's (model
+        index 0 of this data index), as one collective over the model
+        group; a no-op without a model axis.  The peers compute the same
+        replicated values, but a nondeterministic kernel (cuDNN's weight
+        gradients use atomics) can part them by a rounding: after this
+        they hold the same bits."""
+        if self.model > 1:
+            src = self.rank - self.model_index
+            self._flat(list(tensors), lambda flat: dist.broadcast(
+                flat, src, group=self.model_group))
 
     @staticmethod
     def _flat(tensors: list[torch.Tensor], op) -> None:

@@ -20,7 +20,20 @@ axis is then the torch dimension the converter lays it on
 
 Under the config's vit (3 heads) and ``model: 2`` the attention is
 replicated while its MLP, ``pos``, ``modality`` and ``cls`` still shard;
-an odd class count leaves the head's last kernel replicated.
+an odd class count leaves the head's last kernel replicated.  ct_lstm's
+eight gate kernels shard on their hidden columns, which the port holds as
+dimension 1 of its ``(4, h, in)`` and ``(4, h, h)`` stacks
+(``models/ct_lstm.py``), so every gate's shard is one slice of one torch
+dimension.
+
+A sharded layer computes in one of the modes of ``parallel/tensor.py``:
+``models/common.py``'s ``SameConv2d`` and ``Linear`` column-parallel, the
+attention's query/key/value by heads and its out row-parallel, and a raw
+parameter, or a layer whose class sets ``tp_mode = "gather"`` (the dense
+family's ``WSConv`` and ``GateConv``, ct_lstm's ``LSTM``), gathered on
+use.  A leaf that the rule shards but no torch dimension or mode can hold
+raises ``ValueError``: a guard for a registered model that the rule cannot
+map, which no model of the zoo meets.
 
 Adam's moments are shaped like their parameters, so an optimizer built on
 the sharded parameters (:func:`shard_model` first, then
@@ -39,9 +52,9 @@ import torch
 from torch import nn
 
 from dmfusion_torch.models.common import Linear, SameConv2d
-from dmfusion_torch.models.convert import (HEADS_IN, HEADS_OUT, PARAM,
-                                           _walk, flax_leaves)
-from dmfusion_torch.parallel.mesh import Mesh, unported
+from dmfusion_torch.models.convert import (HEADS_IN, HEADS_OUT, LSTM_CELL,
+                                           PARAM, _walk, flax_leaves)
+from dmfusion_torch.parallel.mesh import Mesh
 from dmfusion_torch.parallel.tensor import (ModelAxis, Shard, gather_dim,
                                             shard_dims, slice_dim)
 
@@ -83,18 +96,23 @@ def flax_specs(model: nn.Module, size: int) -> dict[tuple[str, ...], tuple]:
 
 def placement(model: nn.Module, size: int) -> dict[str, int | None]:
     """Each torch parameter's sharded dimension on a model axis of
-    ``size``, or None where it is replicated.  Raises, naming ROADMAP A14
-    item 7, where a sharded flax leaf has no one torch dimension (an LSTM
-    cell's stacked gates, a head_dim axis)."""
+    ``size``, or None where it is replicated.  Several flax leaves may lie
+    in one torch parameter (ct_lstm's four gates of a side); they must
+    agree.  Raises ``ValueError`` where a sharded flax axis has no torch
+    dimension of its own (a head_dim axis) or the leaves of one parameter
+    disagree."""
     out: dict[str, int | None] = {}
     for path, shape, tname, axes in flax_leaves(model):
         spec = leaf_spec(path, shape, size)
         dim = spec.index("model") if spec else None
-        if dim is not None and (tname is None or axes[dim] is None):
-            raise unported(f"sharding {'/'.join(path)} on the model axis",
-                           "model")
-        if tname is not None:
-            out[tname] = None if dim is None else axes[dim]
+        where = "/".join(path)
+        if dim is not None and axes[dim] is None:
+            raise ValueError(f"dmfusion's rule shards {where} on axis {dim}, "
+                             "which no torch dimension holds alone")
+        tdim = None if dim is None else axes[dim]
+        if out.setdefault(tname, tdim) != tdim:
+            raise ValueError(f"{where} shards {tname} on dimension {tdim}, "
+                             f"another of its flax leaves on {out[tname]}")
     return out
 
 
@@ -105,8 +123,9 @@ def shard_model(model: nn.Module, mesh: Mesh | None) -> dict[str, int]:
     ``tp_gather_on_use`` (the dense family) gathers every sharded leaf on
     use; otherwise a conv or dense layer of ``models/common.py`` is
     column-parallel, an attention's query/key/value are its heads' and its
-    out row-parallel, and a raw parameter is gathered on use.  Any other
-    sharded layer raises, naming ROADMAP A14 item 7.  Returns the sharded
+    out row-parallel, and a raw parameter, or a layer whose class sets
+    ``tp_mode = "gather"``, is gathered on use.  Any other sharded layer
+    raises ``ValueError`` (:func:`_mode`).  Returns the sharded
     parameters' dimensions; a no-op without a model axis.  Shard before
     building the optimizer (its moments take the shards' shapes)."""
     if mesh is None or mesh.model == 1:
@@ -114,8 +133,13 @@ def shard_model(model: nn.Module, mesh: Mesh | None) -> dict[str, int]:
     axis = ModelAxis(mesh.model_group, mesh.model_index, mesh.model)
     dims = {k: d for k, d in placement(model, mesh.model).items()
             if d is not None}
-    kinds = {tname: (kind, owner, pname)
-             for _, tname, kind, _, owner, pname in _walk(model)}
+    kinds = {}
+    for _, tname, kind, _, owner, pname in _walk(model):
+        if kind == LSTM_CELL:  # one entry for the cell's three tensors
+            for pn, _ in owner.named_parameters(recurse=False):
+                kinds[f"{tname}.{pn}"] = (kind, owner, pn)
+        else:
+            kinds[tname] = (kind, owner, pname)
     owners: dict[nn.Module, dict[str, int]] = {}
     modes: dict[nn.Module, str] = {}
     gather_all = getattr(model, "tp_gather_on_use", False)
@@ -126,8 +150,8 @@ def shard_model(model: nn.Module, mesh: Mesh | None) -> dict[str, int]:
     for owner, pdims in owners.items():
         mode = modes[owner]
         if mode in ("column", "row") and set(pdims) != {"weight"}:
-            raise unported(f"{type(owner).__name__} with {sorted(pdims)} "
-                           "sharded", "model")
+            raise ValueError(f"a {mode}-parallel {type(owner).__name__} "
+                             f"shards its weight alone, not {sorted(pdims)}")
         for pname, dim in pdims.items():
             p = getattr(owner, pname)
             cl = p.ndim == 4 and p.is_contiguous(
@@ -135,8 +159,9 @@ def shard_model(model: nn.Module, mesh: Mesh | None) -> dict[str, int]:
             shard = slice_dim(p.detach(), axis, dim).clone(
                 memory_format=torch.channels_last if cl
                 else torch.contiguous_format)
-            setattr(owner, pname, nn.Parameter(shard,
-                                               requires_grad=p.requires_grad))
+            param = nn.Parameter(shard, requires_grad=p.requires_grad)
+            param.tp_sharded = True  # train/steps.py::sum_grads
+            setattr(owner, pname, param)
         owner.tp = Shard(axis, mode, pdims)
     return dims
 
@@ -151,8 +176,14 @@ def _mode(kind: str, owner: nn.Module, tname: str) -> str:
         return "gather"
     if isinstance(owner, (SameConv2d, Linear)):
         return "column"
-    raise unported(f"{tname} ({type(owner).__name__}) sharded on the model "
-                   "axis", "model")
+    if getattr(owner, "tp_mode", None) == "gather":
+        return "gather"
+    raise ValueError(
+        f"dmfusion's rule shards {tname}, and its layer "
+        f"({type(owner).__name__}) has no sharded forward: make it a "
+        "SameConv2d or Linear of models/common.py, or set tp_mode = "
+        "\"gather\" on its class and read the weight through "
+        "parallel/tensor.py::use")
 
 
 @torch.no_grad()

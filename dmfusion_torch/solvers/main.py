@@ -70,15 +70,14 @@ multi-process run does.  Models with BatchNorm raise
 ``NotImplementedError`` naming their ROADMAP A14 item.
 
 With ``mesh.model > 1`` (the mesh's ``model`` axis,
-``parallel/partition.py``) the dual arity's gmfnet and vit and the dense
-family train, validate, test and color as above, each rank holding its
-shards of the seeded whole parameters (sharded after ``init_params``,
-before the optimizer, whose moments take the shards' shapes).  Every save
-gathers the whole parameters and moments over the model group first and a
-load takes the rank's shards of the file, so a checkpoint holds the whole
-model in one process's layout.  Every other family raises
-``NotImplementedError`` naming ROADMAP A14 item 7, and so does the
-two-stage solver.
+``parallel/partition.py``) every family trains, validates, tests and
+colors as above (gmfnet_conv per anchor), each rank holding its shards of
+the seeded whole parameters (sharded after ``init_params``, before the
+optimizer, whose moments take the shards' shapes).  Every save gathers
+the whole parameters and moments over the model group first and a load
+takes the rank's shards of the file, so a checkpoint holds the whole
+model in one process's layout.  The two-stage solver keeps its
+parameters replicated, as dmfusion's does (``solvers/twostage.py``).
 """
 
 from __future__ import annotations
@@ -97,7 +96,7 @@ from dmfusion_torch.models.registry import (build_model, model_arity,
                                             model_map_programs)
 from dmfusion_torch.ops.contourlet import contourlet_decompose
 from dmfusion_torch.ops.metrics import aa_oa, render_class_map
-from dmfusion_torch.parallel import check_model, unported
+from dmfusion_torch.parallel import check_model
 from dmfusion_torch.parallel.partition import (full_opt_state, full_state,
                                                shard_model, shard_opt_state)
 from dmfusion_torch.parallel.tensor import shard_state
@@ -114,12 +113,6 @@ from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
                                         TriPrograms, resolve_dense_epoch,
                                         resolve_dense_streams)
 from dmfusion_torch.utils.misc import parse_switch
-
-# The (arity, model) pairs that run on the mesh's model axis: the dual
-# arity's gmfnet and vit, the dense family (dmfusion's TP tests pin these
-# three).  The rest raises, naming ROADMAP A14 item 7.
-_MODEL_AXIS = {("dual", "gmfnet"), ("dual", "vit"),
-               ("dual", "vision_transformer"), ("dense", "dense_fusion")}
 
 # The per-anchor programs of an arity other than dual (whose map-route
 # models take ConvMapPrograms).
@@ -272,11 +265,6 @@ class Solver(BaseSolver):
         if arity not in ("dual", "tri", "dense", "single"):
             raise ValueError(f"unsupported model arity {arity!r} for the "
                              "main solver")
-        if (self.mesh is not None and self.mesh.model > 1
-                and (arity, str(cfg["model_name"]).lower())
-                not in _MODEL_AXIS):
-            raise unported(f"model {cfg['model_name']!r} (arity {arity!r}) "
-                           f"on mesh.model {self.mesh.model}", "model")
         loss_name = cfg["schedule"]["loss"]
         if loss_name != "Criterion":
             raise ValueError(

@@ -28,16 +28,24 @@ checkpoint's stamp must match the run's (``_gan_meta``).
 
 Under a mesh (``torchrun``, ``mesh.distributed``) both stages run on every
 rank, as dmfusion's do on its mesh: stage 1 rounds ``dqtl.batch_size`` up
-to a multiple of the ranks (``dmfusion/solvers/twostage.py:138-142``) and
+to a multiple of the data axis's ranks
+(``dmfusion/solvers/twostage.py:138-142``) and
 trains ``GanPrograms`` on each rank's shard of every tile batch; every
 rank rebuilds msgan and pangan from the gathered fakes, since stage 2
 needs them; stage 2 trains ``QuadPrograms`` on each rank's shard.  Rank 0
 alone touches the weights dir: the ``pan.npy`` cache, the GAN checkpoints
 (read and broadcast under ``dqtl.load_model``), msgan/pangan, their
 renders and sample grids; and, as in the main solver, the result tree, the
-workbook and its ``streams`` sheet.  ``visualize`` scatters the four
-streams' logits of ``visualize.samples // 4`` train anchors
-(``{time}_tsne_streams.png``); ``proof`` keeps its refusal.
+workbook and its ``streams`` sheet.  On a ``data x model`` mesh
+(``mesh.model > 1``) the parameters of both stages stay replicated, as
+dmfusion's two-stage solver keeps them (it never calls ``shard_params``):
+the batches shard over the data index, every gradient sum, mean and row
+gather runs on the rank's data group, and the model peers of a data index
+compute the same steps and take the first peer's gradients
+(``Mesh.sync_peers_``), so they hold the same parameters after each.
+``visualize`` scatters the four streams' logits of ``visualize.samples //
+4`` train anchors (``{time}_tsne_streams.png``); ``proof`` keeps its
+refusal.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from dmfusion_torch.ops.ihs import pan2ms
 from dmfusion_torch.ops.image import (render_tensor, scene_to_tiles,
                                       tiles_to_scene)
 from dmfusion_torch.ops.metrics import per_stream_results
-from dmfusion_torch.parallel import check_model, unported
+from dmfusion_torch.parallel import check_model
 from dmfusion_torch.report.excel import expo_stream_results
 from dmfusion_torch.report.png import write_png
 from dmfusion_torch.report.viz import save_image_grid
@@ -75,9 +83,6 @@ class TwoStageSolver(Solver):
 
     def __init__(self, cfg):
         super().__init__(cfg)
-        if self.mesh is not None and self.mesh.model > 1:
-            raise unported(f"the two-stage solver on mesh.model "
-                           f"{self.mesh.model}", "model")
         self.ms_gan: np.ndarray | None = None
         self.pan_gan: np.ndarray | None = None
         self.stream_matrices: np.ndarray | None = None

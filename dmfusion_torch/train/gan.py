@@ -46,9 +46,12 @@ the same seeded draw, and the rank's rows are sliced from it, so the draws
 advance as in one process.  The discriminators' gradients are averaged
 over the ranks before their update (the generator step then sees the
 updated discriminators), the generators' before theirs: with equal shards
-the mean of the ranks' MSE and L1 means is the whole batch's.  The
-returned losses are the ranks' mean, and the kept fakes every rank's, in
-batch order.
+the mean of the ranks' MSE and L1 means is the whole batch's.  On a
+``data x model`` mesh the nets stay replicated, as dmfusion's two-stage
+solver keeps them: the model peers of a data index run the same shard and
+take the first peer's averaged gradients (``Mesh.sync_peers_``), so they
+hold the same bits.  The returned losses are the ranks' mean, and the kept
+fakes every rank's, in batch order.
 """
 
 from __future__ import annotations
@@ -137,6 +140,7 @@ class GanPrograms:
             grads.append(q.grad)
         loss = loss.float().reshape(1).clone()
         self.mesh.mean_all_([*grads, loss])
+        self.mesh.sync_peers_(grads)
         return loss[0]
 
     # -- one D + G step ----------------------------------------------------

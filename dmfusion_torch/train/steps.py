@@ -155,13 +155,18 @@ def sum_grads(params, mesh: Mesh) -> None:
     """Sum the gradients of ``params`` over the data axis, in one flat
     collective (a parameter without a gradient counts as zeros).  On the
     model axis every gradient, a shard's or a replicated parameter's, is
-    already this rank's own: the model peers' are not added."""
-    grads = []
+    already this rank's own: the model peers' are not added.  The
+    replicated ones are then taken from the first model peer
+    (``Mesh.sync_peers_``), so that the peers' copies stay bit-equal."""
+    grads, whole = [], []
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
+        if not getattr(p, "tp_sharded", False):
+            whole.append(p.grad)
     mesh.sum_all_(grads)
+    mesh.sync_peers_(whole)
 
 
 def conf_from_map(pred_map: torch.Tensor, ids: torch.Tensor,

@@ -10,7 +10,11 @@ Tolerances, with the largest readings:
     against torch's ``affine_grid`` + ``grid_sample`` (align_corners, zero
     padding) too;
   * a shifted ``SwinBlock`` and the LSTM against flax's: atol 1e-5;
-  * the relative index and the shift mask: equal.
+  * the relative index and the shift mask: equal;
+  * ct_lstm's stacked gates (``(4, h, in)``, ``(4, h, h)``, ``(4, h)``):
+    its logits from a flax tree equal, bit for bit, those of the flat
+    ``(4h, .)`` layout the port held before, and the eight gate kernels
+    and four biases cross to torch and back unchanged.
 """
 
 import os
@@ -31,7 +35,10 @@ from dmfusion.ops import contourlet as jct
 from dmfusion_torch.config import load_config
 from dmfusion_torch.models import swin
 from dmfusion_torch.models.ct_lstm import LSTM
-from dmfusion_torch.models.convert import _lstm_to_torch, params_from_flax
+from dmfusion_torch.models import build_model
+from dmfusion_torch.models.common import init_params
+from dmfusion_torch.models.convert import (_lstm_to_torch, load_flax_params,
+                                           params_from_flax, params_to_flax)
 from dmfusion_torch.ops import contourlet as ct
 from dmfusion_torch.report.viz import channel_grid
 from dmfusion_torch.solvers import Solver, TwoStageSolver
@@ -196,6 +203,84 @@ def test_lstm_gate_order(kernel):
     with torch.no_grad():
         got = port(torch.from_numpy(seq)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
+
+
+class _FlatLSTM(torch.nn.Module):
+    """The port's LSTM in its flat layout: flax's gate kernels, gates i, f,
+    g, o, concatenated on their columns into one ``(4h, in)`` input and
+    one ``(4h, h)`` hidden weight and a ``(4h,)`` bias, and the same
+    step."""
+
+    def __init__(self, cell):
+        super().__init__()
+
+        def cat(prefix, leaf):
+            return torch.cat([torch.from_numpy(np.asarray(
+                cell[f"{prefix}{g}"][leaf], np.float32)) for g in "ifgo"],
+                dim=-1)
+        self.input_weight = cat("i", "kernel").t().contiguous()
+        self.hidden_weight = cat("h", "kernel").t().contiguous()
+        self.hidden_bias = cat("h", "bias")
+        self.features = self.hidden_bias.shape[0] // 4
+
+    def forward(self, seq):
+        b, steps, _ = seq.shape
+        c = h = seq.new_zeros(b, self.features, dtype=torch.float32)
+        for t in range(steps):
+            gates = (F.linear(h, self.hidden_weight, self.hidden_bias)
+                     + F.linear(seq[:, t], self.input_weight))
+            i, f, g, o = gates.chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            h = torch.sigmoid(o) * torch.tanh(c)
+        return h
+
+
+def _ct_lstm(dtype):
+    cfg = load_config(overrides={"data_city": "synth64", "patch_size": 8,
+                                 "model_name": "ct_lstm", "model_width": 8,
+                                 "precision": {"compute_dtype": dtype}})
+    return build_model(cfg)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_stacked_gates_equal_the_flat_layout(dtype):
+    """One flax tree into ct_lstm: its logits with the stacked gates equal,
+    bit for bit, those with the flat layout's LSTM in their place."""
+    tree = params_to_flax(init_params(_ct_lstm("float32"),
+                                      torch.Generator().manual_seed(5)))
+    model = load_flax_params(_ct_lstm(dtype), tree)
+    rng = np.random.default_rng(2)
+    ms = torch.from_numpy(rng.random((3, 8, 8, 4), np.float32))
+    pan = torch.from_numpy(rng.random((3, 32, 32, 1), np.float32))
+    with torch.no_grad():
+        got = model(ms, pan)
+        model.lstm = _FlatLSTM(tree["OptimizedLSTMCell_0"])
+        want = model(ms, pan)
+    assert torch.equal(got, want)
+
+
+def test_lstm_gates_round_trip_flax():
+    """The eight gate kernels and four biases of a flax tree load into the
+    stacked tensors and come back out unchanged, and the stacked tensors
+    hold each gate's kernel transposed at its place on dimension 0."""
+    tree = params_to_flax(init_params(_ct_lstm("float32"),
+                                      torch.Generator().manual_seed(6)))
+    model = load_flax_params(_ct_lstm("float32"), tree)
+    cell, back = tree["OptimizedLSTMCell_0"], params_to_flax(model)
+    assert set(cell) == {f"{s}{g}" for s in "ih" for g in "ifgo"}
+    for k, leaves in cell.items():
+        for leaf, arr in leaves.items():
+            np.testing.assert_array_equal(
+                back["OptimizedLSTMCell_0"][k][leaf], arr)
+    lstm = model.lstm
+    assert lstm.input_weight.shape == (4, 8, 8)
+    for i, g in enumerate("ifgo"):
+        np.testing.assert_array_equal(lstm.input_weight[i].detach().numpy(),
+                                      cell[f"i{g}"]["kernel"].T)
+        np.testing.assert_array_equal(lstm.hidden_weight[i].detach().numpy(),
+                                      cell[f"h{g}"]["kernel"].T)
+        np.testing.assert_array_equal(lstm.hidden_bias[i].detach().numpy(),
+                                      cell[f"h{g}"]["bias"])
 
 
 def _png(path):

@@ -36,10 +36,30 @@ packages as one flax tree, which each rank loads as its shards.  Held:
     reads the best weights back and gives it again; its checkpoints hold
     the whole model and load in one process, and ``python -m
     dmfusion_torch.export`` serves them;
-  * refusals under ``model: 2``: tri_net, gmfnet_conv, the two-stage
-    solver and swin_transformer name ROADMAP A14 item 7.
+  * the rest of the zoo on the same mesh: a two-batch ``train_epoch`` of
+    tri_net (dmfusion's MSPAN), the single arity (the MS-only net that
+    ``tests/test_torch_single.py`` registers in both packages),
+    gmfnet_conv (patch 35), resnet18, cross_net, swin_transformer,
+    swin_T_dual and ct_lstm at ``ZOO``'s widths, against dmfusion's mesh
+    epoch at the same limits; eval and predict of tri_net, gmfnet_conv and
+    ct_lstm; dqtl's ``QuadPrograms`` epoch and eval with its parameters
+    replicated, as dmfusion's two-stage solver keeps them (its four
+    streams over seeded stand-ins of the GAN scenes); three GAN steps from
+    dmfusion's states and noise, replicated (moments within 1e-2 of the
+    largest, parameters within 3 lr, ``test_torch_parallel_streams.py``'s
+    limits), every model peer's parameters equal; and two controls that
+    must miss: tri_net's and dqtl's gradients summed over every rank;
+  * each new family's shards (parameters and moments of the shard's
+    shape) and a hook on every sharded layer, the gathered-on-use ones
+    too (the WSConvs, the gate, the LSTM, swin's ``pos``);
+  * the families on the model axis through the solver: every one builds
+    under ``mesh.model=2``, and tri_net, ct_lstm and ``--solver
+    twostage`` run a one-epoch CLI at the smallest split (rank 0 writes
+    one result tree; the two-stage GAN scenes); ct_lstm's checkpoints load
+    strictly in one process.
 """
 
+import inspect
 import os
 import pickle
 import socket
@@ -55,14 +75,20 @@ from jax.sharding import PartitionSpec as P
 
 from dmfusion.config import load_config as jax_load_config
 from dmfusion.data import synthetic_scene as jax_synthetic_scene
+from dmfusion.data.scene import prep_scene as jax_prep_scene
 from dmfusion.models import build_model as jax_build_model
 from dmfusion.models.registry import model_arity as jax_model_arity
+from dmfusion.ops.ihs import ihs_transform as jax_ihs_transform
 from dmfusion.parallel.mesh import get_mesh as jax_get_mesh
 from dmfusion.parallel.partition import (param_partition_specs,
                                          shard_opt_state, shard_params)
+from dmfusion.train.losses import make_loss as jax_make_loss
 from dmfusion.train.optim import make_optimizer as jax_make_optimizer
 from dmfusion.train.steps import DensePrograms as JaxDensePrograms
 from dmfusion.train.steps import DualPrograms as JaxDualPrograms
+from dmfusion.train.steps import QuadPrograms as JaxQuadPrograms
+from dmfusion.train.steps import SinglePrograms as JaxSinglePrograms
+from dmfusion.train.steps import TriPrograms as JaxTriPrograms
 from dmfusion_torch import cli
 from dmfusion_torch.config import load_config
 from dmfusion_torch.data.patches import batched_ids_np
@@ -71,8 +97,15 @@ from dmfusion_torch.export import main as export_main
 from dmfusion_torch.models import build_model
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.convert import params_to_flax
-from dmfusion_torch.parallel.partition import flax_specs
+from dmfusion_torch.parallel.mesh import Mesh
+from dmfusion_torch.parallel.partition import flax_specs, shard_model
 from dmfusion_torch.train.checkpoint import load_checkpoint
+from test_torch_parallel_streams import OVER as GAN_OVER
+from test_torch_parallel_streams import (LR, MOMENT_RTOL, NETS, OPTS,
+                                         _jax_gan, _quad_args)
+from test_torch_single import NAME as SINGLE
+from test_torch_single import Net as SingleNet
+from test_torch_single import models  # noqa: F401 (SINGLE in both packages)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANKS, MODEL = 4, 2
@@ -107,11 +140,6 @@ CLI_SET = ["device=cpu", "patch_size=8", "model_width=16", "batchsize=64",
            "train_rate=0.1", "verify_rate=0.05", "seed=0", "color.index=1",
            "precision.compute_dtype=float32", "schedule.optimizer=SGD",
            "nohup=1"]
-REFUSALS = {"tri_net": ["--set", "model_name=tri_net"],
-            "gmfnet_conv": ["--set", "model_name=gmfnet_conv",
-                            "patch_size=35"],
-            "twostage": ["--solver", "twostage", "--set", "model_name=dqtl"],
-            "swin_transformer": ["--set", "model_name=swin_transformer"]}
 # Every model of the zoo, at small widths, for the placement.
 ZOO = {
     "gmfnet": {"model_width": 8},
@@ -145,20 +173,46 @@ ZOO = {
     "generator": {"model_name": "generator", "gan_width": 8},
     "discriminator": {"model_name": "discriminator", "gan_width": 8},
 }
+# The port's single-arity net, for the ranks to register (read before the
+# ``models`` fixture renames its module).
+SINGLE_SRC = inspect.getsource(SingleNet)
+# The families that joined the model axis after gmfnet, vit and dense, at
+# ZOO's widths, and dqtl (replicated, as the two-stage solver keeps it).
+FAMS = {**{n: ZOO[n] for n in ("tri_net", "gmfnet_conv", "resnet18",
+                                "cross_net", "swin_transformer",
+                                "swin_T_dual", "ct_lstm")},
+        "single": {"model_name": SINGLE, "model_width": 8},
+        "dqtl": ZOO["dqtl"]}
+FAM_EVAL = ("tri_net", "gmfnet_conv", "ct_lstm", "dqtl")
+FAM_CONTROLS = ("tri_net", "dqtl")
+# Every family through the solver on model: 2; these run a CLI epoch.
+SOLVER_FAMILIES = (*(n for n in FAMS if n != "dqtl"), "twostage")
+SOLVER_CLI = ("tri_net", "ct_lstm", "twostage")
+SOLVER_SET = ["device=cpu", "patch_size=8", "model_width=8",
+              "batchsize=32", "test_batchsize=32", "color_batchsize=32",
+              "epoch=1", "time=1", "train_rate=0.05", "verify_rate=0.05",
+              "seed=0", "color.index=0", "nohup=1", "gan_width=8",
+              "dqtl.pic_size=32", "dqtl.epochs=1", "dqtl.pre_trained=0",
+              "schedule.optimizer=SGD", "precision.compute_dtype=float32",
+              "mesh.distributed=1", f"mesh.model={MODEL}"]
 
 WORKER = r'''
-import builtins, dataclasses, io, os, pickle, sys
+import builtins, dataclasses, io, os, pickle, sys, time, types
+import numpy as np
 import torch
 torch.set_num_threads(1)
 from dmfusion_torch import cli, parallel
-from dmfusion_torch.config import load_config
+from dmfusion_torch.config import load_config, parse_overrides
 from dmfusion_torch.data.scene import synthetic_scene
-from dmfusion_torch.models import build_model
+from dmfusion_torch.models import build_model, common, registry
 from dmfusion_torch.models.convert import (load_flax_params,
+                                           opt_state_from_optax,
                                            opt_state_to_optax, params_to_flax)
 from dmfusion_torch.parallel.partition import shard_model
 from dmfusion_torch.parallel.tensor import shard_dims
+from dmfusion_torch.solvers import build_solver
 from dmfusion_torch.train import steps
+from dmfusion_torch.train.gan import GanPrograms
 from dmfusion_torch.train.optim import make_optimizer
 
 inp = pickle.load(open(sys.argv[1], "rb"))
@@ -168,6 +222,15 @@ assert parallel.maybe_initialize_distributed({"mesh": axes, "device": "cpu"})
 mesh = parallel.get_mesh({"mesh": axes, "device": "cpu"})
 out = {"rank": rank, "mesh": [mesh.data, mesh.model, mesh.data_index,
                               mesh.model_index, mesh.backend]}
+# The single arity's MS-only net, registered as tests/test_torch_single.py
+# registers it (its source arrives with the inputs).
+single_ns = {"torch": torch, "common": common}
+exec(inp["single_src"], single_ns)
+single = types.ModuleType("single_models." + inp["single"])
+single.ARITY, single.Net = "single", single_ns["Net"]
+single.Net.__module__ = single.__name__
+sys.modules[single.__name__] = single
+registry._EXPLICIT[inp["single"]] = single.Net
 
 
 def programs(case, tree, optimizer=None):
@@ -188,19 +251,45 @@ def programs(case, tree, optimizer=None):
     return prog, (scene.ms, scene.pan)
 
 
-def shard_hooks(model):
-    """Record the weight each sharded layer computes with."""
+def shard_hooks(model, gathers=False):
+    """Record the weight each sharded layer computes with (with
+    ``gathers``, each sharded parameter of a layer that gathers on use
+    too)."""
     seen = {}
 
     def hook(mod, args, name):
-        seen.setdefault(name, (mod.tp.mode, tuple(mod.weight.shape)))
+        shapes = {p: tuple(getattr(mod, p).shape) for p in mod.tp.dims}
+        seen.setdefault(name, (mod.tp.mode, shapes if gathers
+                               else tuple(mod.weight.shape)))
 
     for name, m in model.named_modules():
         tp = m.__dict__.get("tp")
-        if tp is not None and tp.mode != "gather":
+        if tp is not None and (gathers or tp.mode != "gather"):
             m.register_forward_pre_hook(
                 lambda mod, args, name=name: hook(mod, args, name))
     return seen
+
+
+PROGRAMS = {"dual": steps.DualPrograms, "tri": steps.TriPrograms,
+            "single": steps.SinglePrograms, "quad": steps.QuadPrograms}
+
+
+def fam_programs(name, tree):
+    """A family's programs on the mesh from its whole flax tree: sharded
+    as the main solver shards it, dqtl replicated as the two-stage solver
+    keeps it."""
+    c = inp["fams"][name]
+    cfg = load_config(overrides={**inp["over"], **c["over"]})
+    model = build_model(cfg)
+    if c["arity"] != "quad":
+        shard_model(model, mesh)
+    load_flax_params(model, tree)
+    opt = make_optimizer(cfg, model.parameters(), inp["steps"])
+    cls = (steps.ConvMapPrograms
+           if registry.model_map_programs(cfg["model_name"]) == "convmap"
+           else PROGRAMS[c["arity"]])
+    return (cls(model, opt, cfg, c["width"], c["patch"], mesh=mesh),
+            tuple(map(torch.from_numpy, c["args"])))
 
 
 def shapes(prog):
@@ -259,19 +348,65 @@ for case in inp["eval_cases"]:
     out["eval"][case] = (float(loss_sum), conf.numpy(),
                          prog.predict(args, ids).numpy())
 
+for name, c in inp["fams"].items():
+    variants = {"sum": {}}
+    if name in inp["fam_controls"]:
+        variants["world_sum"] = {"sum_grads": world_sum}
+    for variant, patch in variants.items():
+        for k, v in patch.items():
+            setattr(steps, k, v)
+        try:
+            prog, args = fam_programs(name, c["params0"])
+            seen = shard_hooks(prog.model, gathers=True)
+            losses = prog.train_epoch(args, *map(torch.from_numpy,
+                                                 c["batches"]))
+            out["train"][name, variant] = (losses.numpy(),
+                                           params_to_flax(prog.model))
+        finally:
+            steps.sum_grads = sum_grads
+        if variant == "sum":
+            out["shapes"][name] = shapes(prog)
+            out["hooks"][name] = seen
+    if "eval" in c:
+        prog, args = fam_programs(name, c["params0"])
+        ids, labels, mask = map(torch.from_numpy, c["eval"])
+        loss_sum, conf = prog.eval_epoch(args, ids, labels, mask)
+        out["eval"][name] = (float(loss_sum), conf.numpy(),
+                             prog.predict(args, ids).numpy())
+
 prog, args = programs("gmfnet", inp["train"]["gmfnet"]["params0"], "ADAM")
 losses = prog.train_epoch(args, *map(torch.from_numpy, inp["adam"]))
 out["adam"] = {"losses": losses.numpy(),
                "opt": opt_state_to_optax(prog.model, prog.optimizer),
                "shapes": shapes(prog)}
 
-out["refusals"] = {}
-for name, argv in inp["refusals"].items():
-    try:
-        cli.main(argv)
-        out["refusals"][name] = "accepted"
-    except NotImplementedError as e:
-        out["refusals"][name] = str(e)
+# The GAN quartet, replicated: dmfusion's states arrive once the test
+# process has computed them.
+deadline = time.time() + 600
+while not os.path.exists(inp["gan"]):
+    assert time.time() < deadline, "no GAN inputs"
+    time.sleep(0.2)
+gan = pickle.load(open(inp["gan"], "rb"))
+gcfg = load_config(overrides=inp["gan_over"])
+out["gan"] = []
+for i, st in enumerate(gan["steps"]):
+    params = st["before"]["params"]
+    nets = {k: load_flax_params(build_model(gcfg, n), params[k])
+            for k, n in inp["nets"].items()}
+    prog = GanPrograms(*nets.values(), gcfg, mesh=mesh)
+    for opt, keys in inp["opts"].items():
+        opt_state_from_optax(st["before"][opt], {k: nets[k] for k in keys},
+                             getattr(prog, opt))
+    noise = tuple(map(torch.from_numpy, st["noise"]))
+    prog.noise = lambda m, p, noise=noise: noise
+    res = prog.train_epoch(*(torch.from_numpy(gan[k][i:i + 1])
+                             for k in ("m", "p")), "none")
+    out["gan"].append({
+        "out": {k: v.numpy() for k, v in res.items()},
+        "params": {k: params_to_flax(n) for k, n in nets.items()},
+        "opt": {opt: opt_state_to_optax({k: nets[k] for k in keys},
+                                        getattr(prog, opt))
+                for opt, keys in inp["opts"].items()}})
 
 written = []
 for mod in (builtins, io):
@@ -290,6 +425,32 @@ def recorded_save(obj, f, *a, **kw):
 
 
 torch.save = recorded_save
+# Every family through the solver on the model axis: built (init_model),
+# or a one-epoch CLI run.
+out["families"] = {}
+for name, argv in inp["families"].items():
+    del written[:]
+    if name in inp["solver_cli"]:
+        solver = cli.main(argv)
+        rec = {"output": solver.cfg["RESULT_output"],
+               "excel": solver.cfg["RESULT_excel"],
+               "loss": solver.records["Loss"],
+               "val": solver.records["ValLoss"],
+               "matrix": solver.test_matrix,
+               "msgan": getattr(solver, "ms_gan", None)}
+    else:
+        over = parse_overrides(argv[3:])
+        solver = build_solver(load_config(overrides={**over,
+                                                     "data_city": argv[1]}))
+        solver.init_model()
+        rec = {}
+    rec.update(mesh=[solver.mesh.data, solver.mesh.model],
+               written=list(written),
+               sharded=sorted(shard_dims(solver.model)),
+               params=len(list(solver.model.parameters())))
+    out["families"][name] = rec
+
+del written[:]
 solver = cli.main(["--city", "synth64", "--set", *inp["cli_set"],
                    "mesh.distributed=1", f"mesh.model={inp['model']}",
                    "expo_result=" + inp["cli_dir"] + "/"])
@@ -371,34 +532,69 @@ def _batches(label, rng, n_real, steps):
     return (pad, label.reshape(-1)[pad].astype(np.int32), m)
 
 
-def _inputs(case, rng):
-    """The case's seeded whole flax tree (the port's init, one tree for
-    both packages) and its batches; for EVAL_CASES the eval tree (dense:
-    the head's second kernel scaled by 50, so the logits spread and the
-    argmax is not a random init's near-tie) and eval batches."""
-    over = {**OVER, **CASES[case]}
+def _scene_args(arity, jscene):
+    """dmfusion's scenes of an arity's programs, as numpy arrays: MS and
+    PAN; tri adds its IHS MSPAN (seeded by the config's seed); single is
+    MS alone; quad the four stage-2 streams over seeded stand-ins of the
+    GAN scenes."""
+    if arity == "quad":
+        return _quad_args(jscene)
+    if arity == "single":
+        return (np.asarray(jscene.ms),)
+    if arity == "tri":
+        mspan = jax_ihs_transform(jnp.asarray(jscene.raw_ms),
+                                  jnp.asarray(jscene.raw_pan),
+                                  jax.random.PRNGKey(0))
+        mspan = jax_prep_scene(mspan, 4 * jscene.patch, mspan.dtype)
+        return (np.asarray(jscene.ms), np.asarray(jscene.pan),
+                np.asarray(mspan))
+    return (np.asarray(jscene.ms), np.asarray(jscene.pan))
+
+
+def _inputs(over, rng, evaluate, fam=False):
+    """The seeded whole flax tree of ``over``'s model (the port's init, one
+    tree for both packages) and its batches; with ``evaluate`` the eval
+    tree (dense: the head's second kernel scaled by 50, so the logits
+    spread and the argmax is not a random init's near-tie) and eval
+    batches.  A family (``fam``) also carries dmfusion's scenes, its arity
+    and geometry for the ranks."""
+    over = {**OVER, **over}
     cfg = load_config(overrides=over)
     tree0 = params_to_flax(init_params(build_model(cfg),
                                        torch.Generator().manual_seed(3)))
-    label = jax_synthetic_scene(jax_load_config(overrides=over)).label
+    jscene = jax_synthetic_scene(jax_load_config(overrides=over))
+    label = jscene.label
     inp = {"params0": tree0,
            "batches": _batches(label, rng, BATCH + 20, STEPS)}
-    if case in EVAL_CASES:
+    if evaluate:
         inp["params_eval"] = (
             dict(tree0, head2_kernel=tree0["head2_kernel"] * 50.0)
             if cfg["model_name"] == "dense_fusion" else tree0)
         inp["eval"] = _batches(label, rng, 90, 3)
+    if fam:
+        arity = jax_model_arity(cfg["model_name"])
+        inp.update(over=over, arity=arity, width=jscene.width,
+                   patch=jscene.patch, args=_scene_args(arity, jscene))
     return inp
 
 
-def _jax_programs(over, mesh):
+JAX_PROGRAMS = {"dense": JaxDensePrograms, "tri": JaxTriPrograms,
+                "single": JaxSinglePrograms, "quad": JaxQuadPrograms}
+
+
+def _jax_programs(over, mesh, args=None):
+    """dmfusion's programs of ``over``'s model on ``mesh`` and their scene
+    arguments (``args``, or MS and PAN of its scene)."""
     jcfg = jax_load_config(overrides={**OVER, **over})
     scene = jax_synthetic_scene(jcfg)
-    cls = (JaxDensePrograms if jcfg["model_name"] == "dense_fusion"
-           else JaxDualPrograms)
-    jprog = cls(jax_build_model(jcfg), jax_make_optimizer(jcfg, STEPS), jcfg,
-                scene.width, scene.patch, mesh)
-    return jprog, (jnp.asarray(scene.ms), jnp.asarray(scene.pan))
+    arity = jax_model_arity(jcfg["model_name"])
+    extra = (jax_make_loss("qua_loss", jcfg),) if arity == "quad" else ()
+    jprog = JAX_PROGRAMS.get(arity, JaxDualPrograms)(
+        jax_build_model(jcfg), jax_make_optimizer(jcfg, STEPS), jcfg,
+        scene.width, scene.patch, mesh, *extra)
+    if args is None:
+        args = (scene.ms, scene.pan)
+    return jprog, tuple(map(jnp.asarray, args))
 
 
 def _sharded(jprog, tree, mesh):
@@ -406,16 +602,25 @@ def _sharded(jprog, tree, mesh):
     return p, shard_opt_state(jprog.tx.init(p), mesh)
 
 
-def _jax_case(case, inp, mesh):
-    """dmfusion's mesh epoch from the case's tree (and, for EVAL_CASES,
-    its mesh eval and predict)."""
-    jprog, args = _jax_programs(CASES[case], mesh)
-    p, _, losses = jprog.train_epoch(*_sharded(jprog, inp["params0"], mesh),
-                                     args, *map(jnp.asarray, inp["batches"]))
+def _jax_case(over, inp, mesh):
+    """dmfusion's mesh epoch from the case's tree (and, with eval inputs,
+    its mesh eval and predict); quad keeps its parameters replicated, as
+    dmfusion's two-stage solver does."""
+    jprog, args = _jax_programs(over, mesh, inp.get("args"))
+    if inp.get("arity") == "quad":
+        def place(tree):
+            return jax.tree.map(jnp.asarray, tree)
+        p0 = place(inp["params0"])
+        state = (p0, jprog.tx.init(p0))
+    else:
+        def place(tree):
+            return shard_params(jax.tree.map(jnp.asarray, tree), mesh)
+        state = _sharded(jprog, inp["params0"], mesh)
+    p, _, losses = jprog.train_epoch(*state, args,
+                                     *map(jnp.asarray, inp["batches"]))
     ref = {"train": (np.asarray(losses), _tree(p))}
-    if case in EVAL_CASES:
-        pe = shard_params(jax.tree.map(jnp.asarray, inp["params_eval"]),
-                          mesh)
+    if "eval" in inp:
+        pe = place(inp["params_eval"])
         jev = tuple(map(jnp.asarray, inp["eval"]))
         loss_sum, conf = jprog.eval_epoch(pe, args, *jev)
         ref["eval"] = (float(loss_sum), np.asarray(conf),
@@ -440,16 +645,28 @@ def run(tmp_path_factory):
     mesh = jax_get_mesh({"mesh": {"data": 2, "model": MODEL}})
     assert dict(mesh.shape) == {"data": 2, "model": MODEL}
     rng = np.random.default_rng(0)
-    train = {case: _inputs(case, rng) for case in CASES}
+    train = {case: _inputs(CASES[case], rng, case in EVAL_CASES)
+             for case in CASES}
     label = jax_synthetic_scene(jax_load_config(overrides=OVER)).label
     adam = _batches(label, rng, BATCH, 1)
-    refusal_set = ["data_city=synth64", "device=cpu", "patch_size=8",
-                   "model_width=8", "epoch=1", "time=1", "train_rate=0.05",
-                   "nohup=1", "mesh.distributed=1", f"mesh.model={MODEL}",
-                   f"expo_result={tmp / 'refusals'}/"]
+    fams = {name: _inputs(over, rng, name in FAM_EVAL, fam=True)
+            for name, over in FAMS.items()}
+    families = {}
+    for name in SOLVER_FAMILIES:
+        model = ({"model_name": "dqtl"} if name == "twostage"
+                 else FAMS[name])
+        sets = [f"{k}={v}" for k, v in model.items() if k != "trans"]
+        families[name] = [
+            "--city", "synth64",
+            *(["--solver", "twostage"] if name == "twostage" else []),
+            "--set", *SOLVER_SET, *sets,
+            f"expo_result={tmp / 'families' / name}/"]
     inp = {"over": OVER, "cases": CASES, "model": MODEL, "steps": STEPS,
            "train": train, "eval_cases": EVAL_CASES, "adam": adam,
-           "refusals": {k: [*v, *refusal_set] for k, v in REFUSALS.items()},
+           "fams": fams, "fam_controls": FAM_CONTROLS,
+           "single": SINGLE, "single_src": SINGLE_SRC,
+           "gan": str(tmp / "gan.pkl"), "gan_over": GAN_OVER, "nets": NETS,
+           "opts": OPTS, "families": families, "solver_cli": SOLVER_CLI,
            "cli_set": CLI_SET, "cli_dir": str(tmp / "cli4"),
            "out": str(tmp / "rank%d.pkl")}
     with open(tmp / "inputs.pkl", "wb") as f:
@@ -457,8 +674,13 @@ def run(tmp_path_factory):
     (tmp / "worker.py").write_text(WORKER)
     procs = _start_ranks(tmp)
     try:
-        # dmfusion on its mesh and the one-rank CLI while the ranks work.
-        ref = {case: _jax_case(case, train[case], mesh) for case in CASES}
+        # dmfusion on its mesh and the one-rank CLI while the ranks work:
+        # the GAN first, which the ranks wait for.
+        ref = {"gan": _jax_gan(mesh, tmp)}
+        ref.update({case: _jax_case(CASES[case], train[case], mesh)
+                    for case in CASES})
+        ref.update({name: _jax_case(FAMS[name], fams[name], mesh)
+                    for name in FAMS})
         ref["adam"] = _jax_adam(train["gmfnet"]["params0"], adam, mesh)
         single = cli.main(["--city", "synth64", "--set", *CLI_SET,
                            f"expo_result={tmp / 'cli1'}/"])
@@ -479,8 +701,8 @@ def run(tmp_path_factory):
     for r in range(RANKS):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
             ranks.append(pickle.load(f))
-    return {"ranks": ranks, "ref": ref, "train": train, "logs": logs,
-            "tmp": tmp}
+    return {"ranks": ranks, "ref": ref, "train": {**train, **fams},
+            "logs": logs, "tmp": tmp}
 
 
 # -- placement ---------------------------------------------------------------
@@ -561,7 +783,7 @@ def _within(got_losses, got_params, want_losses, want_params):
     return loss_ok and params_ok
 
 
-@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("case", [*CASES, *FAMS])
 def test_train_epoch_matches_mesh(run, case):
     want_losses, want_params = run["ref"][case]["train"]
     want = _vec(want_params)
@@ -584,10 +806,23 @@ def test_controls_miss(run, variant):
         assert not _within(*out["train"]["gmfnet", variant], *want)
 
 
-@pytest.mark.parametrize("case", EVAL_CASES)
+@pytest.mark.parametrize("variant", FAM_CONTROLS)
+def test_family_controls_miss(run, variant):
+    """tri_net's gradients (sharded) and dqtl's (replicated) summed over
+    every rank, not over the data group, fall outside the limits on every
+    rank."""
+    want = run["ref"][variant]["train"]
+    for out in run["ranks"]:
+        assert not _within(*out["train"][variant, "world_sum"], *want)
+
+
+@pytest.mark.parametrize("case", [*EVAL_CASES, *FAM_EVAL])
 def test_eval_and_predict_match_mesh(run, case):
+    """The loss sum, the confusion (dqtl: the fused one and each
+    stream's) and the predictions."""
     loss_sum, conf, preds = run["ref"][case]["eval"]
-    assert conf.sum() == run["train"][case]["eval"][2].sum() > 0
+    fused = conf.reshape(-1, *conf.shape[-2:])[0]
+    assert fused.sum() == run["train"][case]["eval"][2].sum() > 0
     for out in run["ranks"]:
         got_loss, got_conf, got_preds = out["eval"][case]
         np.testing.assert_allclose(got_loss, loss_sum, rtol=LOSS_RTOL)
@@ -615,11 +850,12 @@ def test_adam_step_matches_mesh(run):
         assert int(got["opt"]["0"]["count"]) == int(ref["opt"]["0"]["count"])
 
 
-@pytest.mark.parametrize("case", [*CASES, "adam"])
+@pytest.mark.parametrize("case", [*CASES, "adam",
+                                  *(n for n in FAMS if n != "dqtl")])
 def test_ranks_hold_their_shards(run, case):
     """Each rank's sharded parameters, and their moments, have the shard's
     shape: the whole shape halved on the sharded dimension."""
-    over = {**OVER, **CASES.get(case, {})}
+    over = {**OVER, **CASES.get(case, FAMS.get(case, {}))}
     whole = {n: tuple(p.shape) for n, p in
              build_model(load_config(overrides=over)).named_parameters()}
     for out in run["ranks"]:
@@ -654,6 +890,155 @@ def test_sharded_layers_ran_with_shards(run, case, modes):
             assert shape == shapes[f"{name}.weight"]["param"], name
         raw = layers - set(hooks)  # pos, modality, cls: gathered on use
         assert all(n in ("pos", "modality", "cls") for n in raw), raw
+
+
+# The modes each new family's sharded layers run in: column-parallel convs
+# and denses, the attention's heads and row-parallel out where its heads
+# divide, and the layers and raw parameters gathered on use.
+FAM_MODES = {"tri_net": {"column"}, "single": {"column"},
+             "gmfnet_conv": {"column", "gather"}, "resnet18": {"column"},
+             "cross_net": {"column", "heads", "row", "gather"},
+             "swin_transformer": {"column", "gather"},
+             "swin_T_dual": {"column", "gather"},
+             "ct_lstm": {"column", "gather"}}
+
+
+@pytest.mark.parametrize("name", list(FAM_MODES))
+def test_new_families_ran_with_shards(run, name):
+    """A hook on every module that holds a sharded parameter (a layer, an
+    LSTM cell, a model's raw ``pos``) saw it run with each of them at its
+    shard's shape, in the family's modes."""
+    for out in run["ranks"]:
+        shapes, hooks = out["shapes"][name], out["hooks"][name]
+        owners = {}
+        for n, s in shapes.items():
+            if s["dim"] is not None:
+                mod, _, leaf = n.rpartition(".")
+                owners.setdefault(mod, {})[leaf] = s["param"]
+        assert set(hooks) == set(owners)
+        assert {m for m, _ in hooks.values()} == FAM_MODES[name]
+        for mod, (_, seen) in hooks.items():
+            assert seen == owners[mod], mod
+
+
+def test_dqtl_stays_replicated(run):
+    """The two-stage solver's dqtl shards nothing: every rank holds the
+    whole parameters, and the model peers of a data index end the epoch
+    with equal ones."""
+    for out in run["ranks"]:
+        assert all(s["dim"] is None for s in out["shapes"]["dqtl"].values())
+    for d in range(2):
+        a, b = (_vec(run["ranks"][2 * d + m]["train"]["dqtl", "sum"][1])
+                for m in range(MODEL))
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def _cat(tree):
+    return np.concatenate([v.ravel() for v in _vec(tree).values()])
+
+
+def _moment_gap(got, want):
+    return max(np.abs(_cat(got[opt]["0"][key]) - _cat(want[opt]["0"][key]))
+               .max() for opt in OPTS for key in ("mu", "nu"))
+
+
+def _moment_max(state):
+    return max(np.abs(_cat(state[opt]["0"][key])).max()
+               for opt in OPTS for key in ("mu", "nu"))
+
+
+@pytest.mark.parametrize("step", range(3))
+def test_gan_step_matches_mesh_replicated(run, step):
+    """One D + G step of the quartet on the four ranks, replicated, from
+    dmfusion's ``data 2 x model 2`` state before it and with its noise:
+    the losses, Adam's moments (1e-2 of the largest) and the parameters
+    (3 lr) as ``test_torch_parallel_streams.py`` holds them; every rank's
+    parameters equal."""
+    st = run["ref"]["gan"]["steps"][step]
+    first = _cat(run["ranks"][0]["gan"][step]["params"])
+    for out in run["ranks"]:
+        got = out["gan"][step]
+        np.testing.assert_array_equal(_cat(got["params"]), first)
+        for k in ("d_loss", "g_loss"):
+            np.testing.assert_allclose(got["out"][k][0], st["out"][k],
+                                       rtol=1e-4, atol=1e-6)
+        assert _moment_gap(got["opt"], st["after"]) <= (
+            MOMENT_RTOL * _moment_max(st["after"]))
+        assert np.abs(_cat(got["params"])
+                      - _cat(st["after"]["params"])).max() <= 3 * LR
+
+
+@pytest.mark.parametrize("name", SOLVER_FAMILIES)
+def test_families_run_on_the_model_axis(run, name):
+    """Every family builds its solver on ``mesh.model=2``: the grid is data
+    2 x model 2 on every rank, the main solver's models shard (the same
+    parameters on every rank) and the two-stage solver's stay whole.
+    tri_net, ct_lstm and ``--solver twostage`` also run a one-epoch CLI:
+    finite records, one result tree written by rank 0 alone (the
+    two-stage GAN scenes and their dir too), the same test matrix on
+    every rank."""
+    recs = [out["families"][name] for out in run["ranks"]]
+    r0 = recs[0]
+    for rec in recs:
+        assert rec["mesh"] == [2, MODEL]
+        assert rec["sharded"] == r0["sharded"]
+        assert bool(rec["sharded"]) == (name != "twostage")
+    if name not in SOLVER_CLI:
+        return
+    root = str(run["tmp"] / "families" / name)
+    for rec in recs:
+        assert rec["output"] == r0["output"]
+        assert np.isfinite(rec["loss"]).all() and np.isfinite(rec["val"]).all()
+        np.testing.assert_array_equal(rec["matrix"], r0["matrix"])
+    assert r0["matrix"].sum() > 0
+    for rec in recs[1:]:
+        assert not [f for f in rec["written"] if f.startswith(root)]
+    assert os.path.exists(os.path.join(r0["output"], "0_weights.pt"))
+    if name == "twostage":
+        wdir = os.path.join(root, "dqtl_weights")
+        assert {"msgan.npy", "pangan.npy"} <= set(os.listdir(wdir))
+        assert np.isfinite(r0["msgan"]).all()
+        for rec in recs[1:]:
+            np.testing.assert_array_equal(rec["msgan"], r0["msgan"])
+
+
+def test_ct_lstm_tp_checkpoints_load_in_one_process(run):
+    """The four ranks' ct_lstm checkpoints hold the whole stacked gates
+    and the whole SGD state: they load strictly into a one-process
+    ct_lstm and its optimizer."""
+    from dmfusion_torch.config import parse_overrides
+    from dmfusion_torch.train.optim import make_optimizer
+    out = run["ranks"][0]["families"]["ct_lstm"]["output"]
+    cfg = load_config(overrides={**parse_overrides(SOLVER_SET),
+                                 "data_city": "synth64",
+                                 "model_name": "ct_lstm"})
+    model = build_model(cfg)
+    model.load_state_dict(load_checkpoint(os.path.join(out, "0_weights.pt"),
+                                          None, strict=True), strict=True)
+    cur = load_checkpoint(os.path.join(out, "0_curweights.pt"), None,
+                          strict=True)
+    model.load_state_dict(cur["params"], strict=True)
+    opt = make_optimizer(cfg, model.parameters())
+    opt.load_state_dict(cur["opt_state"])
+    for p in model.parameters():
+        assert opt.state[p]["momentum_buffer"].shape == p.shape
+    assert model.lstm.input_weight.shape == (4, 8, 8)
+
+
+def test_stream_gate_shards_on_three_model_ranks():
+    """On a stand-in mesh of ``model: 3`` (no collective runs) tri_net's
+    ``stream_gate`` (3 output channels) is column-sharded, one channel a
+    rank, with no error."""
+    cfg = load_config(overrides={**OVER, "model_name": "tri_net",
+                                 "model_width": 48})
+    model = build_model(cfg)
+    mesh = Mesh(data=1, rank=1, device=torch.device("cpu"), backend="gloo",
+                model=3)
+    dims = shard_model(model, mesh)
+    assert dims["stream_gate.weight"] == 0
+    assert model.stream_gate.tp.mode == "column"
+    assert model.stream_gate.weight.shape == (1, 144, 1, 1)
 
 
 def test_cli_four_ranks(run):
@@ -712,8 +1097,3 @@ def test_tp_checkpoints_load_in_one_process(run, tmp_path):
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
-
-@pytest.mark.parametrize("name", list(REFUSALS))
-def test_unported_families_refuse_on_the_model_axis(run, name):
-    for out in run["ranks"]:
-        assert "A14 item 7" in out["refusals"][name], out["refusals"][name]
