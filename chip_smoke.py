@@ -7,20 +7,26 @@ Phases; any failure exits non-zero before the result line:
   2. build    — build every kernel of the served paths from
                 ``dmfusion_torch/csrc`` (nvcc, sm_90a), print the seconds;
   3. kernels  — hold each kernel against its plain PyTorch version at the
-                main path's shapes (image6 synthetic scene, patch 16): the
-                window gather must be bit-equal for f32 and bf16 scenes, a
-                4096 bucket, an odd batch, corner and clamped anchors, as a
-                dual gather (MS, PAN), as a tri gather (MS, PAN and the
-                seeded IHS MSPAN scene, whose build on the card is timed),
-                as a quad gather (the two-stage solver's four MS-geometry
-                streams, from seeded stage-1 scenes) and, at B 4096, as the
-                single-stream wrapper;
-                time the kernel, the plain version and one PyTorch indexing
-                call, and compute the bytes bound;
+                main path's shapes (image6 synthetic scene, patch 16): every
+                family call of the window gather, as a one-stream, a dual
+                (MS, PAN), a tri (MS, PAN and the seeded IHS MSPAN scene,
+                whose build on the card is timed) and a quad gather (the
+                two-stage solver's four MS-geometry streams, from seeded
+                stage-1 scenes), must be bit-equal with exactly one launch
+                (``tools/gather_probe.check_calls``): f32 and bf16 scenes,
+                B 4096, the ragged 4093 and 256, corner anchors, negative
+                ids and ids past the scene, shards of a stand-in mesh of 2
+                and 3 ranks at B 4160 (a padded tail), and clamped explicit
+                starts; print the kernel's registers and spills (``nvcc
+                -Xptxas -v``); time the one-stream, dual and quad calls
+                from the flat ids (the kernel, the plain version and one
+                PyTorch indexing call a stream, in turns; the dual and
+                quad buckets also by the profiler's device time), and
+                compute the bytes bound;
   4. serving  — gmfnet at width 64, bf16 compute, f32 scene, seeded
                 weights, saved and loaded as an artifact, serving
                 bucket-4096 requests through ``ScenePredictor``; the
-                launch counts must show the kernel ran twice per bucket;
+                launch counts must show the kernel ran once per bucket;
                 predictions must equal a run with the plain gather; the
                 norms must hand bf16 on, as flax's GroupNorm(dtype=bf16)
                 does; the bf16 logits on the card must lie within
@@ -48,7 +54,7 @@ Phases; any failure exits non-zero before the result line:
                 image6 scene, 2 epochs and test (no color); two finite
                 epoch losses, the second below the first; a test matrix
                 that sums to the test split and OA >= 0.5; every file
-                written; B1 launched twice per gathered batch (train, val
+                written; B1 launched once per gathered batch (train, val
                 and test), the count computed from the split sizes; B1
                 bit-equal to the plain gather at B 256 on a shuffled
                 train batch and on the padded last one; the val
@@ -86,12 +92,14 @@ Phases; any failure exits non-zero before the result line:
                 color.index=1`` (w64, batch 256, Adam, bf16 compute, f32
                 image6 scene): epochs [0, 1] with finite losses; a test
                 matrix that sums to the test split and OA >= 0.5; every
-                file written; B1 launched twice per train and val batch
+                file written; B1 launched once per train and val batch
                 (the count computed from the split sizes) and never by
                 test and color, which render one class map each by the
-                shift-and-stitch route; B1 bit-equal to the plain gather
-                at patch 47 (f32 and bf16 scenes, B 4096, B 256, edge
-                anchors, clamped starts) and timed there; with the best
+                shift-and-stitch route; every B1 family call bit-equal
+                to its plain version at patch 47 with one launch (f32 and
+                bf16 scenes, B 4096, 4093 and 256, wild ids, shards,
+                clamped starts; the dual call at the edge anchors) and
+                the dual call timed there; with the best
                 weights, on a 200x200 anchor crop at f32 (TF32 off), the
                 map route's logits within 1e-3 of the window route's and
                 of the CPU's; over 32,768 anchors of the scene at bf16
@@ -132,8 +140,7 @@ Phases; any failure exits non-zero before the result line:
                 test and no color: train_dp_streams tests tri_net): two
                 finite epoch losses, the second below the first; every
                 file written; MSPAN the shape of the padded PAN, float32,
-                within 1e-5 of it (equal in exact arithmetic); B1 launched
-                3 times per gathered batch (train and val), the count
+                within 1e-5 of it (equal in exact arithmetic); B1 launched once per gathered batch (train and val), the count
                 computed from the split sizes;
                 the val
                 confusion through B1 equal to the one through the plain
@@ -144,10 +151,10 @@ Phases; any failure exits non-zero before the result line:
                 rebuilt from the manifest's seed, equal to the solver's):
                 the served labels of 8 requests of 4096 labeled anchors
                 equal the solver's per-anchor prediction (its color route)
-                there, 3 launches a request; ``--map`` refused; times of
+                there, one launch a request; ``--map`` refused; times of
                 the epochs, 20 train steps, val, test and the requests, a
                 profile of the 20 steps, and
-                the tri bucket (3 launches) at B 4096 and B 256 beside its
+                the tri bucket (one launch) at B 4096 and B 256 beside its
                 bytes bound;
   13. train_quad — stage 2 of the two-stage solver through the CLI's
                 ``main`` as ``python -m dmfusion_torch.cli --solver twostage
@@ -158,8 +165,7 @@ Phases; any failure exits non-zero before the result line:
                 dqtl), on seeded image6-shaped stage-1 scenes written first
                 (``msgan.npy`` near pan2ms(PAN), ``pangan.npy`` near MS,
                 each plus seeded noise): two finite epoch losses, the
-                second below the first; every file written; B1 launched 4
-                times per gathered batch (trimmed train batches and val),
+                second below the first; every file written; B1 launched once per gathered batch (trimmed train batches and val),
                 the count computed from the split sizes; B1 bit-equal to
                 ``gather_quad`` at B 256 on a shuffled train batch and on the
                 padded last one; the five val confusions through B1 equal
@@ -169,15 +175,13 @@ Phases; any failure exits non-zero before the result line:
                 of f32; ``python -m dmfusion_torch.export`` of the best
                 weights served by ``ScenePredictor`` with ``gan_dir`` (the
                 streams equal the solver's): 8 requests of 4096 labeled
-                anchors, 4 launches a request, labels equal to the solver's
+                anchors, one launch a request, labels equal to the solver's
                 per-anchor prediction (its color route) and to the plain
                 gather's on the card; the three serving refusals (no
                 ``gan_dir``, a missing GAN scene, one of another shape);
                 times of the epochs, 20 train steps (and their profile),
-                val and the requests, and the
-                quad bucket (4 launches) at B 4096 and B 256 beside its
-                bytes bound, by CUDA events and by the profiler's device
-                time of the launches;
+                val and the requests (the quad bucket is timed in the
+                kernels phase);
   14. train_gan — stage 1 and stage 2 of the two-stage solver through the
                 CLI's ``main`` as ``python -m dmfusion_torch.cli --solver
                 twostage --set model_name=dqtl dqtl.pre_trained=0
@@ -195,7 +199,7 @@ Phases; any failure exits non-zero before the result line:
                 test matrices that sum to the test split, the fused and the
                 MS stream's test OA at least 0.5, a ``streams`` sheet (these
                 checks stand for train_quad's and train_dp_streams',
-                whose runs do not test); B1 launched 4 times per gathered batch
+                whose runs do not test); B1 launched once per gathered batch
                 (trimmed train batches, val and test), the count computed
                 from the split sizes, and bit-equal to ``gather_quad`` on the
                 stage-1 streams at a B 256 train and a B 4096 test batch; a
@@ -206,8 +210,8 @@ Phases; any failure exits non-zero before the result line:
                 f32 card losses (TF32 off) within 1e-3 of the CPU's, bf16
                 within GAN_BF16_RTOL of f32, relative; ``python -m
                 dmfusion_torch.export`` of the best weights served with
-                stage 1's own ``dqtl_weights/``: 2 requests of 4096, 4
-                launches each, equal to the solver's predictions; times of
+                stage 1's own ``dqtl_weights/``: 2 requests of 4096, one
+                launch each, equal to the solver's predictions; times of
                 stage 1's set-up (pan2ms and tiling, sample grids, scenes and
                 renders), its epochs, 20 more steps (ms a step, tiles/s, busy
                 share, a profile by operator), stage 2's epochs and test,
@@ -217,10 +221,10 @@ Phases; any failure exits non-zero before the result line:
                 swin_transformer and swin_T_dual (``trans``: embed 96,
                 window 2, depths [2, 4], heads [3, 3]) and ct_lstm (width
                 64) at bf16 from seeded weights: 20 train steps of 256
-                through ``DualPrograms`` (B1 twice a step, counted; the loss
+                through ``DualPrograms`` (B1 once a step, counted; the loss
                 falls), then a ``save_artifact`` -> ``load_artifact`` ->
                 ``ScenePredictor`` round trip serving 8 requests of 4096
-                (B1 twice a request; the widths read back from the
+                (B1 once a request; the widths read back from the
                 artifact's tree); with the trained weights, on 256
                 anchors, bf16 card logits within ZOO_BF16_ATOL of f32 CPU
                 logits and f32 card logits (TF32 off) within 1e-3; bf16 vs
@@ -235,7 +239,7 @@ Phases; any failure exits non-zero before the result line:
                 contourlet transform in f32 inside the model): epochs [0,
                 1] with finite losses; the last val OA at least CT_OA_MIN;
                 the checkpoints, records and the four proof grids written;
-                B1 launched twice per gathered batch (train and val; test
+                B1 launched once per gathered batch (train and val; test
                 and color are off), the count computed from the split
                 sizes; the contourlet of a request batch's windows (4096 MS
                 and PAN) on the card within 1e-5 of the CPU's with TF32
@@ -246,7 +250,7 @@ Phases; any failure exits non-zero before the result line:
                 device).  Ranks spawned by ``torch.multiprocessing`` join
                 through ``parallel.maybe_initialize_distributed`` with
                 torchrun's variables: ``gather_dual_sharded`` launches B1
-                twice a call and both ranks' rows are bit-equal to one
+                once a call, the shard taken in the kernel, and both ranks' rows are bit-equal to one
                 process's ``gather_dual_fast`` and to the plain
                 ``gather_dual`` (f32 and bf16 scenes; B 4096 with corner
                 anchors, B 4160, B 1025, the train batch 256, anchors past
@@ -258,7 +262,7 @@ Phases; any failure exits non-zero before the result line:
                 and through one process: losses within DP_LOSS_ATOL,
                 parameters within DP_PARAM_ATOL, and a mean of the ranks'
                 own means (DDP's rule) outside them; 20 timed steps a
-                rank (B1 twice a step, counted) and a profile of 5 on rank
+                rank (B1 once a step, counted) and a profile of 5 on rank
                 0 (the all-reduce's share); the kernels line counts both
                 ranks' launches in their steps.  The CLI on the data axis
                 runs in train_dp_streams (tri_net, the two-stage solver),
@@ -269,7 +273,7 @@ Phases; any failure exits non-zero before the result line:
                 and stage 1 on the data axis, DP_RANKS ranks sharing the
                 card over gloo.  Spawned ranks build the same MSPAN (by
                 digest); ``gather_tri_fast`` and ``gather_quad_fast`` on
-                the rank's shard launch B1 3 and 4 times a call, and both
+                the rank's shard launch B1 once a call, and both
                 ranks' rows are bit-equal to the plain ``gather_tri`` and
                 ``gather_quad`` (f32 and bf16 scenes; B 4096 with corner
                 anchors, B 4160, B 1025, B 256, anchors past the scene),
@@ -300,8 +304,8 @@ Phases; any failure exits non-zero before the result line:
                 DPS_STAGE2_EPOCHS stage-2 epoch, no test: train_gan tests
                 dqtl on stage 1's scenes): one result tree each, the GAN
                 scenes and files of the weights dir, finite records, tri's
-                val OA at least 0.5, each rank's B1 launches 3 (tri) and 4
-                (quad) times its gathered batches, counted from the split.
+                val OA at least 0.5, each rank's B1 launches once a gathered batch (tri and
+                quad), counted from the split.
   19. train_dp_maps — (run after train_dp_streams) the dense family and
                 gmfnet_conv on the data axis, DP_RANKS ranks sharing the
                 card over gloo.  Spawned ranks: two f32 SGD steps (TF32
@@ -329,7 +333,7 @@ Phases; any failure exits non-zero before the result line:
                 of the test split with OA at least 0.5, each
                 rank's band as ``band_plan`` gives it, and each rank's B2
                 launches (one a map: val, test, color) and B1 launches
-                (twice a gathered batch), counted from the split.
+                (once a gathered batch), counted from the split.
   20. train_tp — (run after train_dp_maps) the mesh's model axis:
                 TP_RANKS spawned ranks form a data 2 x model 2 mesh sharing
                 the card over gloo (rank r: data index r // 2, model index
@@ -358,13 +362,13 @@ Phases; any failure exits non-zero before the result line:
                 Adam's step bound), summed gradients outside them, the
                 model peers bit-equal; B1 on the data shard
                 (``gather_dual_sharded``, ``gather_tri_fast``,
-                ``gather_quad_fast``: 2, 3 and 4 launches) at B 4096 and B
+                ``gather_quad_fast``: one launch a call) at B 4096 and B
                 256 bit-equal to the plain gathers and to the model peer's
                 rows; every sharded parameter and Adam moment of gmfnet,
                 vit, dense_fusion and the sharded TP_FAMILIES of the
                 shard's shape, the bytes a rank holds beside one
                 process's; TP_STEPS timed bf16 Adam steps a rank of gmfnet
-                (B1 twice a step) and of tri_net (3 times), counted, and a
+                (B1 once a step) and of tri_net (once), counted, and a
                 profile of 5 on rank 0 (the all-gathers' and all-reduces'
                 share), timed alone after the CLI runs.  Meanwhile (the
                 start-ups overlap) two runs of ``python -m
@@ -373,7 +377,7 @@ Phases; any failure exits non-zero before the result line:
                 (data 1 x model 2) go at once: ``--set <TRAIN_SET> epoch=1
                 test.index=0 train_rate=0.002 verify_rate=0.002`` (gmfnet
                 w64, 23 steps): one result tree, finite records, each
-                rank's report (``mesh_model`` 2) with B1 launched twice per
+                rank's report (``mesh_model`` 2) with B1 launched once per
                 gathered batch (train and val), counted from the split; the
                 best weights loaded in one process on the card give the
                 run's val OA within TP_VAL_OA_ATOL and val loss within
@@ -381,7 +385,7 @@ Phases; any failure exits non-zero before the result line:
                 after the gather); and TP_TWOSTAGE_SET (``--solver
                 twostage``, dqtl replicated: one GAN epoch, 23 stage-2
                 steps): one result tree and weights dir, the GAN scenes
-                finite in [0, 1], finite records, B1 4 times a gathered
+                finite in [0, 1], finite records, B1 once a gathered
                 batch on each rank.  The kernels line counts the ranks'
                 step launches and both CLI runs' (B1) and the band maps'
                 (B2).
@@ -399,7 +403,7 @@ Phases; any failure exits non-zero before the result line:
                 solver's train ids at batch 256 through ``H5DualPrograms``
                 on ``gather_patches``' rows and through ``DualPrograms`` on
                 the scene from the same weights, cuDNN deterministic:
-                losses within H5_LOSS_ATOL; B1 launched 2 + 2 + 4 + 2 a
+                losses within H5_LOSS_ATOL; B1 launched 1 + 1 + 1 + 1 a
                 batch on this path.  Then the single arity, as its own
                 path: ``SingleNet`` (registered with a module ``ARITY =
                 "single"``, w64, patch 16, image6) trained for one epoch
@@ -464,7 +468,8 @@ from dmfusion_torch.ops import strip_gather as strip_ops
 from dmfusion_torch.ops._build import load_library
 from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
 from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
-                                  conv_kernel_probe, strip_gather_bench,
+                                  conv_kernel_probe, gather_probe,
+                                  ptxas_report, strip_gather_bench,
                                   time_in_turns)
 from dmfusion_torch.parallel.mesh import all_gather_rows
 from dmfusion_torch.parallel.partition import full_state, shard_model
@@ -559,8 +564,6 @@ TRI_REQUESTS = 8
 QUAD_TRAIN_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
                   "dqtl.pre_trained=1", *TRAIN_SET, "test.index=0"]
 QUAD_REQUESTS = 8
-# Quad buckets in the profiled window that reads B1's device time.
-QUAD_PROFILED = 20
 # The seeded stage-1 scenes: msgan (the GAN's fake PAN) is pan2ms(PAN) and
 # pangan (its fake MS) is MS, each plus seeded normal noise of this scale
 # (the synthetic scene's own noise is 0.25).
@@ -798,7 +801,7 @@ TP_ONE_STEP = ("resnet18", "cross_net", "swin_T_dual", SINGLE_NAME)
 # parameters replicated: train_dp_streams' run (one GAN epoch over the 272
 # image6 tiles, one stage-2 epoch, no test, no color) cut as the gmfnet
 # TP run is, to a tenth of its train and val anchors (23 steps of 256 and
-# 2 val buckets of 4096); B1 4 a gathered batch on each rank.
+# 2 val buckets of 4096); B1 once a gathered batch on each rank.
 TP_TWOSTAGE_SET = ["--solver", "twostage", "--set", "model_name=dqtl",
                    "dqtl.pre_trained=0", "dqtl.save_model=1",
                    f"dqtl.epochs={DPS_GAN_EPOCHS}", "data_city=image6",
@@ -812,7 +815,8 @@ KERNELS = {
         "route": "cuda", "source": "dmfusion_torch/csrc/gather_windows.cu",
         "replaces": "dmfusion/ops/pallas_gather.py:90",
         "counter": gather_ops.gather_windows_cuda,
-        "unit": f"one dual bucket: MS + PAN launch, B={BUCKET}, f32 scene"},
+        "unit": f"one dual bucket: MS and PAN in one launch, B={BUCKET}, "
+                f"f32 scene"},
     "phase_pool": {
         "route": "cuda", "source": "dmfusion_torch/csrc/phase_pool.cu",
         "replaces": "dmfusion/ops/pallas_pool.py:124",
@@ -854,15 +858,18 @@ def phase_device() -> tuple[torch.device, str]:
 
 
 def phase_build() -> None:
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together, and one more for the
+    window gather's registers and spills (``-Xptxas -v``)."""
     def build(name):
         t0 = time.perf_counter()
         load_library(name)
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as ex:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as ex:
+        ptxas = ex.submit(ptxas_report, "gather_windows")
         secs = dict(zip(KERNELS, ex.map(build, KERNELS)))
+        log(f"build: gather_windows.cu ptxas: {json.dumps(ptxas.result())}")
     log(f"build: {json.dumps(secs)}, {time.perf_counter() - t0:.2f} s in all")
 
 
@@ -870,62 +877,48 @@ def _max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def time_gather(scene, streams: tuple, gathers: tuple, device, batch: int,
-                rng, at_ms: int = 1) -> tuple[dict, float]:
-    """Time one gather of ``batch`` anchors over ``streams`` (the first
-    ``at_ms`` at MS geometry: MS, or the quad's four; the rest at PAN
-    geometry: PAN, MSPAN), one B1 launch a stream, f32 scenes: the kernel,
-    the plain version (``gathers``: the (plain, kernel) pair, as
-    ``DualPrograms.gathers``) and one indexing call per stream; print them
-    with the bytes bound; return the medians and the bound (ms)."""
+def time_gather(scene, streams: tuple, gathers: tuple, batch: int, rng,
+                at_ms: int = 1, profile: bool = False) -> dict:
+    """Time one family call of ``batch`` anchors over ``streams`` (the
+    first ``at_ms`` at MS geometry: MS, or the quad's four; the rest at PAN
+    geometry: PAN, MSPAN), f32 scenes, from the flat ids as the main path
+    makes it: the kernel wrapper (one launch), the plain version
+    (``gathers``: the (plain, kernel) pair, as ``DualPrograms.gathers``)
+    and one indexing call a stream, in turns
+    (``tools/gather_probe.time_call``); print them with the bytes bound and
+    the wrapper's host time (and with ``profile`` the profiler's device
+    time); return that row (ms)."""
     plain_gather, fast_gather = gathers
-    ps, w = scene.patch, scene.width
-    c = int(streams[0].shape[-1])
-    n = scene.num_pixels
-    # Eight anchor sets in turn so consecutive calls do not reuse L2 lines.
-    # The kernel and the indexing call get their anchors precomputed (int32
-    # starts, int64 index grids), so each times its copy alone; the plain
-    # version is timed whole, from the flat ids.
-    sets = [torch.from_numpy(rng.integers(0, n, batch).astype(np.int32)
-                             ).to(device) for _ in range(8)]
-
-    def views(ids):
-        x, y = ids // w, ids % w
-        return ([(v.reshape(v.shape[0], -1), ps, c, x, y)
-                 for v in streams[:at_ms]]
-                + [(v, 4 * ps, 1, 4 * x, 4 * y) for v in streams[at_ms:]])
-
-    starts = [[(v, p, ch, xx.int().contiguous(), yy.int().contiguous())
-               for v, p, ch, xx, yy in views(ids)] for ids in sets]
-    grids = [[(v, (xx.long()[:, None] + torch.arange(p, device=device)
-                   )[:, :, None],
-               (yy.long()[:, None] * ch + torch.arange(p * ch, device=device)
-                )[:, None, :])
-              for v, p, ch, xx, yy in views(ids)] for ids in sets]
-    runs = {
-        "plain": lambda i: plain_gather(*streams, sets[i % 8], w, ps),
-        "kernel": lambda i: [gather_ops.gather_windows_cuda(v, xx, yy, p, ch)
-                             for v, p, ch, xx, yy in starts[i % 8]],
-        "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]],
-    }
-    med, times = time_in_turns(runs, iters=50)
-    itemsize = streams[0].element_size()
-    moved = (2 * batch * (at_ms * ps * ps * c
-                          + (len(streams) - at_ms) * (4 * ps) ** 2)
-             * itemsize + 4 * batch)  # windows read + written, anchor ids
-    bound = moved / HBM_BYTES_PER_S * 1e3
+    scales = (1,) * at_ms + (4,) * (len(streams) - at_ms)
+    row = gather_probe.time_call(streams, plain_gather, fast_gather, scales,
+                                 scene.width, scene.patch, batch, rng)
+    every = row.pop("all")
+    row.pop("moved_bytes")
     tag = fast_gather.__name__.removesuffix("_fast")
+    if profile:
+        sets = [torch.from_numpy(rng.integers(0, scene.num_pixels, batch)
+                                 .astype(np.int32)).to(streams[0].device)
+                for _ in range(20)]
+        prof = _profile(lambda: [fast_gather(*streams, ids, scene.width,
+                                             scene.patch) for ids in sets],
+                        f"20 {tag} calls, B {batch}", 3)
+        row["device_ms"] = prof["gather_kernel_ms"] / len(sets)
+        if not row["device_ms"]:
+            log(f"kernels: the profiler saw no gather kernel: {prof}")
     log(f"kernels: {tag} B={batch} f32 ms median of 6: kernel "
-        f"{med['kernel']:.4f} plain {med['plain']:.4f} library "
-        f"{med['library']:.4f} bound {bound:.4f} ({moved / 1e6:.1f} MB); "
-        f"all: {json.dumps(times)}")
-    return med, bound
+        f"{row['ms']:.4f} (host {row['host_ms']:.4f}"
+        + (f", device {row['device_ms']:.4f}" if profile else "")
+        + f") plain {row['plain_ms']:.4f} library {row['library_ms']:.4f} "
+        f"bound {row['bound_ms']:.4f}; all: {json.dumps(every)}")
+    return row
 
 
 def phase_kernels(scene, device, mspan, quad) -> dict:
-    """gather_windows vs gather_windows_ref at image6 shapes, as dual, tri
-    and quad gathers (``mspan``: the seeded IHS MSPAN scene; ``quad``: the
-    two-stage solver's four streams)."""
+    """Every family call of the window gather against its plain version at
+    image6 shapes (``mspan``: the seeded IHS MSPAN scene; ``quad``: the
+    two-stage solver's four streams), one launch a call
+    (``tools/gather_probe.check_calls``), then the one-stream and dual
+    calls timed."""
     ps, w = scene.patch, scene.width
     h, c = scene.height, int(scene.ms.shape[-1])
     ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
@@ -934,82 +927,24 @@ def phase_kernels(scene, device, mspan, quad) -> dict:
           f"MS view {tuple(ms2d.shape)}")
     check(tuple(scene.pan.shape) == (4 * h + 4 * ps - 1, 4 * w + 4 * ps - 1),
           f"PAN view {tuple(scene.pan.shape)}")
-    n = scene.num_pixels
+    try:
+        worst = gather_probe.check_calls(
+            {"ms": scene.ms, "pan": scene.pan, "mspan": mspan, "quad": quad},
+            w, ps, device, lambda m: log(f"kernels: {m}"))
+    except RuntimeError as e:
+        check(False, f"kernels: {e}")
     rng = np.random.default_rng(0)
-    worst = 0.0
-
-    def case(streams, gathers, ids_np, tag):
-        """``gathers``' kernel against its plain version over ``streams``:
-        bit-equal, one B1 launch a stream."""
-        nonlocal worst
-        plain_gather, fast_gather = gathers
-        name = fast_gather.__name__.removesuffix("_fast")
-        ids = torch.from_numpy(ids_np).to(device)
-        before = gather_ops.gather_windows_cuda.launches
-        got = fast_gather(*streams, ids, w, ps)
-        check(gather_ops.gather_windows_cuda.launches
-              == before + len(streams), f"{name} {tag}: not "
-              f"{len(streams)} launches")
-        want = plain_gather(*streams, ids, w, ps)
-        for g, r in zip(got, want, strict=True):
-            check(g.dtype == r.dtype and g.shape == r.shape,
-                  f"{name} {tag}: shape")
-            err = _max_err(g, r)
-            worst = max(worst, err)
-            check(torch.equal(g, r),
-                  f"{name} {tag}: kernel != plain (max {err})")
-        log(f"kernels: {name} {tag}: bit-equal "
-            + " ".join(str(tuple(g.shape)) for g in got))
-
-    ids = rng.integers(0, n, BUCKET).astype(np.int32)
-    ids[0], ids[-1] = 0, n - 1
-    # Corner anchors, the last row and column: windows reach the padded
-    # bottom and right edges.
-    ids[1:5] = [w - 1, (h - 1) * w, n - w, 2 * w - 1]
-    dual, tri = DualPrograms.gathers, TriPrograms.gathers
-    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        streams = tuple(t.to(dt) for t in (scene.ms, scene.pan, mspan))
-        quads = tuple(t.to(dt) for t in quad)
-        for batch in (BUCKET, BUCKET - 3):
-            case(streams[:2], dual, ids[:batch], f"{tag} B={batch}")
-            case(streams, tri, ids[:batch], f"{tag} B={batch}")
-            case(quads, QuadPrograms.gathers, ids[:batch], f"{tag} B={batch}")
-        del streams, quads
-
-    pan_ms2d = quad[1].reshape(quad[1].shape[0], -1)
-    for view, patch, chans in ((ms2d, ps, c), (scene.pan, 4 * ps, 1),
-                               (mspan, 4 * ps, 1), (pan_ms2d, ps, c)):
-        hi_r, hi_c = view.shape[0] + 5, view.shape[1] // chans + 5
-        xs = torch.tensor([-1, -hi_r, 0, hi_r, 10**9, 3, -7], dtype=torch.int32,
-                          device=device)
-        ys = torch.tensor([0, 5, -hi_c, -1, 10**9, hi_c, -3], dtype=torch.int32,
-                          device=device)
-        got = gather_ops.gather_windows_cuda(view, xs, ys, patch, chans)
-        want = gather_ops.gather_windows_ref(view, xs, ys, patch, chans)
-        check(torch.equal(got, want), f"clamped anchors, patch {patch}")
-    log("kernels: clamped and negative starts: bit-equal")
-
-    # The single-stream wrapper (the single arity's gather, driven in the
-    # diagnostics phase): bit-equal and timed on its own.
-    ids_t = torch.from_numpy(ids).to(device)
-    check(torch.equal(gather_ops.gather_one_fast(scene.ms, ids_t, w, ps),
-                      gather_one(scene.ms, ids_t, w, ps)),
-          "gather_one_fast != gather_one")
-    one, one_bound = time_gather(scene, (scene.ms,),
-                                 (gather_one, gather_ops.gather_one_fast),
-                                 device, BUCKET, rng)
-    med, bound = time_gather(scene, (scene.ms, scene.pan),
-                             DualPrograms.gathers, device, BUCKET, rng)
-    return {"gather_windows": {"max_abs_err": worst, "ms": med["kernel"],
-                               "plain_ms": med["plain"],
-                               "library_ms": med["library"],
-                               "bound_ms": bound, "bound_by": "bytes",
-                               "one": {"B4096": {
-                                   "ms": one["kernel"],
-                                   "plain_ms": one["plain"],
-                                   "library_ms": one["library"],
-                                   "bound_ms": one_bound,
-                                   "bound_by": "bytes"}}}}
+    one = time_gather(scene, (scene.ms,),
+                      (gather_one, gather_ops.gather_one_fast), BUCKET, rng)
+    dual = time_gather(scene, (scene.ms, scene.pan), DualPrograms.gathers,
+                       BUCKET, rng, profile=True)
+    # The quad bucket is timed here: in train_quad's phase the profiler
+    # recorded no device activity of these calls (PERF.md, section 6).
+    quad_rows = {f"B{b}": time_gather(scene, quad, QuadPrograms.gathers, b,
+                                      rng, at_ms=4, profile=True)
+                 for b in (BUCKET, TRAIN_BATCH)}
+    return {"gather_windows": {"max_abs_err": worst, **dual,
+                               "one": {"B4096": one}, "quad": quad_rows}}
 
 
 def phase_serving(scene, device) -> dict:
@@ -1053,9 +988,9 @@ def phase_serving(scene, device) -> dict:
     cmap = pred.class_map(all_ids)
     launches = {name: spec["counter"].launches for name, spec in KERNELS.items()}
     buckets = 3 * REQUESTS  # the requests, evaluate(), class_map()
-    check(launches["gather_windows"] == 2 * buckets,
+    check(launches["gather_windows"] == buckets,
           f"gather_windows launches {launches['gather_windows']} != "
-          f"2 x {buckets} buckets")
+          f"{buckets} buckets (one a bucket)")
 
     preds = np.concatenate(preds)
     targets = scene.label.reshape(-1)[all_ids].astype(np.int32)
@@ -1091,7 +1026,7 @@ def phase_serving(scene, device) -> dict:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_device)
     gather_us = sum(e.self_device_time_total for e in on_device
-                    if "gather_windows_kernel" in e.key)
+                    if "gather_family_kernel" in e.key)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:12]
     log("profile: " + json.dumps({
         "requests": len(traced), "wall_ms": wall_us / 1e3,
@@ -1378,7 +1313,7 @@ def _profile(fn, what: str, top_n: int) -> dict:
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_device)
     gather_us = sum(e.self_device_time_total for e in on_device
-                    if "gather_windows_kernel" in e.key)
+                    if "gather_family_kernel" in e.key)
     top = sorted(on_device, key=lambda e: -e.self_device_time_total)[:top_n]
     return {"window": what, "wall_ms": wall_us / 1e3,
             "device_busy_ms": busy_us / 1e3, "busy_share": busy_us / wall_us,
@@ -1520,7 +1455,7 @@ def phase_train(scene, device) -> int:
         batches = {"train": nb(len(split.train), TRAIN_BATCH) * 2,
                    "val": nb(len(split.valid), ev) * 2,
                    "test": nb(len(split.test), ev)}
-        want = 2 * sum(batches.values())
+        want = sum(batches.values())  # one a gathered batch
         check(launches["gather_windows"] == want,
               f"train: {launches['gather_windows']} B1 launches, the split "
               f"sizes give {want} ({batches})")
@@ -1594,8 +1529,8 @@ def phase_train(scene, device) -> int:
         _release(tmp)
 
     rng = np.random.default_rng(7)
-    med, bound = time_gather(scene, (scene.ms, scene.pan),
-                             DualPrograms.gathers, device, TRAIN_BATCH, rng)
+    b256 = time_gather(scene, (scene.ms, scene.pan), DualPrograms.gathers,
+                       TRAIN_BATCH, rng)
     parity = _parity_losses(scene, (scene.ms, scene.pan), device, rng)
     n_train = len(split.train)
     result = {
@@ -1611,7 +1546,7 @@ def phase_train(scene, device) -> int:
         "test_anchors_per_s": len(split.test) / test_s,
         "test_oa": oa, "test_aa": aa,
         "test_kappa": kap, "gather_batches": batches,
-        "launches": launches, "b1_b256_ms": med, "b1_b256_bound_ms": bound,
+        "launches": launches, "b1_b256": b256,
         "parity": parity}
     log(f"train: {json.dumps(result)}")
     return launches["gather_windows"]
@@ -1637,7 +1572,7 @@ def _dp_rows(mesh, t: torch.Tensor) -> torch.Tensor:
 
 
 def _dp_gather(scene, mesh) -> dict:
-    """``gather_dual_sharded`` on this rank: two B1 launches a call, both
+    """``gather_dual_sharded`` on this rank: one B1 launch a call, both
     ranks' rows bit-equal to one process's ``gather_dual_fast`` of the
     whole batch and to the plain ``gather_dual`` (``gather_windows_ref``)
     on the same ids (f32 and bf16 scenes; B 4096 with corner anchors,
@@ -1662,8 +1597,8 @@ def _dp_gather(scene, mesh) -> dict:
             before = gather_ops.gather_windows_cuda.launches
             ms_p, pan_p = gather_ops.gather_dual_sharded(
                 ms, pan, ids, w, ps, mesh)
-            check(gather_ops.gather_windows_cuda.launches == before + 2,
-                  f"train_dp: {tag} {name}: not 2 B1 launches on rank "
+            check(gather_ops.gather_windows_cuda.launches == before + 1,
+                  f"train_dp: {tag} {name}: not one B1 launch on rank "
                   f"{mesh.rank}")
             check(ms_p.shape[0] == pan_p.shape[0] == mesh.per_rank(b),
                   f"train_dp: {tag} {name}: shard {tuple(ms_p.shape)}")
@@ -1701,7 +1636,8 @@ def _dp_gather(scene, mesh) -> dict:
                 scene.ms, scene.pan, sets[i % 8], w, ps, mesh),
             "library": lambda i: [v[r, k] for v, r, k in grids[i % 8]]}
         per = mesh.per_rank(b)
-        moved = 2 * per * (ps * ps * c + 16 * ps * ps) * 4 + 4 * per
+        moved = gather_probe.moved_bytes((scene.ms, scene.pan), (1, 4), per,
+                                         ps)
         timed = {}
         for r in range(mesh.data):  # one rank at a time on the card
             mesh.barrier()
@@ -1866,7 +1802,7 @@ def _dp_steps(scene, mesh) -> dict:
     before = gather_ops.gather_windows_cuda.launches
     out = _rank_timing(mesh, run, PROFILE_STEPS, DP_PROFILE_STEPS)
     b1 = gather_ops.gather_windows_cuda.launches - before
-    check(b1 == 2 * chunks.shape[0], f"train_dp: rank {mesh.rank} launched "
+    check(b1 == chunks.shape[0], f"train_dp: rank {mesh.rank} launched "
           f"B1 {b1} times in {chunks.shape[0]} steps")
     out.update(rank_batch=mesh.per_rank(TRAIN_BATCH), b1_launches=b1,
                samples_per_s=TRAIN_BATCH / out["step_ms"] * 1e3)
@@ -2020,7 +1956,7 @@ def _views(scene, streams: tuple, shard: torch.Tensor) -> list:
 
 def _dps_gather(scene, mspan, quad, mesh) -> dict:
     """The tri and quad gathers of the mesh's programs on this rank: the
-    family's kernel wrapper on ``mesh.shard(ids)``, 3 and 4 B1 launches a
+    family's kernel wrapper given ``mesh.shard_rows(b)``, one B1 launch a
     call; both ranks' rows bit-equal to the plain ``gather_tri`` and
     ``gather_quad`` (``gather_windows_ref``) of the whole batch on the same
     ids (f32 and bf16 scenes; B 4096 with corner anchors, B 4160, B 1025,
@@ -2035,23 +1971,23 @@ def _dps_gather(scene, mspan, quad, mesh) -> dict:
     cases = {f"B={b}": base[:b] for b in DP_GATHER_B}
     cases["clamped"] = np.array([n - 1, n, n + w + 3, 10 * n, 2**30, 7] * 11,
                                 np.int32)
-    # (plain, kernel wrapper, launches a call, streams, elements a row)
-    fams = {"tri": (gather_tri, gather_ops.gather_tri_fast, 3,
-                    (scene.ms, scene.pan, mspan), ps * ps * (c + 32)),
-            "quad": (gather_quad, gather_ops.gather_quad_fast, 4, quad,
-                     4 * ps * ps * c)}
+    # (plain, kernel wrapper, streams, anchor scales)
+    fams = {"tri": (gather_tri, gather_ops.gather_tri_fast,
+                    (scene.ms, scene.pan, mspan), (1, 4, 4)),
+            "quad": (gather_quad, gather_ops.gather_quad_fast, quad,
+                     (1, 1, 1, 1))}
     worst = 0.0
-    for fam, (plain, fast, k, streams, _) in fams.items():
+    for fam, (plain, fast, streams, _) in fams.items():
         for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             args = tuple(t.to(dt) for t in streams)
             for name, ids_np in cases.items():
                 ids = torch.from_numpy(ids_np).to(mesh.device)
                 b = ids.shape[0]
                 before = gather_ops.gather_windows_cuda.launches
-                parts = fast(*args, mesh.shard(ids), w, ps)
-                check(gather_ops.gather_windows_cuda.launches == before + k,
-                      f"train_dp_streams: {fam} {tag} {name}: not {k} B1 "
-                      f"launches on rank {mesh.rank}")
+                parts = fast(*args, ids, w, ps, mesh.shard_rows(b))
+                check(gather_ops.gather_windows_cuda.launches == before + 1,
+                      f"train_dp_streams: {fam} {tag} {name}: not one B1 "
+                      f"launch on rank {mesh.rank}")
                 check(all(p.shape[0] == mesh.per_rank(b) for p in parts),
                       f"train_dp_streams: {fam} {tag} {name}: shards "
                       f"{[tuple(p.shape) for p in parts]}")
@@ -2066,16 +2002,17 @@ def _dps_gather(scene, mspan, quad, mesh) -> dict:
     out = {"max_abs_err": worst, "cases": sorted(cases)}
     b = DP_GATHER_B[0]
     per = mesh.per_rank(b)
-    for fam, (plain, fast, _, streams, elems) in fams.items():
-        shards = [mesh.shard(torch.from_numpy(
-            rng.integers(0, n, b).astype(np.int32)).to(mesh.device))
-            for _ in range(8)]
-        grids = [_views(scene, streams, s) for s in shards]
+    for fam, (plain, fast, streams, scales) in fams.items():
+        sets = [torch.from_numpy(rng.integers(0, n, b).astype(np.int32)
+                                 ).to(mesh.device) for _ in range(8)]
+        grids = [_views(scene, streams, mesh.shard(s)) for s in sets]
         runs = {
-            "plain": lambda i: plain(*streams, shards[i % 8], w, ps),
-            "kernel": lambda i: fast(*streams, shards[i % 8], w, ps),
+            "plain": lambda i: plain(*streams, mesh.shard(sets[i % 8]), w,
+                                     ps),
+            "kernel": lambda i: fast(*streams, sets[i % 8], w, ps,
+                                     mesh.shard_rows(b)),
             "library": lambda i: [v[r, q] for v, r, q in grids[i % 8]]}
-        moved = 2 * per * elems * 4 + 4 * per
+        moved = gather_probe.moved_bytes(streams, scales, per, ps)
         timed = {}
         for r in range(mesh.data):  # one rank at a time on the card
             mesh.barrier()
@@ -2286,9 +2223,9 @@ def _dps_gan_parity(quad, mesh, phase: str = "train_dp_streams") -> dict:
 
 def _dps_steps(scene, mspan, quad, mesh) -> dict:
     """The runs' steps on this rank, at the config's widths and bf16: a tri
-    step (tri_net w64, Adam, 128 rows of each batch of 256; 3 B1 launches),
+    step (tri_net w64, Adam, 128 rows of each batch of 256; one B1 launch),
     a quad step (dqtl w64, qua_loss on the batch's logits rebuilt from the
-    ranks'; 4 launches), a GAN step (gan_width 32, pic 128, 2 tiles of
+    ranks'; one launch), a GAN step (gan_width 32, pic 128, 2 tiles of
     each batch of 4): DPS_STEPS (the GAN: DPS_GAN_STEPS) timed after 3,
     and a profile of DPS_PROFILE_STEPS (3) on rank 0."""
     from dmfusion_torch.train.optim import make_optimizer
@@ -2319,7 +2256,7 @@ def _dps_steps(scene, mspan, quad, mesh) -> dict:
         out[fam] = _rank_timing(mesh, run, DPS_STEPS, DPS_PROFILE_STEPS)
         out[fam]["b1_launches_a_step"] = (
             gather_ops.gather_windows_cuda.launches - before) / n
-        check(out[fam]["b1_launches_a_step"] == len(args),
+        check(out[fam]["b1_launches_a_step"] == 1,
               f"train_dp_streams: {out[fam]['b1_launches_a_step']} B1 "
               f"launches a {fam} step")
         out[fam]["rank_batch"] = mesh.per_rank(TRAIN_BATCH)
@@ -2493,7 +2430,7 @@ def _cli_runs(tmp: str, fns: dict, phase: str) -> dict:
 
 def _dps_tri_run(tmp: str) -> dict:
     """tri_net trained and colored (the unlabeled pixels) by two ranks
-    through torchrun (:func:`_mesh_cli_run`, no test), 3 B1 launches a
+    through torchrun (:func:`_mesh_cli_run`, no test), one B1 launch a
     gathered batch on each rank."""
     files = ["0_curweights.pt", "0_pic_1.png", "0_pic_2.png",
              "0_records.json", "0_weights.pt"]
@@ -2503,7 +2440,7 @@ def _dps_tri_run(tmp: str) -> dict:
     batches = {"train": -(-len(split.train) // TRAIN_BATCH),
                "val": -(-len(split.valid) // EVAL_BATCH),
                "color": -(-len(split.unlabeled) // EVAL_BATCH)}
-    want = 3 * sum(batches.values())
+    want = sum(batches.values())
     b1 = _mesh_reports(run, "train_dp_streams", "main", want)
     return {**out, "gather_batches_per_rank": batches,
             "b1_launches_per_rank": want, "b1_launches": b1}
@@ -2516,8 +2453,8 @@ def _dps_twostage_run(tmp: str, args: list[str] = DPS_TWOSTAGE_SET,
     """Both stages of the two-stage solver by ``nprocs`` ranks through
     torchrun (``args``; a ``data x model`` mesh of ``nprocs // model`` x
     ``model``), without test: one result tree and one weights dir; the GAN
-    scenes of the scene's shape, finite in [0, 1]; finite records; 4 B1
-    launches a gathered batch of stage 2 on each rank."""
+    scenes of the scene's shape, finite in [0, 1]; finite records; one B1
+    launch a gathered batch of stage 2 on each rank."""
     run = _dp_cli(tmp, args, phase, timeout, nprocs)
     cfg, split = _dps_split(args)
     epochs = int(cfg["epoch"])
@@ -2552,7 +2489,7 @@ def _dps_twostage_run(tmp: str, args: list[str] = DPS_TWOSTAGE_SET,
           f"{phase}: two-stage records {rec}")
     batches = {"train": len(split.train) // TRAIN_BATCH * epochs,
                "val": -(-len(split.valid) // EVAL_BATCH) * epochs}
-    b1 = _mesh_reports(run, phase, "twostage", 4 * sum(batches.values()),
+    b1 = _mesh_reports(run, phase, "twostage", sum(batches.values()),
                        data=nprocs // model, model=model)
     gan_epochs = int(cfg["dqtl"]["epochs"])
     for r in run["reports"]:
@@ -2564,7 +2501,7 @@ def _dps_twostage_run(tmp: str, args: list[str] = DPS_TWOSTAGE_SET,
             "epoch_s": rec["EpochTime"],
             "loss": rec["Loss"], "val_loss": rec["ValLoss"],
             "val_oa": rec["ValOA"], "gather_batches_per_rank": batches,
-            "b1_launches_per_rank": 4 * sum(batches.values()),
+            "b1_launches_per_rank": sum(batches.values()),
             "b1_launches": b1, "reports": run["reports"]}
 
 
@@ -2862,7 +2799,7 @@ def _dpm_dense_run(tmp: str) -> dict:
 
 def _dpm_conv_run(tmp: str) -> dict:
     """gmfnet_conv at patch 47 trained and validated per anchor by two ranks
-    through torchrun (no test): B1 twice a gathered batch on every rank's
+    through torchrun (no test): B1 once a gathered batch on every rank's
     shard, B2 never."""
     files = ["0_curweights.pt", "0_records.json", "0_weights.pt"]
     run, _, split, out = _mesh_cli_run(tmp, DPM_CONV_SET, "gmfnet_conv",
@@ -2870,7 +2807,7 @@ def _dpm_conv_run(tmp: str) -> dict:
                                        test=False)
     batches = {"train": -(-len(split.train) // TRAIN_BATCH),
                "val": -(-len(split.valid) // EVAL_BATCH)}
-    want = 2 * sum(batches.values())
+    want = sum(batches.values())
     b1 = _mesh_reports(run, "train_dp_maps", "main", want)
     return {**out, "gather_batches_per_rank": batches,
             "b1_launches_per_rank": want, "b1_launches": b1}
@@ -3175,10 +3112,10 @@ def _tp_parities(scene, conv_scene, mspan, quad, mesh) -> dict:
 
 
 def _tp_gather(scene, mspan, quad, mesh) -> dict:
-    """B1 on this rank's data shard: ``gather_dual_sharded`` (2 launches a
-    call), ``gather_tri_fast`` (3) and ``gather_quad_fast`` (4) of
-    ``mesh.shard(ids)``, at B 4096 with corner anchors and at B 256: the
-    rows bit-equal to the plain gather of the shard, and to the model
+    """B1 on this rank's data shard: ``gather_dual_sharded``,
+    ``gather_tri_fast`` and ``gather_quad_fast`` given
+    ``mesh.shard_rows(b)``, one launch a call, at B 4096 with corner
+    anchors and at B 256: the rows bit-equal to the plain gather of the shard, and to the model
     peer's (moved as bytes)."""
     w, ps, n, h = scene.width, scene.patch, scene.num_pixels, scene.height
     base = np.random.default_rng(11).integers(0, n, 4096).astype(np.int32)
@@ -3190,11 +3127,11 @@ def _tp_gather(scene, mspan, quad, mesh) -> dict:
                                         *a[-2:]),
                  (scene.ms, scene.pan)),
         "tri": (lambda *a: gather_ops.gather_tri_fast(
-                    *a[:-3], mesh.shard(a[-3]), *a[-2:]),
+                    *a, mesh.shard_rows(a[-3].shape[0])),
                 lambda *a: gather_tri(*a[:-3], mesh.shard(a[-3]), *a[-2:]),
                 (scene.ms, scene.pan, mspan)),
         "quad": (lambda *a: gather_ops.gather_quad_fast(
-                     *a[:-3], mesh.shard(a[-3]), *a[-2:]),
+                     *a, mesh.shard_rows(a[-3].shape[0])),
                  lambda *a: gather_quad(*a[:-3], mesh.shard(a[-3]), *a[-2:]),
                  quad)}
     for tag, (wrapper, plain_fn, streams) in cases.items():
@@ -3203,7 +3140,7 @@ def _tp_gather(scene, mspan, quad, mesh) -> dict:
             before = gather_ops.gather_windows_cuda.launches
             rows = wrapper(*streams, ids, w, ps)
             launched = gather_ops.gather_windows_cuda.launches - before
-            check(launched == len(streams), f"train_tp: {tag} B {b}: "
+            check(launched == 1, f"train_tp: {tag} B {b}: "
                   f"{launched} B1 launches on rank {mesh.rank}")
             plain = plain_fn(*streams, ids, w, ps)
             for got, ref in zip(rows, plain, strict=True):
@@ -3265,7 +3202,7 @@ def _tp_shards(mesh) -> dict:
 def _tp_steps(scene, mspan, mesh) -> dict:
     """The default run's steps on the model axis (Adam, bf16, batch 256:
     128 rows a data index, the channels split over two model ranks), of
-    gmfnet w64 (B1 twice a step) and tri_net w64 (3 times): TP_STEPS timed
+    gmfnet w64 and tri_net w64 (B1 once a step each): TP_STEPS timed
     after 3, then a profile on rank 0 (the collectives' share)."""
     from dmfusion_torch.train.optim import make_optimizer
     labeled, _ = split_labels(scene.label)
@@ -3296,7 +3233,7 @@ def _tp_steps(scene, mspan, mesh) -> dict:
         before = gather_ops.gather_windows_cuda.launches
         got = _rank_timing(mesh, run, TP_STEPS, DP_PROFILE_STEPS)
         b1 = gather_ops.gather_windows_cuda.launches - before
-        check(b1 == len(args) * chunks.shape[0], f"train_tp: rank "
+        check(b1 == chunks.shape[0], f"train_tp: rank "
               f"{mesh.rank} launched B1 {b1} times in {chunks.shape[0]} "
               f"{name} steps")
         got.update(rank_batch=mesh.per_rank(TRAIN_BATCH), b1_launches=b1,
@@ -3401,7 +3338,7 @@ def _tp_reload(scene, out: str, cfg, split, rec: tuple) -> dict:
 
 def _tp_gmfnet_run(tmp: str) -> dict:
     """gmfnet trained (one epoch, no test) by ``torchrun`` on two ranks,
-    data 1 x model 2, through the CLI (B1 2 a gathered batch a rank)."""
+    data 1 x model 2, through the CLI (B1 once a gathered batch a rank)."""
     args = ["--set", *TP_CLI_SET, f"mesh.model={TP_MODEL}"]
     run, cfg, split, cli = _mesh_cli_run(
         tmp, args, "gmfnet", ["0_curweights.pt", "0_records.json",
@@ -3409,7 +3346,7 @@ def _tp_gmfnet_run(tmp: str) -> dict:
         TP_TIMEOUT, test=False, nprocs=TP_CLI_RANKS, val_oa_min=0.0)
     batches = {"train": -(-len(split.train) // TRAIN_BATCH),
                "val": -(-len(split.valid) // EVAL_BATCH)}
-    want = 2 * sum(batches.values())
+    want = sum(batches.values())
     b1 = _mesh_reports(run, "train_tp", "main", want,
                        data=TP_CLI_RANKS // TP_MODEL, model=TP_MODEL)
     return {**cli, "cfg": cfg, "split": split,
@@ -3712,55 +3649,47 @@ def phase_train_dense(scene, device) -> int:
 
 
 def _b1_patch47(scene, device) -> dict:
-    """B1 at patch 47 (MS rows of 188 f32, 188x188 PAN windows): bit-equal
-    to the plain gather for f32 and bf16 scenes at B 4096 and B 256 and at
-    anchors on the bottom and right edges, with clamped starts; timed at
-    both batch sizes."""
+    """B1 at patch 47 (MS rows of 188 f32, 188x188 PAN windows; in bf16 the
+    rows of 376 bytes copy element-wide): every family call bit-equal to
+    its plain version with one launch (``tools/gather_probe.check_calls``:
+    f32 and bf16, B 4096, 4093 and 256, negative and out-of-range ids,
+    shards of 2 and 3 ranks, clamped explicit starts; the PAN and MS
+    scenes stand in for MSPAN and the quad streams), and the dual call at
+    every anchor of the bottom row and the right column; timed at B 4096
+    and B 256."""
     ps, w, h = scene.patch, scene.width, scene.height
     n = scene.num_pixels
-    rng = np.random.default_rng(47)
     ms2d = scene.ms.reshape(scene.ms.shape[0], -1)
     check(ms2d.shape[1] // 4 - ps + 1 == w and ps == 47,
           f"train_conv: scene {tuple(ms2d.shape)} is not padded for 47")
+    try:
+        gather_probe.check_calls(
+            {"ms": scene.ms, "pan": scene.pan, "mspan": scene.pan,
+             "quad": (scene.ms,) * 4}, w, ps, device,
+            lambda m: log(f"train_conv: {m}"))
+    except RuntimeError as e:
+        check(False, f"train_conv: {e}")
     # The last row and column of anchors: windows reach the padded edge.
-    edge = np.concatenate([np.arange((h - 1) * w, n), np.arange(w - 1, n, w)])
+    edge = torch.from_numpy(np.concatenate([
+        np.arange((h - 1) * w, n), np.arange(w - 1, n, w)]).astype(np.int32)
+    ).to(device)
     for dtype in (torch.float32, torch.bfloat16):
         ms, pan = scene.ms.to(dtype), scene.pan.to(dtype)
-        for tag, ids_np in ((f"B={BUCKET}", rng.integers(0, n, BUCKET)),
-                            (f"B={TRAIN_BATCH}",
-                             rng.integers(0, n, TRAIN_BATCH)),
-                            ("edge anchors", edge)):
-            ids = torch.from_numpy(ids_np.astype(np.int32)).to(device)
-            got = gather_ops.gather_dual_fast(ms, pan, ids, w, ps)
-            want = gather_dual(ms, pan, ids, w, ps)
-            for g, r in zip(got, want):
-                check(g.shape == r.shape and torch.equal(g, r),
-                      f"train_conv: B1 != plain at patch 47, {dtype} {tag} "
-                      f"(max {_max_err(g, r)})")
-        views = ((ms.reshape(ms.shape[0], -1), ps, 4), (pan, 4 * ps, 1))
-        for view, patch, chans in views:
-            hi_r, hi_c = view.shape[0] + 5, view.shape[1] // chans + 5
-            xs = torch.tensor([-1, hi_r, 10**9, view.shape[0] - patch + 1, 0],
-                              dtype=torch.int32, device=device)
-            ys = torch.tensor([hi_c, -1, 10**9, 0,
-                               view.shape[1] // chans - patch + 1],
-                              dtype=torch.int32, device=device)
-            check(torch.equal(
-                gather_ops.gather_windows_cuda(view, xs, ys, patch, chans),
-                gather_ops.gather_windows_ref(view, xs, ys, patch, chans)),
-                f"train_conv: B1 clamped starts, patch {patch}, {dtype}")
+        before = gather_ops.gather_windows_cuda.launches
+        got = gather_ops.gather_dual_fast(ms, pan, edge, w, ps)
+        check(gather_ops.gather_windows_cuda.launches == before + 1,
+              "train_conv: not one B1 launch at the edge anchors")
+        for g, r in zip(got, gather_dual(ms, pan, edge, w, ps), strict=True):
+            check(g.shape == r.shape and torch.equal(g, r),
+                  f"train_conv: B1 != plain at patch 47, {dtype} edge "
+                  f"anchors (max {_max_err(g, r)})")
         del ms, pan
     log("kernels: gather_dual patch 47 (MS rows of 188, PAN 188x188): "
-        "bit-equal, f32 and bf16, B 4096, B 256, edge anchors, clamped "
-        "starts")
-    out = {}
-    for batch in (BUCKET, TRAIN_BATCH):
-        med, bound = time_gather(scene, (scene.ms, scene.pan),
-                                 DualPrograms.gathers, device, batch, rng)
-        out[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
-                            "library_ms": med["library"], "bound_ms": bound,
-                            "bound_by": "bytes"}
-    return out
+        "bit-equal at the edge anchors, f32 and bf16")
+    rng = np.random.default_rng(47)
+    return {f"B{batch}": time_gather(scene, (scene.ms, scene.pan),
+                                     DualPrograms.gathers, batch, rng)
+            for batch in (BUCKET, TRAIN_BATCH)}
 
 
 def _conv_crop_parity(scene, model, device):
@@ -3868,13 +3797,13 @@ def phase_train_conv(device) -> tuple[int, dict]:
         check(os.path.isfile(cfg["RESULT_excel"]), "train_conv: no workbook")
         _keep_workbook(cfg, "train_conv", oa)
         # Test and color render one class map each and gather nothing; B1
-        # runs twice (MS, PAN) on every train and val batch.
+        # runs once (MS and PAN) on every train and val batch.
         check(len(renders) == 2, f"train_conv: {len(renders)} map renders, "
               "not 2 (test, color)")
         ev = solver._eval_round_to()
         batches = {"train": -(-len(split.train) // TRAIN_BATCH) * 2,
                    "val": -(-len(split.valid) // ev) * 2}
-        want = 2 * sum(batches.values())
+        want = sum(batches.values())
         check(ev == EVAL_BATCH and launches["gather_windows"] == want,
               f"train_conv: {launches['gather_windows']} B1 launches, the "
               f"split sizes give {want} ({batches}, eval batches of {ev}) "
@@ -4051,11 +3980,11 @@ def phase_train_tri(scene, device, mspan) -> tuple[int, dict]:
               and mspan_gap <= 1e-5, f"train_tri: MSPAN {tuple(mp.shape)} "
               f"{mp.dtype}, {mspan_gap} from the padded PAN")
 
-        # B1: three launches (MS, PAN, MSPAN) per gathered batch.
+        # B1: one launch (MS, PAN, MSPAN) per gathered batch.
         ev = solver._eval_round_to()
         batches = {"train": -(-len(split.train) // TRAIN_BATCH) * 2,
                    "val": -(-len(split.valid) // ev) * 2}
-        want = 3 * sum(batches.values())
+        want = sum(batches.values())
         check(ev == EVAL_BATCH and launches["gather_windows"] == want,
               f"train_tri: {launches['gather_windows']} B1 launches, the "
               f"split sizes give {want} ({batches}, eval batches of {ev})")
@@ -4115,7 +4044,7 @@ def phase_train_tri(scene, device, mspan) -> tuple[int, dict]:
             served.append(pred.predict_ids(c))
             request_ms.append((time.perf_counter() - t0) * 1e3)
         req_launches = gather_ops.gather_windows_cuda.launches - before
-        check(req_launches == 3 * TRI_REQUESTS,
+        check(req_launches == TRI_REQUESTS,
               f"train_tri: {req_launches} B1 launches for {TRI_REQUESTS} "
               "requests")
         check(np.array_equal(np.concatenate(served), solver._predict_ids(
@@ -4157,13 +4086,9 @@ def phase_train_tri(scene, device, mspan) -> tuple[int, dict]:
                        torch.Generator().manual_seed(CFG["seed"]))
     offsets_ms = (time.perf_counter() - t0) * 1e3
     rng = np.random.default_rng(12)
-    tri = {}
-    for batch in (BUCKET, TRAIN_BATCH):
-        med, bound = time_gather(scene, (scene.ms, scene.pan, mspan),
-                                 TriPrograms.gathers, device, batch, rng)
-        tri[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
-                            "library_ms": med["library"], "bound_ms": bound,
-                            "bound_by": "bytes"}
+    tri = {f"B{batch}": time_gather(scene, (scene.ms, scene.pan, mspan),
+                                    TriPrograms.gathers, batch, rng)
+           for batch in (BUCKET, TRAIN_BATCH)}
     parity = _parity_losses(scene, (scene.ms, scene.pan, mspan), device, rng)
     result = {
         "model": "tri_net", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
@@ -4198,15 +4123,15 @@ def gan_scenes(scene) -> tuple[np.ndarray, np.ndarray]:
     return msgan.astype(np.float32), pangan.astype(np.float32)
 
 
-def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
+def phase_train_quad(scene, device, quad, gan) -> int:
     """Stage 2 of the two-stage solver: dqtl w64 on image6 through ``python
     -m dmfusion_torch.cli --solver twostage``'s ``main`` (2 epochs, no test)
     on the seeded stage-1 scenes ``gan`` (written first); check what
     it writes and computes, hold the gather route and the card's losses
     against their plain versions, export the best weights with ``python -m
     dmfusion_torch.export`` and serve them with the GAN scenes; time it,
-    and the quad bucket on ``quad`` (the same four streams); returns B1's
-    launches over the CLI run and the quad bucket's times."""
+    and hold the card's losses on ``quad`` (the same four streams);
+    returns B1's launches over the CLI run."""
     from dmfusion_torch import cli
     from dmfusion_torch import export as export_cli
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_quad_")
@@ -4250,12 +4175,12 @@ def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
         for f in ("0_weights.pt", "0_curweights.pt", "0_records.json"):
             check(os.path.isfile(os.path.join(out, f)), f"train_quad: no {f}")
 
-        # B1: four launches (MS, pan2ms(PAN), msgan, pangan) per gathered
+        # B1: one launch (MS, pan2ms(PAN), msgan, pangan) per gathered
         # batch; the train batches are trimmed to whole ones.
         ev = solver._eval_round_to()
         batches = {"train": len(split.train) // TRAIN_BATCH * 2,
                    "val": -(-len(split.valid) // ev) * 2}
-        want = 4 * sum(batches.values())
+        want = sum(batches.values())
         check(ev == EVAL_BATCH and launches["gather_windows"] == want,
               f"train_quad: {launches['gather_windows']} B1 launches, the "
               f"split sizes give {want} ({batches}, eval batches of {ev})")
@@ -4334,7 +4259,7 @@ def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
             served.append(pred.predict_ids(c))
             request_ms.append((time.perf_counter() - t0) * 1e3)
         req_launches = gather_ops.gather_windows_cuda.launches - before
-        check(req_launches == 4 * QUAD_REQUESTS,
+        check(req_launches == QUAD_REQUESTS,
               f"train_quad: {req_launches} B1 launches for {QUAD_REQUESTS} "
               "requests")
         check(np.array_equal(np.concatenate(served), solver._predict_ids(
@@ -4379,27 +4304,8 @@ def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    # The quad bucket, the losses' parity.  Four launches of about 10 us
-    # of device work each can take less time than their four wrapper
-    # calls on the host, so beside the CUDA-event time of a bucket the
-    # profiler's device time of its launches is read too.
-    rng = np.random.default_rng(15)
-    timed = {}
-    for batch in (BUCKET, TRAIN_BATCH):
-        med, bound = time_gather(scene, quad, QuadPrograms.gathers, device,
-                                 batch, rng, at_ms=4)
-        sets = [torch.from_numpy(rng.integers(0, scene.num_pixels, batch)
-                                 .astype(np.int32)).to(device)
-                for _ in range(QUAD_PROFILED)]
-        dev = _profile(lambda: [gather_ops.gather_quad_fast(
-            *quad, ids, scene.width, scene.patch) for ids in sets],
-            f"{QUAD_PROFILED} quad buckets, B {batch}", 2)
-        timed[f"B{batch}"] = {"ms": med["kernel"], "plain_ms": med["plain"],
-                              "library_ms": med["library"],
-                              "bound_ms": bound, "bound_by": "bytes",
-                              "device_ms": dev["gather_kernel_ms"]
-                              / QUAD_PROFILED}
-    parity = _parity_losses(scene, quad, device, rng)
+    parity = _parity_losses(scene, quad, device,
+                            np.random.default_rng(15))
     result = {
         "model": "dqtl", "width": 64, "patch": 16, "batch": TRAIN_BATCH,
         "run_s": run_s, "epoch_s": rec["EpochTime"], "loss": rec["Loss"],
@@ -4413,9 +4319,9 @@ def phase_train_quad(scene, device, quad, gan) -> tuple[int, dict]:
         "request_busy_share": req_prof["busy_share"],
         "gather_batches": batches, "launches": launches,
         "request_ms_median": statistics.median(request_ms),
-        "request_ms": request_ms, "quad_bucket": timed, "parity": parity}
+        "request_ms": request_ms, "parity": parity}
     log(f"train_quad: {json.dumps(result)}")
-    return launches["gather_windows"], timed
+    return launches["gather_windows"]
 
 
 def _gan_parity(tiles_m, tiles_p, device) -> dict:
@@ -4574,7 +4480,7 @@ def phase_train_gan(scene, device) -> int:
         batches = {"train": len(split.train) // TRAIN_BATCH * 2,
                    "val": -(-len(split.valid) // ev) * 2,
                    "test": -(-n_test // ev)}
-        want = 4 * sum(batches.values())
+        want = sum(batches.values())
         check(ev == EVAL_BATCH and launches["gather_windows"] == want,
               f"train_gan: {launches['gather_windows']} B1 launches, the "
               f"split sizes give {want} ({batches}, eval batches of {ev})")
@@ -4594,7 +4500,8 @@ def phase_train_gan(scene, device) -> int:
                       f"batch (max {_max_err(g, r)})")
         log(f"train_gan: B1 bit-equal to the plain gather on the stage-1 "
             f"streams at a B {TRAIN_BATCH} train and a B {EVAL_BATCH} test "
-            f"batch; {launches['gather_windows']} launches = 4 x {batches}")
+            f"batch; {launches['gather_windows']} launches, one a batch: "
+            f"{batches}")
 
         # The checkpoints' round trip: a fresh solver loads the four files.
         fresh = TwoStageSolver(dict(cfg, dqtl=dict(d, load_model=1)))
@@ -4657,7 +4564,7 @@ def phase_train_gan(scene, device) -> int:
         served = pred.predict_ids(chunks)
         request_ms = (time.perf_counter() - t0) * 1e3 / GAN_REQUESTS
         check(gather_ops.gather_windows_cuda.launches - before
-              == 4 * GAN_REQUESTS, "train_gan: not 4 B1 launches a request")
+              == GAN_REQUESTS, "train_gan: not one B1 launch a request")
         check(np.array_equal(served, solver._predict_ids(chunks, BUCKET)),
               "train_gan: served predictions != the solver's")
         log(f"train_gan: served {GAN_REQUESTS} requests of {BUCKET} with "
@@ -4755,7 +4662,7 @@ def phase_zoo(scene, device) -> int:
             served.append(pred.predict_ids(c))
             request_ms.append((time.perf_counter() - t0) * 1e3)
         launches = counter.launches
-        want = 2 * (1 + ZOO_STEPS + 1 + ZOO_REQUESTS)
+        want = 1 + ZOO_STEPS + 1 + ZOO_REQUESTS  # one a gathered batch
         check(launches == want, f"zoo {name}: {launches} B1 launches, the "
               f"steps and requests give {want}")
         total += launches
@@ -4899,12 +4806,12 @@ def phase_train_ct(device) -> int:
                   *proof):
             check(os.path.isfile(os.path.join(out, f)), f"train_ct: no {f}")
 
-        # B1: two launches (MS, PAN) per gathered batch; test and color
+        # B1: one launch (MS, PAN) per gathered batch; test and color
         # are off and proof gathers its few windows with the plain gather.
         ev = solver._eval_round_to()
         batches = {"train": -(-len(split.train) // TRAIN_BATCH) * 2,
                    "val": -(-len(split.valid) // ev) * 2}
-        want = 2 * sum(batches.values())
+        want = sum(batches.values())
         check(ev == EVAL_BATCH and launches["gather_windows"] == want,
               f"train_ct: {launches['gather_windows']} B1 launches, the "
               f"split sizes give {want} ({batches}, eval batches of {ev})")
@@ -5163,7 +5070,7 @@ def _h5_check(solver) -> dict:
     """One epoch of the trained gmfnet's train ids, batches of 256:
     through ``H5DualPrograms`` on the rows that ``gather_patches`` (the
     cache's arrays, without a file) gives, and through ``DualPrograms`` on
-    the scene (B1 twice a batch), each from a copy of the solver's
+    the scene (B1 once a batch), each from a copy of the solver's
     weights with a fresh Adam, cuDNN deterministic: losses within
     H5_LOSS_ATOL."""
     from dmfusion_torch.train.optim import make_optimizer
@@ -5343,9 +5250,9 @@ def phase_diagnostics(device) -> tuple[int, int, dict]:
             h5 = _h5_check(gm)
             visual = {n: spec["counter"].launches
                       for n, spec in KERNELS.items()}
-            # visualize and the logits above: 2 each (MS, PAN); the
-            # streams' visualize: 4; the scene's epoch: 2 a batch.
-            want = 2 + 2 + 4 + 2 * h5["steps"]
+            # visualize, the logits above, the streams' visualize: one
+            # gathered batch each; the scene's epoch: one a batch.
+            want = 1 + 1 + 1 + h5["steps"]
             check(visual["gather_windows"] == want
                   and visual["phase_pool"] == visual["strip_gather"]
                   == visual["conv3x3"] == 0,
@@ -5375,13 +5282,9 @@ def phase_diagnostics(device) -> tuple[int, int, dict]:
                 gather_one(sc.ms, ids_t, sc.width, sc.patch)),
                 f"diagnostics: gather_one_fast != gather_one at B {b} on the "
                 f"single path's scene")
-            med, bound = time_gather(sc, (sc.ms,),
-                                     (gather_one, gather_ops.gather_one_fast),
-                                     device, b, np.random.default_rng(18))
-            single_b1[f"B{b}"] = {
-                "ms": med["kernel"], "plain_ms": med["plain"],
-                "library_ms": med["library"], "bound_ms": bound,
-                "bound_by": "bytes"}
+            single_b1[f"B{b}"] = time_gather(
+                sc, (sc.ms,), (gather_one, gather_ops.gather_one_fast), b,
+                np.random.default_rng(18))
         del sc
         p_card, p_cpu = card.p.cpu(), cpu.p
         off = p_cpu > 0
@@ -5512,8 +5415,8 @@ def _main() -> None:
     by_path["train_tri"], timings["gather_windows"]["tri"] = \
         phase("train_tri", phase_train_tri, scene, device, mspan)
     del mspan
-    by_path["train_quad"], timings["gather_windows"]["quad"] = \
-        phase("train_quad", phase_train_quad, scene, device, quad, gan)
+    by_path["train_quad"] = phase("train_quad", phase_train_quad, scene,
+                                  device, quad, gan)
     del quad, gan
     by_path["train_gan"] = phase("train_gan", phase_train_gan, scene, device)
     by_path["diagnostics"], by_path["single"], timings["gather_windows"][

@@ -96,6 +96,7 @@ def _report(solver) -> None:
         "mesh_data": mesh.data if mesh is not None else 1,
         "mesh_model": mesh.model if mesh is not None else 1,
         "solver": solver.cfg.get("solver", "main"),
+        # B1: one launch a family call (every stream of a gathered batch).
         "gather_windows_launches": gather_windows_cuda.launches,
         "phase_pool_launches": phase_pool_cuda.launches,
         "train_s": solver.train_time, "test_s": solver.test_time,

@@ -35,7 +35,7 @@ import torch
 from dmfusion_torch.data.scene import (load_gan_scenes, mspan_scene,
                                        quad_streams)
 from dmfusion_torch.ops.gather import (gather_dual_fast, gather_one_fast,
-                                       gather_quad_fast, gather_tri_fast)
+                                       gather_quad_batch, gather_tri_fast)
 
 
 class ScenePredictor:
@@ -101,7 +101,8 @@ class ScenePredictor:
             size = (scene.height, scene.width, int(scene.raw_ms.shape[-1]))
             self.streams = quad_streams(
                 scene, *load_gan_scenes(gan_dir, size), clf.device)
-            self.gather = gather_quad_fast
+            # dqtl takes the four streams on the batch axis: one buffer.
+            self.gather = lambda *a: (gather_quad_batch(*a),)
         elif arity == "single":
             self.streams = (scene.ms,)
             self.gather = lambda ms, ids, w, ps: (
@@ -122,9 +123,6 @@ class ScenePredictor:
     def _gather(self, ids_b: torch.Tensor) -> tuple[torch.Tensor, ...]:
         windows = self.gather(*self.streams, ids_b, self.scene.width,
                               self.scene.patch)
-        if self.clf.manifest["arity"] == "quad":
-            # dqtl takes the four streams concatenated on the batch axis.
-            windows = (torch.cat(windows),)
         # bf16 scenes widen exactly to the model's f32 inputs.
         return tuple(w.float() for w in windows)
 

@@ -208,6 +208,12 @@ class Mesh:
         lo = min(self.data_index * per, b)
         return lo, min(lo + per, b)
 
+    def shard_rows(self, b: int) -> tuple[int, int, int]:
+        """``(lo, hi, per)`` of this rank's shard of a batch of ``b``, as the
+        window gathers take it (``ops/gather.py``: rows past ``hi`` gather
+        the batch's first anchor, as :meth:`shard` pads ids)."""
+        return (*self.bounds(b), self.per_rank(b))
+
     def shard(self, x: torch.Tensor, fill: float | None = None
               ) -> torch.Tensor:
         """This rank's ``per_rank(b)`` entries of ``x`` along its last axis

@@ -4,6 +4,7 @@ with ``chip_smoke.py``.
     python -m dmfusion_torch.tools.strip_gather_bench   # kernel B3
     python -m dmfusion_torch.tools.conv_kernel_probe    # kernel B4
     python -m dmfusion_torch.tools.pool_probe           # kernel B2
+    python -m dmfusion_torch.tools.gather_probe         # kernel B1
 
 Each runs on ``cuda:0`` unless given ``--device cpu`` (a small run of the
 plain versions, untimed), and raises when no card is present.
@@ -11,8 +12,10 @@ plain versions, untimed), and raises when no card is present.
 
 from __future__ import annotations
 
+import re
 import statistics
 import subprocess
+import tempfile
 from typing import Callable, Mapping
 
 import torch
@@ -59,3 +62,29 @@ def time_in_turns(runs: Mapping[str, Callable[[int], object]], iters: int,
         for k in order:
             times[k].append(cuda_ms(runs[k], iters, warmup))
     return {k: statistics.median(v) for k, v in times.items()}, times
+
+
+def ptxas_report(name: str) -> dict:
+    """``nvcc -Xptxas -v`` over ``csrc/<name>.cu``: per kernel (mangled
+    name), its registers, spill stores and loads (bytes) and stack bytes."""
+    from dmfusion_torch.ops._build import CSRC, NVCC_FLAGS, _nvcc
+    with tempfile.TemporaryDirectory() as tmp:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/lib.so",
+             str(CSRC / f"{name}.cu")],
+            capture_output=True, text=True, timeout=900, check=True)
+    report, kernel = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m[1]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            report.setdefault(kernel, {}).update(
+                stack=int(m[1]), spill_stores=int(m[2]),
+                spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            report.setdefault(kernel, {})["registers"] = int(m[1])
+    return report

@@ -20,45 +20,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
-import subprocess
-import tempfile
 
 import torch
 
 from dmfusion_torch.config import resolve_device
 from dmfusion_torch.ops import pool
-from dmfusion_torch.tools import HBM_BYTES_PER_S, card_line, time_in_turns
+from dmfusion_torch.tools import (HBM_BYTES_PER_S, card_line, ptxas_report,
+                                  time_in_turns)
 
 PATCH, C4 = 16, 128
 ROUNDS, WARMUP, ITERS = 3, 3, 10
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-
-def ptxas_report() -> dict:
-    """``nvcc -Xptxas -v`` over ``csrc/phase_pool.cu``: per kernel (mangled
-    name), its registers, spill stores and loads (bytes) and stack bytes."""
-    from dmfusion_torch.ops._build import CSRC, NVCC_FLAGS, _nvcc
-    with tempfile.TemporaryDirectory() as tmp:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", f"{tmp}/lib.so",
-             str(CSRC / "phase_pool.cu")],
-            capture_output=True, text=True, timeout=900, check=True)
-    report, name = {}, None
-    for line in (proc.stdout + proc.stderr).splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", line)
-        if m:
-            name = m[1]
-        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                      r"(\d+) bytes spill loads", line)
-        if m and name:
-            report.setdefault(name, {}).update(
-                stack=int(m[1]), spill_stores=int(m[2]),
-                spill_loads=int(m[3]))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            report.setdefault(name, {})["registers"] = int(m[1])
-    return report
 
 
 def run(device: str | torch.device = "cuda", dtype: str = "bf16",
@@ -103,7 +75,7 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     result = run(args.device, args.dtype, args.h2, args.w2)
     if args.ptxas:
-        result["ptxas"] = ptxas_report()
+        result["ptxas"] = ptxas_report("phase_pool")
     print(json.dumps(result))
     if result["device"].startswith("cuda"):
         print(card_line())

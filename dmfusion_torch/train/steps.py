@@ -25,7 +25,7 @@ route of gmfnet_conv for test and color.  ``TriPrograms`` is
 ``DualPrograms`` over three streams (MS, PAN and the IHS-fused MSPAN at
 PAN geometry), gathered by ``ops/gather.py::gather_tri_fast`` on the card;
 ``QuadPrograms`` over the two-stage solver's four MS-geometry streams,
-gathered by ``gather_quad_fast``, with the quadruplet KL loss and the
+gathered by ``gather_quad_batch`` into one batch, with the quadruplet KL loss and the
 fused MS-plus-PAN prediction.  ``SinglePrograms`` feeds the MS window
 alone, gathered by ``gather_one_fast`` (the kernel on every batch on the
 card); ``H5DualPrograms`` indexes rows of the ``use_h5`` cache's
@@ -34,10 +34,10 @@ pre-gathered windows, with no gather at all.
 Under a mesh (``parallel/mesh.py``) ``DualPrograms``, ``TriPrograms``,
 ``SinglePrograms`` and ``QuadPrograms`` run the ``data`` axis: every rank
 holds the global (steps, B) batches, gathers its contiguous shard of each
-batch with the family's kernel wrapper on ``mesh.shard(ids)``
+batch with the family's kernel wrapper given ``mesh.shard_rows(B)``
 (``gather_dual_fast``, as ``ops/gather.py::gather_dual_sharded`` does;
-``gather_tri_fast``; ``gather_one_fast``; ``gather_quad_fast``: the kernel
-on every batch on the card), and sums
+``gather_tri_fast``; ``gather_one_fast``; ``gather_quad_batch``: one
+kernel launch a batch on the card, the shard taken in the kernel), and sums
 what the ranks computed: a step's gradients (the cross-entropy divides by
 the whole batch's real rows), an eval's loss sum and confusion, a
 prediction's class ids in rank order.  ``qua_loss`` is not a sum over
@@ -90,7 +90,8 @@ from dmfusion_torch.models.dense_fusion import (RECEPTIVE_RADIUS,
                                                 phase_corner_sums, phase_sat,
                                                 sat_window_sums)
 from dmfusion_torch.ops.gather import (gather_dual_fast, gather_one_fast,
-                                       gather_quad_fast, gather_tri_fast)
+                                       gather_quad_batch, gather_quad_fast,
+                                       gather_tri_fast)
 from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.parallel.mesh import Mesh
 from dmfusion_torch.parallel.partition import full_state
@@ -235,15 +236,21 @@ class DualPrograms:
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
                 ) -> tuple[torch.Tensor, ...]:
         """The model's inputs at ``ids_b``: every anchor, or under a mesh
-        this rank's shard (``mesh.shard``)."""
+        this rank's shard (``mesh.shard_rows``, taken by the gather)."""
         if self.mesh is None:
             gather = self.gathers[0 if self.plain_gather else 1]
             windows = gather(*scene_args, ids_b, self.width, self.patch)
         else:
-            windows = self.gathers[1](*scene_args, self.mesh.shard(ids_b),
-                                      self.width, self.patch)
+            windows = self.gathers[1](*scene_args, ids_b, self.width,
+                                      self.patch, self._shard_rows(ids_b))
         # bf16 scenes widen exactly to the model's f32 inputs.
         return tuple(w.float() for w in windows)
+
+    def _shard_rows(self, ids_b: torch.Tensor) -> tuple[int, int, int] | None:
+        """This rank's ``(lo, hi, per)`` of a batch, None without a mesh."""
+        if self.mesh is None:
+            return None
+        return self.mesh.shard_rows(ids_b.shape[-1])
 
     def _shard(self, labels_b: torch.Tensor, mask_b: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -353,9 +360,9 @@ class DualPrograms:
 class TriPrograms(DualPrograms):
     """Three-stream programs: ``scene_args`` is ``(ms, pan, mspan)``, the
     IHS-fused MSPAN padded like PAN (reference dataset_tri,
-    train/dataset.py:248-282); every gather on the card launches the
-    window kernel three times (MS, PAN, MSPAN), under a mesh on the rank's
-    shard.  Every rank builds the same MSPAN bit for bit (its unpooling
+    train/dataset.py:248-282); every gather on the card is one launch of
+    the window kernel over the three streams (MS, PAN, MSPAN), under a
+    mesh of the rank's shard.  Every rank builds the same MSPAN bit for bit (its unpooling
     offsets come from a CPU generator seeded by ``seed``, and the rest is
     elementwise work and fixed-order reductions), so nothing is
     broadcast."""
@@ -389,7 +396,8 @@ class SinglePrograms(DualPrograms):
     every size.  Under a mesh each rank gathers its own shard."""
 
     gathers = (lambda ms, ids, w, ps: (gather_one(ms, ids, w, ps),),
-               lambda ms, ids, w, ps: (gather_one_fast(ms, ids, w, ps),))
+               lambda ms, ids, w, ps, shard=None: (
+                   gather_one_fast(ms, ids, w, ps, shard),))
 
 
 class QuadPrograms(DualPrograms):
@@ -397,8 +405,8 @@ class QuadPrograms(DualPrograms):
     ``scene_args`` is ``(ms, pan_ms, ms_gan, pan_gan)``, four MS-geometry
     scenes; a batch's four windows go to the model concatenated along the
     batch axis, one ``(4B, ps, ps, C)`` input (reference
-    tostagesolver.py:271), and every gather on the card launches the
-    window kernel four times.  The loss is the masked quadruplet KL
+    tostagesolver.py:271), which one launch of the window kernel writes on
+    the card (``gather_quad_batch``: no concatenation).  The loss is the masked quadruplet KL
     (``losses.py::qua_loss``) on the f32 logits; the prediction sums the
     MS and PAN streams' logits before the softmax and argmax
     (tostagesolver.py:337).
@@ -412,7 +420,13 @@ class QuadPrograms(DualPrograms):
 
     def _gather(self, scene_args: tuple, ids_b: torch.Tensor
                 ) -> tuple[torch.Tensor]:
-        return (torch.cat(super()._gather(scene_args, ids_b)),)
+        if self.plain_gather:
+            batch = torch.cat(gather_quad(*scene_args, ids_b, self.width,
+                                          self.patch))
+        else:
+            batch = gather_quad_batch(*scene_args, ids_b, self.width,
+                                      self.patch, self._shard_rows(ids_b))
+        return (batch.float(),)
 
     def _shard(self, labels_b: torch.Tensor, mask_b: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -61,6 +61,7 @@ def test_chip_smoke_names_no_jax_or_dmfusion():
     "dmfusion_torch.tools.strip_gather_bench",
     "dmfusion_torch.tools.conv_kernel_probe",
     "dmfusion_torch.tools.pool_probe", "dmfusion_torch.tools.convmap_ab",
+    "dmfusion_torch.tools.gather_probe",
     "dmfusion_torch.ops.contourlet", "dmfusion_torch.models.swin",
     "dmfusion_torch.models.swin_dual", "dmfusion_torch.models.ct_lstm",
     "dmfusion_torch.parallel"])
