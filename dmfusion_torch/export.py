@@ -48,6 +48,7 @@ from dmfusion_torch.models import build_model, model_arity
 from dmfusion_torch.models.convert import load_flax_params, params_to_flax
 from dmfusion_torch.models.registry import (get_model_class,
                                             model_map_programs)
+from dmfusion_torch.trace import span
 from dmfusion_torch.train.steps import (ConvMapPrograms, DensePrograms,
                                         fused_predict, resolve_conv_streams,
                                         resolve_dense_streams,
@@ -218,11 +219,12 @@ class TorchClassifier:
     @torch.inference_mode()
     def logits(self, *inputs: torch.Tensor) -> torch.Tensor:
         ps = int(self.manifest["patch_size"])
-        if self.manifest["arity"] == "dense":
-            return self.model(*inputs, ps)
-        if self.is_map:
-            return self.model.logits_map(*inputs, ps)
-        return self.model(*inputs)
+        with span("model.forward"):
+            if self.manifest["arity"] == "dense":
+                return self.model(*inputs, ps)
+            if self.is_map:
+                return self.model.logits_map(*inputs, ps)
+            return self.model(*inputs)
 
     def predict(self, *inputs: torch.Tensor) -> torch.Tensor:
         if self.is_map:
@@ -241,13 +243,16 @@ class TorchClassifier:
                              f"one has arity {self.manifest['arity']!r}: use "
                              f"predict()")
         ps = int(self.manifest["patch_size"])
-        if self.manifest["arity"] == "dense":
-            return DensePrograms(self.model, ps).predict_map(
-                ms, pan, int(self.manifest.get("dense_bands", 0)))
-        prog = ConvMapPrograms(self.model, None, self.cfg,
-                               int(self.manifest["scene_shape"][1]), ps)
-        return prog.predict_map(ms, pan,
-                                int(self.manifest.get("conv_bands", 0)))
+        with span("class_map"):
+            if self.manifest["arity"] == "dense":
+                with span("model.forward"):
+                    return DensePrograms(self.model, ps).predict_map(
+                        ms, pan, int(self.manifest.get("dense_bands", 0)))
+            prog = ConvMapPrograms(self.model, None, self.cfg,
+                                   int(self.manifest["scene_shape"][1]), ps)
+            with span("model.forward"):
+                return prog.predict_map(
+                    ms, pan, int(self.manifest.get("conv_bands", 0)))
 
 
 def load_artifact(path: str | os.PathLike,

@@ -36,6 +36,7 @@ from dmfusion_torch.data.scene import (load_gan_scenes, mspan_scene,
                                        quad_streams)
 from dmfusion_torch.ops.gather import (gather_dual_fast, gather_one_fast,
                                        gather_quad_batch, gather_tri_fast)
+from dmfusion_torch.trace import span
 
 
 class ScenePredictor:
@@ -121,28 +122,32 @@ class ScenePredictor:
         return self._map_cache
 
     def _gather(self, ids_b: torch.Tensor) -> tuple[torch.Tensor, ...]:
-        windows = self.gather(*self.streams, ids_b, self.scene.width,
-                              self.scene.patch)
-        # bf16 scenes widen exactly to the model's f32 inputs.
-        return tuple(w.float() for w in windows)
+        with span("predict_ids.gather"):
+            windows = self.gather(*self.streams, ids_b, self.scene.width,
+                                  self.scene.patch)
+            # bf16 scenes widen exactly to the model's f32 inputs.
+            return tuple(w.float() for w in windows)
 
     def predict_ids(self, ids: np.ndarray) -> np.ndarray:
         """Flat anchor ids -> predicted class id per anchor."""
-        ids = np.asarray(ids, np.int32)
-        if self.clf.is_map:
-            return np.asarray(self._map(), np.int32).reshape(-1)[ids]
-        n = ids.shape[0]
-        out = np.empty((n,), np.int32)
-        b = self.bucket
-        for lo in range(0, n, b):
-            chunk = ids[lo:lo + b]
-            k = chunk.shape[0]
-            if k < b:  # pad to the one bucket shape
-                chunk = np.pad(chunk, (0, b - k))
-            ids_t = torch.from_numpy(chunk).to(self.clf.device)
-            preds = self.clf.predict(*self._gather(ids_t))
-            out[lo:lo + k] = preds[:k].cpu().numpy()
-        return out
+        with span("predict_ids"):
+            ids = np.asarray(ids, np.int32)
+            if self.clf.is_map:
+                return np.asarray(self._map(), np.int32).reshape(-1)[ids]
+            n = ids.shape[0]
+            out = np.empty((n,), np.int32)
+            b = self.bucket
+            for lo in range(0, n, b):
+                chunk = ids[lo:lo + b]
+                k = chunk.shape[0]
+                with span("predict_ids.ids_to_card"):
+                    if k < b:  # pad to the one bucket shape
+                        chunk = np.pad(chunk, (0, b - k))
+                    ids_t = torch.from_numpy(chunk).to(self.clf.device)
+                preds = self.clf.predict(*self._gather(ids_t))
+                with span("predict_ids.labels_to_host"):
+                    out[lo:lo + k] = preds[:k].cpu().numpy()
+            return out
 
     def class_map(self, ids: np.ndarray | None = None) -> np.ndarray:
         """(H, W) int32 class map over ``ids`` (default: every pixel);
@@ -222,7 +227,7 @@ def main(argv: list[str] | None = None) -> None:
         model_over = {"schedule": {"activate": cfg["schedule"]["activate"]}}
     clf = load_artifact(args.artifact, device, overrides=model_over)
 
-    t0 = time.time()
+    t0 = time.perf_counter()
     scene = load_scene(cfg, device)
     pred = ScenePredictor(clf, scene, bucket=args.bucket,
                           gan_dir=args.gan_weights)
@@ -239,12 +244,12 @@ def main(argv: list[str] | None = None) -> None:
     metrics = pred.evaluate(labeled)
     metrics.pop("confusion")
     result.update(metrics)
-    result["eval_s"] = round(time.time() - t0, 3)
+    result["eval_s"] = round(time.perf_counter() - t0, 3)
 
     if not args.no_maps:
         from dmfusion_torch.report.png import write_png
 
-        t1 = time.time()
+        t1 = time.perf_counter()
         out_dir = args.out or (os.path.dirname(
             os.path.abspath(args.artifact)) or ".")
         os.makedirs(out_dir, exist_ok=True)
@@ -264,7 +269,7 @@ def main(argv: list[str] | None = None) -> None:
             write_png(p, img)
             paths.append(p)
         result["maps"] = paths
-        result["map_s"] = round(time.time() - t1, 3)
+        result["map_s"] = round(time.perf_counter() - t1, 3)
 
     print(json.dumps(result))
 

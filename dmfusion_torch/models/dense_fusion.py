@@ -57,6 +57,7 @@ from dmfusion_torch.models.common import activation_fn, dtypes, tree_shape
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops.pool import phase_pool
 from dmfusion_torch.parallel.tensor import use
+from dmfusion_torch.trace import span
 from dmfusion_torch.utils.misc import parse_switch
 
 ARITY = "dense"
@@ -348,22 +349,25 @@ class Net(nn.Module):
         the bottom/right; PAN is cropped to 4H' x 4W', zero-padded to the
         8x grid and packed with space-to-depth 8; both are packed in the
         scene dtype, then cast."""
-        dt = self.compute_dtype
-        pan2d = scene_pan if scene_pan.ndim == 2 else scene_pan[..., 0]
-        hm, wm = scene_ms.shape[0], scene_ms.shape[1]
-        hm2, wm2 = -(-hm // 2), -(-wm // 2)
-        ms = F.pad(scene_ms, (0, 0, 0, 2 * wm2 - wm, 0, 2 * hm2 - hm))
-        pan = pan2d[:4 * hm, :4 * wm]
-        pan = F.pad(pan, (0, 8 * wm2 - pan.shape[1], 0, 8 * hm2 - pan.shape[0]))
-        ms16 = _nchw(space_to_depth(ms, 2).to(dt))
-        pan64 = _nchw(space_to_depth(pan[..., None], 8).to(dt))
-        blk = self._block
-        h_ms = blk(self.ms_block, blk(self.ms_stem, ms16))
-        h_pan = blk(self.pan_block, blk(self.pan_stem, pan64))
-        z = torch.sigmoid(self.fusion_gate(torch.cat([h_ms, h_pan], dim=1)))
-        fused = z * h_ms + (1.0 - z) * h_pan
-        t = blk(self.refine, blk(self.trunk2, blk(self.trunk1, fused)))
-        return t[0].permute(1, 2, 0)
+        with span("model.features"):
+            dt = self.compute_dtype
+            pan2d = scene_pan if scene_pan.ndim == 2 else scene_pan[..., 0]
+            hm, wm = scene_ms.shape[0], scene_ms.shape[1]
+            hm2, wm2 = -(-hm // 2), -(-wm // 2)
+            ms = F.pad(scene_ms, (0, 0, 0, 2 * wm2 - wm, 0, 2 * hm2 - hm))
+            pan = pan2d[:4 * hm, :4 * wm]
+            pan = F.pad(pan, (0, 8 * wm2 - pan.shape[1],
+                              0, 8 * hm2 - pan.shape[0]))
+            ms16 = _nchw(space_to_depth(ms, 2).to(dt))
+            pan64 = _nchw(space_to_depth(pan[..., None], 8).to(dt))
+            blk = self._block
+            h_ms = blk(self.ms_block, blk(self.ms_stem, ms16))
+            h_pan = blk(self.pan_block, blk(self.pan_stem, pan64))
+            z = torch.sigmoid(self.fusion_gate(torch.cat([h_ms, h_pan],
+                                                         dim=1)))
+            fused = z * h_ms + (1.0 - z) * h_pan
+            t = blk(self.refine, blk(self.trunk2, blk(self.trunk1, fused)))
+            return t[0].permute(1, 2, 0)
 
     def _block(self, block: nn.Module, x: torch.Tensor) -> torch.Tensor:
         if self.remat and torch.is_grad_enabled():
@@ -388,13 +392,14 @@ class Net(nn.Module):
 
     def head(self, pooled_feats: torch.Tensor) -> torch.Tensor:
         """(..., w) pooled features -> (..., ncls) f32 logits."""
-        dt = self.compute_dtype
-        x = (pooled_feats.to(dt) @ use(self, "head1_kernel").to(dt)
-             + self.head1_bias.to(dt))
-        x = self.act(x)
-        # Compute-dtype operands, f32 products and sums, f32 bias after.
-        return (x.float() @ use(self, "head2_kernel").to(dt).float()
-                + self.head2_bias.float())
+        with span("model.head"):
+            dt = self.compute_dtype
+            x = (pooled_feats.to(dt) @ use(self, "head1_kernel").to(dt)
+                 + self.head1_bias.to(dt))
+            x = self.act(x)
+            # Compute-dtype operands, f32 products and sums, f32 bias after.
+            return (x.float() @ use(self, "head2_kernel").to(dt).float()
+                    + self.head2_bias.float())
 
     def logits_s2d(self, scene_ms: torch.Tensor, scene_pan: torch.Tensor,
                    patch: int) -> torch.Tensor:

@@ -36,6 +36,8 @@ from typing import Sequence
 
 import torch
 
+from dmfusion_torch.trace import span
+
 #: The most streams one launch gathers.
 MAX_STREAMS = 4
 #: The scale of each stream's anchor, per wrapper.
@@ -118,8 +120,10 @@ def _kernel():
 
 
 def _launch(args: list[int]) -> None:
-    """One kernel launch of the C entry's argument list; counts it."""
-    err = _kernel()((ctypes.c_longlong * len(args))(*args))
+    """One kernel launch of the C entry's argument list, in a ``b1.launch``
+    span; counts it."""
+    with span("b1.launch"):
+        err = _kernel()((ctypes.c_longlong * len(args))(*args))
     if err != 0:
         raise RuntimeError(f"gather_windows kernel launch failed: "
                            f"cudaError_t {err}")

@@ -36,6 +36,8 @@ import functools
 import numpy as np
 import torch
 
+from dmfusion_torch.trace import span
+
 
 @functools.lru_cache(maxsize=None)
 def phase_mix_matrices(c4: int, patch: int):
@@ -262,10 +264,10 @@ def phase_pool_cuda(feats: torch.Tensor, patch: int, ni: int, nj: int,
 
     ``feats`` is a contiguous float32 or bfloat16 CUDA tensor.  ``plan``
     defaults to :func:`launch_plan` for this shape and card.  Each launch
-    adds one to ``phase_pool_cuda.launches``.  The kernel has no backward
-    (nor has dmfusion's): it refuses features that require grad while
-    grad is enabled, rather than return an output that drops the
-    gradient.
+    is a ``b2.launch`` span and adds one to ``phase_pool_cuda.launches``.
+    The kernel has no backward (nor has dmfusion's): it refuses features
+    that require grad while grad is enabled, rather than return an output
+    that drops the gradient.
     """
     if not feats.is_cuda:
         raise ValueError("phase_pool_cuda needs a CUDA feature tensor")
@@ -288,10 +290,11 @@ def phase_pool_cuda(feats: torch.Tensor, patch: int, ni: int, nj: int,
                            _alignment(feats.data_ptr()),
                            _sm_count(feats.device.index))
     stream = torch.cuda.current_stream(feats.device).cuda_stream
-    err = _kernel()(feats.data_ptr(), h2, w2, c4, patch, ni, nj,
-                    1.0 / float(patch * patch), feats.element_size(),
-                    out.data_ptr(), stream, feats.device.index,
-                    (ctypes.c_int * 10)(*plan.as_ints()))
+    with span("b2.launch"):
+        err = _kernel()(feats.data_ptr(), h2, w2, c4, patch, ni, nj,
+                        1.0 / float(patch * patch), feats.element_size(),
+                        out.data_ptr(), stream, feats.device.index,
+                        (ctypes.c_int * 10)(*plan.as_ints()))
     if err != 0:
         raise RuntimeError(f"phase_pool kernel launch failed: "
                            f"cudaError_t {err} ({plan})")

@@ -96,6 +96,7 @@ from dmfusion_torch.ops.metrics import confusion_matrix
 from dmfusion_torch.parallel.mesh import Mesh
 from dmfusion_torch.parallel.partition import full_state
 from dmfusion_torch.parallel.tensor import shard_state
+from dmfusion_torch.trace import span
 from dmfusion_torch.train.losses import cross_entropy, qua_loss
 from dmfusion_torch.train.optim import reset_state
 
@@ -278,13 +279,16 @@ class DualPrograms:
         rank's shard, ``count`` the whole batch's real rows, and the
         ranks' gradients are summed before the update: the returned loss
         is this rank's share of the batch's."""
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self.loss(self.model(*inputs), labels_b, mask_b, count)
-        loss.backward()
-        if self.mesh is not None:
-            sum_grads(self.model.parameters(), self.mesh)
-        self.optimizer.step()
-        return loss.detach()
+        with span("train.step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss = self.loss(self.model(*inputs), labels_b, mask_b, count)
+            with span("train.backward"):
+                loss.backward()
+            if self.mesh is not None:
+                sum_grads(self.model.parameters(), self.mesh)
+            self.optimizer.step()
+            return loss.detach()
 
     # -- whole epochs ------------------------------------------------------
     def train_epoch(self, scene_args: tuple, ids: torch.Tensor,
@@ -826,17 +830,20 @@ class DensePrograms:
 
     def _step(self, pooled, scene_args: tuple, ids_b, labels_b,
               mask_b) -> torch.Tensor:
-        self.optimizer.zero_grad(set_to_none=True)
-        loss = self._loss(pooled, scene_args, ids_b, labels_b, mask_b)
-        loss.backward()
-        if self.mesh_plan(scene_args[0].shape[0]) is not None:
-            # Each rank holds its band's share of the features' gradients;
-            # the head runs on the summed window sums, so its gradient is
-            # already the whole batch's on every rank.
-            sum_grads((p for n, p in self.model.named_parameters()
-                       if not n.startswith("head")), self.mesh)
-        self.optimizer.step()
-        return loss.detach()
+        with span("train.step"):
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss = self._loss(pooled, scene_args, ids_b, labels_b, mask_b)
+            with span("train.backward"):
+                loss.backward()
+            if self.mesh_plan(scene_args[0].shape[0]) is not None:
+                # Each rank holds its band's share of the features'
+                # gradients; the head runs on the summed window sums, so its
+                # gradient is already the whole batch's on every rank.
+                sum_grads((p for n, p in self.model.named_parameters()
+                           if not n.startswith("head")), self.mesh)
+            self.optimizer.step()
+            return loss.detach()
 
     # -- whole epochs ------------------------------------------------------
     def train_epoch(self, scene_args: tuple, ids: torch.Tensor,
