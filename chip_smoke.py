@@ -26,11 +26,13 @@ Phases; any failure exits non-zero before the result line:
   4. serving  — gmfnet at width 64, bf16 compute, f32 scene, seeded
                 weights, saved and loaded as an artifact, serving
                 bucket-4096 requests through ``ScenePredictor``; the
-                launch counts must show the kernel ran once per bucket;
+                launch counts must show the gather ran once per bucket and
+                the fused norm (B5) 13 times a bucket, none bypassed;
                 predictions must equal a run with the plain gather; the
-                norms must hand bf16 on, as flax's GroupNorm(dtype=bf16)
-                does; the bf16 logits on the card must lie within
-                BF16_ATOL of the f32 logits of the same weights on the CPU,
+                norm blocks must hand bf16 on, as flax's
+                GroupNorm(dtype=bf16) does; the bf16 logits on the card
+                must lie within BF16_ATOL of the f32 logits of the same
+                weights on the CPU,
                 and f32 logits on the card (TF32 off) within 1e-3;
   5. pool     — the phase window-pool must be bit-equal to its plain
                 version at the image6 w32 shape (bf16 and f32), at an
@@ -417,6 +419,15 @@ Phases; any failure exits non-zero before the result line:
                 ``collect`` over the five CLI runs' result workbooks
                 (train, train_dense, train_conv, train_gan, single): two
                 rows each.
+  22. norm    — (run after serving) the fused GroupNorm + residual +
+                activation (B5) at each of gmfnet-w64-p16's 13 norms at B
+                4096, channels-last bf16, against its plain version: at
+                least 99 % of elements bit-equal, none more than 2 ulps
+                apart (``tools/norm_probe.run``); the kernel, the plain
+                version and the library path it replaces (``F.group_norm``
+                under autocast, the add, ReLU) timed at each, with the
+                bytes bound; the unit row is ms_res's second norm, and the
+                13 launches of a request are summed.
 Every phase logs its seconds (``phase NAME: S s``), and a ``phase
 seconds`` line sums them up.  Then a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  The
@@ -462,6 +473,7 @@ from dmfusion_torch.models.common import (ConvBlock, MLPHead, ResBlock,
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops import gather as gather_ops
 from dmfusion_torch.ops import ihs
+from dmfusion_torch.ops import norm as norm_ops
 from dmfusion_torch.ops import conv3x3 as conv_ops
 from dmfusion_torch.ops import pool as pool_ops
 from dmfusion_torch.ops import strip_gather as strip_ops
@@ -469,8 +481,8 @@ from dmfusion_torch.ops._build import load_library
 from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
 from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
                                   conv_kernel_probe, gather_probe,
-                                  ptxas_report, strip_gather_bench,
-                                  time_in_turns)
+                                  norm_probe, ptxas_report,
+                                  strip_gather_bench, time_in_turns)
 from dmfusion_torch.parallel.mesh import all_gather_rows
 from dmfusion_torch.parallel.partition import full_state, shard_model
 from dmfusion_torch.parallel.tensor import shard_dims
@@ -834,6 +846,12 @@ KERNELS = {
         "replaces": "tools/conv_kernel_probe.py:133",
         "counter": conv_ops.conv3x3_cuda,
         "unit": "one 3x3 128->128 SAME conv pass, (1008, 1058, 128) bf16"},
+    "group_norm_act": {
+        "route": "cuda", "source": "dmfusion_torch/csrc/group_norm_act.cu",
+        "replaces": "none",
+        "counter": norm_ops.group_norm_act_cuda,
+        "unit": "ms_res's second norm: (4096, 64, 16, 16) bf16 "
+                "channels-last with residual, ReLU"},
 }
 
 
@@ -970,7 +988,7 @@ def phase_serving(scene, device) -> dict:
     norm_dtypes = set()
     hooks = [m.register_forward_hook(
         lambda _m, _in, out: norm_dtypes.add(out.dtype))
-        for m in clf.model.modules() if isinstance(m, torch.nn.GroupNorm)]
+        for m in clf.model.modules() if isinstance(m, (ConvBlock, ResBlock))]
     pred.predict_ids(chunks[0][:8])
     for h in hooks:
         h.remove()
@@ -978,6 +996,7 @@ def phase_serving(scene, device) -> dict:
 
     for spec in KERNELS.values():
         spec["counter"].launches = 0
+    norm_ops.group_norm_act_cuda.bypassed = 0
     torch.cuda.synchronize()
     request_ms, preds = [], []
     for c in served:
@@ -991,6 +1010,10 @@ def phase_serving(scene, device) -> dict:
     check(launches["gather_windows"] == buckets,
           f"gather_windows launches {launches['gather_windows']} != "
           f"{buckets} buckets (one a bucket)")
+    check(launches["group_norm_act"] == 13 * buckets
+          and norm_ops.group_norm_act_cuda.bypassed == 0,
+          f"group_norm_act launches {launches['group_norm_act']} != 13 a "
+          f"bucket, or {norm_ops.group_norm_act_cuda.bypassed} bypassed")
 
     preds = np.concatenate(preds)
     targets = scene.label.reshape(-1)[all_ids].astype(np.int32)
@@ -1077,6 +1100,28 @@ def phase_serving(scene, device) -> dict:
               "launches": launches, "request_ms": request_ms}
     log(f"serving: {json.dumps(result)}")
     return launches
+
+
+def phase_norm() -> dict:
+    """B5 at gmfnet-w64-p16's 13 norms, B 4096: checked against the plain
+    version and timed (``tools/norm_probe.run``); the unit row with the
+    13-launch sum of a request."""
+    try:
+        probe = norm_probe.run("cuda", BUCKET)
+    except RuntimeError as e:
+        check(False, f"norm: {e}")
+    for row in probe["norms"]:
+        log(f"norm: {json.dumps(row)}")
+    log(f"norm: a request's 13 launches (ms): {json.dumps(probe['request'])}")
+    unit = probe["unit"]
+    return {"max_abs_err": None, "max_ulps": max(
+                r["max_ulps"] for r in probe["norms"]),
+            "bit_equal_share": min(r["bit_equal_share"]
+                                   for r in probe["norms"]),
+            "ms": unit["ms"], "plain_ms": unit["plain_ms"],
+            "library_ms": unit["library_ms"], "bound_ms": unit["bound_ms"],
+            "bound_by": f"bytes, {unit['moved_bytes'] / 1e6:.1f} MB",
+            "request": probe["request"]}
 
 
 def _pool_out(hm: int, wm: int, patch: int) -> tuple[int, int]:
@@ -5394,8 +5439,9 @@ def _main() -> None:
     timings = phase("kernels", phase_kernels, scene, device, mspan, quad)
     # Each path is driven with every count set to 0 just before it and read
     # just after; a kernel's launches are those of its own path.
-    by_path = {"serving": phase("serving", phase_serving, scene,
-                                device)["gather_windows"]}
+    served = phase("serving", phase_serving, scene, device)
+    by_path = {"serving": served["gather_windows"]}
+    timings["group_norm_act"] = phase("norm", phase_norm)
     timings["phase_pool"] = phase("pool", phase_pool, scene, device)
     pool_by_path = {"dense": phase("dense", phase_dense, scene,
                                    device)["phase_pool"]}
@@ -5424,7 +5470,8 @@ def _main() -> None:
     by_path["zoo"] = phase("zoo", phase_zoo, scene, device)
     by_path["train_ct"] = phase("train_ct", phase_train_ct, device)
     launches = {"gather_windows": sum(by_path.values()),
-                "phase_pool": sum(pool_by_path.values())}
+                "phase_pool": sum(pool_by_path.values()),
+                "group_norm_act": served["group_norm_act"]}
     launches["strip_gather"], timings["strip_gather"] = phase(
         "strip", phase_strip, scene, device)
     del scene
@@ -5450,7 +5497,10 @@ def _main() -> None:
                      **({k: t[k] for k in ("one", "single", "patch47", "tri",
                                            "quad", "sharded",
                                            "sharded_streams")}
-                        if name == "gather_windows" else {})})
+                        if name == "gather_windows" else {}),
+                     **({k: t[k] for k in ("max_ulps", "bit_equal_share",
+                                           "request")}
+                        if name == "group_norm_act" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

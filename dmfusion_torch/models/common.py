@@ -25,6 +25,12 @@ dense layer whose weight the placement shards computes its shard of the
 output features (:class:`SameConv2d`, :class:`Linear`:
 ``parallel/tensor.py::sharded_product``); unsharded, both are torch's
 layers.
+
+Where autograd records nothing through a norm (serving, evaluation), the
+GroupNorm, the residual add and the activation of :class:`ConvBlock` and
+:class:`ResBlock` run as one call, ``ops/norm.py::group_norm_act`` (the
+kernel B5 on the card), in the same arithmetic; the :class:`GroupNorm`
+modules hold the parameters either way (:func:`norm_act`).
 """
 
 from __future__ import annotations
@@ -36,19 +42,20 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dmfusion_torch.ops.norm import (ACTIVATIONS, GROUPNORM_EPS,
+                                     group_norm_act, group_norm_act_cuda)
 from dmfusion_torch.parallel.tensor import sharded_product, unsharded
 
-GROUPNORM_EPS = 1e-6
 LAYERNORM_EPS = 1e-6
+# The activations' names in ops/norm.py, by function.
+_ACT_NAMES = {fn: name for name, fn in ACTIVATIONS.items()}
 
 
 def activation_fn(cfg: Mapping[str, Any]) -> Callable[[torch.Tensor], torch.Tensor]:
     """Config-selected nonlinearity (reference config.yml schedule.activate)."""
     name = str(cfg.get("schedule", {}).get("activate", "Relu")).lower()
-    return {"relu": F.relu,
-            "gelu": lambda x: F.gelu(x, approximate="tanh"),
-            "silu": F.silu, "tanh": torch.tanh,
-            "leakyrelu": F.leaky_relu}[name]
+    return ACTIVATIONS[{"relu": "relu", "gelu": "gelu", "silu": "silu",
+                        "tanh": "tanh", "leakyrelu": "leaky_relu"}[name]]
 
 
 def tree_shape(tree: Mapping[str, Any], *path: str) -> tuple[int, ...]:
@@ -123,6 +130,31 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x).to(x.dtype)
 
 
+def norm_act(norm: GroupNorm, x: torch.Tensor, act: Callable,
+             residual: torch.Tensor | None = None) -> torch.Tensor:
+    """``act(norm(x) + residual)`` (no add without a residual).
+
+    Where autograd would record nothing through the norm (grad disabled,
+    or neither ``x``, the residual nor the norm's parameters require it),
+    one ``group_norm_act`` call computes it (an activation it has no code
+    for, or a residual of another dtype, is applied or added after it);
+    else the modules' autograd path, which on the card adds one to
+    ``group_norm_act_cuda.bypassed``: B5 has no backward."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, residual, norm.weight, norm.bias)):
+        if x.is_cuda:
+            group_norm_act_cuda.bypassed += 1
+        y = norm(x)
+        return act(y if residual is None else y + residual)
+    name = _ACT_NAMES.get(act)
+    if name is None or (residual is not None and residual.dtype != x.dtype):
+        y = group_norm_act(x, norm.num_groups, norm.weight, norm.bias, None)
+        return act(y if residual is None else y + residual)
+    return group_norm_act(x, norm.num_groups, norm.weight, norm.bias, name,
+                          residual)
+
+
 def conv_block_groups(features: int) -> int:
     """The largest divisor of ``features`` that is at most 8."""
     groups = min(8, features)
@@ -144,7 +176,9 @@ class ConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
-        return self.act(x if self.norm is None else self.norm(x))
+        if self.norm is None:
+            return self.act(x)
+        return norm_act(self.norm, x, self.act)
 
 
 class ResBlock(nn.Module):
@@ -161,9 +195,9 @@ class ResBlock(nn.Module):
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.norm(self.conv(self.block(x)))
+        y = self.conv(self.block(x))
         sc = x if self.shortcut is None else self.shortcut(x)
-        return self.act(y + sc)
+        return norm_act(self.norm, y, self.act, sc)
 
 
 class MLPHead(nn.Module):
