@@ -1,5 +1,9 @@
-"""Dense training: epochs of ``dmfusion_torch/train/steps.py::
-DensePrograms.train_epoch``, as the port's solver runs them.
+"""Training: epochs of the programs the port's solver picks for the
+model's arity (``dmfusion_torch/models/registry.py::model_arity``), as it
+runs them: ``dmfusion_torch/train/steps.py::DensePrograms.train_epoch``
+for a dense model (whole-scene features, then every anchor's window
+pooled), ``DualPrograms.train_epoch`` for a dual one (every batch's MS and
+PAN windows gathered, then the per-anchor model).
 
 Traffic keys: ``train_anchors`` (the train split's size: that many
 labeled pixels drawn from the seed), ``shuffle`` (``each_epoch``: every
@@ -11,18 +15,19 @@ each epoch's ids, labels and mask go to the card once.  A unit of the
 window is one whole epoch and its one loss fetch; the window's rate counts
 the real (unpadded) anchors.
 
-Set-up builds one model, optimizer and programs object (remat as the
-port's ``dense_remat_probe`` decides for ``dense_remat: auto``), and
-drives it through ``first_steps`` batches of an epoch with
-``train_epoch`` itself: the epoch's first batch (one call), then its
-second and its last (one call of two), the last padded and masked as the
-solver pads it.  The same object then trains through the window.  What
-the check compares is read then: each of those steps' loss, the first
-step's gradient (Adam's first moment after one step, over ``1 -
-beta1``), and the parameters' change over the steps.  The reference
-follows the same steps from the same weights with its own Adam, and once
-more computes the first step in bfloat16, the configuration's compute
-dtype, to scale the first gradient's rounding gap (``portbench/checks.py``).
+Set-up builds one model, optimizer and programs object (a dense model's
+remat as the port's ``dense_remat_probe`` decides for ``dense_remat:
+auto``; a dual model has none), and drives it through ``first_steps``
+batches of an epoch with ``train_epoch`` itself: the epoch's first batch
+(one call), then its second and its last (one call of two), the last
+padded and masked as the solver pads it.  The same object then trains
+through the window.  What the check compares is read then: each of those
+steps' loss, the first step's gradient (Adam's first moment after one
+step, over ``1 - beta1``), and the parameters' change over the steps.
+The reference follows the same steps from the same weights with its own
+Adam (its ``train_loss``), and once more computes the first step in
+bfloat16, the configuration's compute dtype, to scale the first
+gradient's rounding gap (``portbench/checks.py``).
 """
 
 from __future__ import annotations
@@ -40,13 +45,23 @@ from portbench.reference.common import bf16, exact, strict_float32
 from portbench.seeds import numpy_rng
 
 
-def setup(run) -> SimpleNamespace:
-    with run.spans.span("setup.import"):
-        from dmfusion_torch.solvers.main import dense_remat_probe
-        from dmfusion_torch.train.optim import make_optimizer
-        from dmfusion_torch.train.steps import DensePrograms
+#: The model arities whose programs this entry drives.
+ARITIES = ("dense", "dual")
 
+
+def setup(run) -> SimpleNamespace:
     c, t, dev = run.config, run.traffic, run.device
+    with run.spans.span("setup.import"):
+        from dmfusion_torch.models.registry import model_arity
+        arity = model_arity(c["model_name"])
+        if arity == "dense":
+            from dmfusion_torch.solvers.main import dense_remat_probe
+        from dmfusion_torch.train.optim import make_optimizer
+        from dmfusion_torch.train.steps import DensePrograms, DualPrograms
+
+    if arity not in ARITIES:
+        raise ValueError(f"train_epoch drives the programs of arities "
+                         f"{ARITIES}; {c['model_name']} has arity {arity!r}")
     if t["shuffle"] != "each_epoch":
         raise ValueError(f"train_epoch shuffles each epoch, not {t}")
     cfg = system.port_config(c, dev)
@@ -59,15 +74,22 @@ def setup(run) -> SimpleNamespace:
         weights.centre(params, system.reference(c), scene, run.seed)
         model = system.model_with(cfg, params, dev)
     n_train, batch = int(t["train_anchors"]), int(c["batchsize"])
-    remat = str(c.get("dense_remat", "auto"))
-    if remat == "auto":
-        with run.spans.span("setup.remat_probe"):
-            remat = dense_remat_probe(cfg, system.port_scene(scene), model,
-                                      n_train)["decision"]
-    model.remat = remat != "off"
-    print(f"[portbench] dense_remat {remat}", file=sys.stderr)
+    if arity == "dense":
+        remat = str(c.get("dense_remat", "auto"))
+        if remat == "auto":
+            with run.spans.span("setup.remat_probe"):
+                remat = dense_remat_probe(cfg, system.port_scene(scene),
+                                          model, n_train)["decision"]
+        model.remat = remat != "off"
+        print(f"[portbench] dense_remat {remat}", file=sys.stderr)
     with run.spans.span("setup.programs"):
         opt = make_optimizer(cfg, model.parameters(), -(-n_train // batch))
+        if arity == "dense":
+            programs = DensePrograms(model, scene.patch, optimizer=opt,
+                                     cfg=cfg)
+        else:
+            programs = DualPrograms(model, opt, cfg, scene.width,
+                                    scene.patch)
         flat = scene.label.reshape(-1).cpu().numpy().astype(np.int32)
         labeled = np.flatnonzero(flat).astype(np.int32)
         if labeled.shape[0] < n_train:
@@ -75,8 +97,7 @@ def setup(run) -> SimpleNamespace:
                              f"pixels, fewer than {n_train} train anchors")
         st = SimpleNamespace(
             scene=scene, params=params, model=model, opt=opt,
-            programs=DensePrograms(model, scene.patch, optimizer=opt,
-                                   cfg=cfg),
+            programs=programs,
             n_train=n_train, batch=batch, labels_flat=flat,
             train_ids=numpy_rng(run.seed, "split").permutation(
                 labeled)[:n_train],

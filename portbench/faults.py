@@ -10,6 +10,10 @@ could bring in by mistake:
   optimizer's state as they were;
 * ``half_batch``: a training step that leaves out the second half of every
   batch and takes the mean over the rest.
+
+The training faults are planted in both programs classes the training
+entry builds (``DensePrograms`` for a dense model, ``DualPrograms`` for a
+dual one): whichever the run builds carries the fault.
 """
 
 from __future__ import annotations
@@ -25,6 +29,14 @@ def _patched(cls, name: str, make):
         yield
     finally:
         setattr(cls, name, original)
+
+
+def _patched_all(*patches) -> contextlib.ExitStack:
+    """Each ``(cls, name, make)`` patched until the stack is closed."""
+    stack = contextlib.ExitStack()
+    for cls, name, make in patches:
+        stack.enter_context(_patched(cls, name, make))
+    return stack
 
 
 def answer_altered(classes: int):
@@ -44,14 +56,12 @@ def answer_altered(classes: int):
             return out
         return wrapped
 
-    stack = contextlib.ExitStack()
-    stack.enter_context(_patched(TorchClassifier, "predict", predict))
-    stack.enter_context(_patched(TorchClassifier, "class_map", class_map))
-    return stack
+    return _patched_all((TorchClassifier, "predict", predict),
+                        (TorchClassifier, "class_map", class_map))
 
 
 def state_unchanged():
-    from dmfusion_torch.train.steps import DensePrograms
+    from dmfusion_torch.train.steps import DensePrograms, DualPrograms
 
     def step(original):
         def wrapped(self, pooled, scene_args, ids_b, labels_b, mask_b):
@@ -60,11 +70,19 @@ def state_unchanged():
             return loss.detach()
         return wrapped
 
-    return _patched(DensePrograms, "_step", step)
+    def train_step(original):
+        def wrapped(self, inputs, labels_b, mask_b=None, count=None):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.loss(self.model(*inputs), labels_b, mask_b, count)
+            return loss.detach()
+        return wrapped
+
+    return _patched_all((DensePrograms, "_step", step),
+                        (DualPrograms, "train_step", train_step))
 
 
 def half_batch():
-    from dmfusion_torch.train.steps import DensePrograms
+    from dmfusion_torch.train.steps import DensePrograms, DualPrograms
 
     def train_epoch(original):
         def wrapped(self, scene_args, ids, labels, mask):
@@ -73,7 +91,8 @@ def half_batch():
             return original(self, scene_args, ids, labels, mask)
         return wrapped
 
-    return _patched(DensePrograms, "train_epoch", train_epoch)
+    return _patched_all((DensePrograms, "train_epoch", train_epoch),
+                        (DualPrograms, "train_epoch", train_epoch))
 
 
 #: The faults each traffic entry can have.

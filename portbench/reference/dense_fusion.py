@@ -30,7 +30,7 @@ Parameters are a dict of tensors under the port's parameter names
 from __future__ import annotations
 
 import math
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
@@ -58,10 +58,13 @@ def _res_spec(name: str, cin: int, cout: int) -> list:
     return spec
 
 
-def param_spec(width: int, ms_channels: int, classes: int) -> list:
-    """``[(name, shape, kind)]`` of every parameter, ``kind`` one of
-    kernel, kernel_in_out, bias, scale, alpha."""
-    w = width
+def param_spec(config: Mapping[str, Any]) -> list:
+    """``[(name, shape, kind)]`` of every parameter of the configuration
+    (its ``model_width``, ``scene_size``'s channels, ``classes``),
+    ``kind`` one of kernel, kernel_in_out, bias, scale, alpha."""
+    w = int(config["model_width"])
+    ms_channels = int(config["scene_size"][2])
+    classes = int(config["classes"])
     return ([("head1_kernel", (w, w), "kernel_in_out"),
              ("head1_bias", (w,), "bias"),
              ("head2_kernel", (w, classes), "kernel_in_out"),

@@ -24,13 +24,13 @@ the harness draws seeded weights from.
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 
 from portbench.reference.common import (Round, conv_same, exact, group_norm,
-                                        linear)
+                                        linear, masked_cross_entropy)
 
 GROUPS = 8
 #: The classifier's output bias (see ``portbench/weights.py::centre``).
@@ -60,10 +60,13 @@ def _res_spec(name: str, cin: int, cout: int, stride: int) -> list:
     return spec
 
 
-def param_spec(width: int, ms_channels: int, classes: int) -> list:
-    """``[(name, shape, kind)]`` of every parameter, ``kind`` one of
-    kernel, bias, scale."""
-    w = width
+def param_spec(config: Mapping[str, Any]) -> list:
+    """``[(name, shape, kind)]`` of every parameter of the configuration
+    (its ``model_width``, ``scene_size``'s channels, ``classes``),
+    ``kind`` one of kernel, bias, scale."""
+    w = int(config["model_width"])
+    ms_channels = int(config["scene_size"][2])
+    classes = int(config["classes"])
     return (_block_spec("ms_stem", ms_channels, w // 2)
             + _res_spec("ms_res", w // 2, w, 1)
             + _block_spec("pan.blocks.0", 16, w // 2)
@@ -149,3 +152,16 @@ def anchor_logits(p: Mapping[str, torch.Tensor], ms_scene: torch.Tensor,
                   patch: int, q: Round = exact) -> torch.Tensor:
     """(n, classes) logits of the anchors ``ids`` of a padded scene."""
     return logits(p, *windows(ms_scene, pan_scene, ids, width, patch), q)
+
+
+def train_loss(p: Mapping[str, torch.Tensor], ms_scene: torch.Tensor,
+               pan_scene: torch.Tensor, patch: int, ids: torch.Tensor,
+               labels: torch.Tensor, mask: torch.Tensor,
+               q: Round = exact) -> torch.Tensor:
+    """The masked mean cross-entropy of one batch of anchors of a padded
+    scene: the plain gather's windows, their logits, the mean over the
+    rows whose mask is 1."""
+    width = ms_scene.shape[1] - patch + 1
+    return masked_cross_entropy(
+        anchor_logits(p, ms_scene, pan_scene, ids, width, patch, q), labels,
+        mask)

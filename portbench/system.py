@@ -2,6 +2,19 @@
 config, its scene object, its model with the harness's seeded weights, and
 a served classifier loaded through the port's artifact format.
 
+A configuration file (``portbench/configs/<config>.json``) holds:
+``model_name`` (the port's registry name) and ``reference`` (the plain
+reference module, ``portbench/reference/<reference>.py``); the widths,
+``model_width``, ``gmfnet_pan`` (optional) and ``trans`` (optional: a
+transformer's widths in the port's own key names, ``window_size``,
+``embed_dim``, ``depths``, ``num_heads``, and for vit ``patch_size``,
+``depth``, ``num_head``; keys it leaves out keep the port's defaults);
+``patch_size``, ``city``, ``scene_size``, ``classes``; the precision,
+``scene_dtype``, ``compute_dtype``, ``param_dtype``; the schedule,
+``activate``, ``optimizer``, ``lr``, ``batchsize``, ``dense_remat``
+(optional); and ``source``, ``reduced``, ``assumed``, ``deployment``,
+which say where it comes from.
+
 This module and ``portbench/entries/`` are the only places that import the
 program (``dmfusion_torch``); they take its entry points, never its
 internals' results, into the check.
@@ -32,16 +45,21 @@ def tap(config: Mapping[str, Any]):
 
 
 def param_spec(config: Mapping[str, Any]) -> list:
-    return reference(config).param_spec(
-        int(config["model_width"]), int(config["scene_size"][2]),
-        int(config["classes"]))
+    """The configuration's parameters, ``[(name, shape, kind)]``, as its
+    reference lists them from the configuration."""
+    return reference(config).param_spec(config)
+
+
+#: The ``trans`` keys the port's transformers read.
+TRANS_KEYS = frozenset({"window_size", "embed_dim", "depths", "num_heads",
+                        "patch_size", "depth", "num_head"})
 
 
 def port_config(config: Mapping[str, Any], device: torch.device) -> dict:
     """The port's rendered config for this configuration."""
     from dmfusion_torch.config import load_config
 
-    cfg = load_config(overrides={
+    overrides = {
         "model_name": config["model_name"],
         "model_width": int(config["model_width"]),
         "gmfnet_pan": config.get("gmfnet_pan", "s2d"),
@@ -58,7 +76,15 @@ def port_config(config: Mapping[str, Any], device: torch.device) -> dict:
                      "optimizer": config["optimizer"],
                      "lr": float(config["lr"]), "if_scheduler": 0},
         "train": {"dense_remat": config.get("dense_remat", "auto")},
-    })
+    }
+    if "trans" in config:
+        unknown = sorted(set(config["trans"]) - TRANS_KEYS)
+        if unknown:
+            raise ValueError(f"configuration {config.get('name')}: trans keys "
+                             f"{unknown} are none of the port's "
+                             f"{sorted(TRANS_KEYS)}")
+        overrides["trans"] = dict(config["trans"])
+    cfg = load_config(overrides=overrides)
     size = list(cfg["DATA_DICT"][config["city"]]["size"])
     if size != list(config["scene_size"]) or int(
             cfg["Categories_Number"]) != int(config["classes"]):

@@ -2,7 +2,9 @@
 tests marked ``gpu`` need the card and skip without it (decided inside
 the ``card`` fixture, never at import)."""
 
+import json
 import os
+import shutil
 import sys
 
 import pytest
@@ -52,3 +54,55 @@ SMALL_OVER = {
 @pytest.fixture(scope="session")
 def small_over():
     return SMALL_OVER
+
+
+#: Cells that the harness drives but ``BENCHMARK.json`` does not hold yet,
+#: each with its workload entry, the limits of its check (read on the
+#: card at its own size, PERF.md) and its small sizes.  ``pending_bench``
+#: holds them beside the benchmark's own cells.
+PENDING = {
+    "gmfnet.train-b256": {
+        "workload": {
+            "name": "gmfnet.train-b256", "config": "gmfnet-w64-p16",
+            "traffic": "train-b256", "chips": 1,
+            "why": "DualPrograms epochs of 58,875 anchors in batches of "
+                   "256, Adam: B1's dual gather a step, gmfnet forward and "
+                   "backward with torch's GroupNorm (B5 bypassed under "
+                   "autograd); bypasses B2, s2d packing"},
+        "limits": {"sample": 0, "numbers": {
+            "grad_elem_vs_bf16": {"limit": 3.0, "lower": 1.316,
+                                  "upper": 5.30, "upper_from": "control"},
+            "delta_gap": {"limit": 0.3, "lower": 0.0721, "upper": 1.0,
+                          "upper_from": "state_unchanged"}}},
+        "over": {"config": dict(_SMALL, model_width=16, batchsize=64),
+                 "traffic": {"train_anchors": 400}},
+    },
+}
+
+
+@pytest.fixture(scope="session")
+def pending():
+    return PENDING
+
+
+@pytest.fixture(scope="session")
+def pending_bench(root, tmp_path_factory):
+    """The benchmark with the ``PENDING`` cells added as data: a copy of
+    ``BENCHMARK.json`` with their workload entries, and of the traffic
+    and limits files with their limits."""
+    from portbench.bench import Benchmark
+
+    tmp = tmp_path_factory.mktemp("pending")
+    pkg = tmp / "portbench"
+    for sub in ("traffic", "limits"):
+        shutil.copytree(os.path.join(root, "portbench", sub), pkg / sub)
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        spec = json.load(f)
+    for c in spec["configs"]:
+        c["file"] = os.path.join(root, c["file"])
+    for name, cell in PENDING.items():
+        spec["workloads"].append(cell["workload"])
+        (pkg / "limits" / f"{name}.json").write_text(
+            json.dumps(cell["limits"]))
+    (tmp / "BENCHMARK.json").write_text(json.dumps(spec))
+    return Benchmark(str(tmp), str(pkg))
