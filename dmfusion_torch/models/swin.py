@@ -26,6 +26,12 @@ whose heads the rule shards are gathered on use.
 The relative index and each shifted block's mask are numpy copies of
 dmfusion's, built once for the block's grid (the grid is fixed by
 ``patch_size``) and held as buffers that are not parameters.
+
+The attention core, from the split of ``qkv`` into q, k and v through
+the product with v, is the span ``swin.attn`` (``dmfusion_torch/trace.py``;
+the projections lie outside it), and every call counts one on
+``WindowAttention.calls`` and, under a shift mask, on
+``WindowAttention.masked``.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from dmfusion_torch.models.common import (LayerNorm, Linear, MLPHead,
                                           tree_shape)
 from dmfusion_torch.models.registry import register
 from dmfusion_torch.parallel.tensor import use
+from dmfusion_torch.trace import span
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -102,26 +109,36 @@ class WindowAttention(nn.Module):
         self.rel_bias.copy_(0.02 * torch.randn(self.rel_bias.shape,
                                                generator=generator))
 
+    #: Calls of the attention core (the ``swin.attn`` span), and those
+    #: among them under a shift mask, over every instance.
+    calls = 0
+    masked = 0
+
     def forward(self, wins: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         b_, n, dim = wins.shape
         hd = dim // self.heads
-        qkv = self.qkv(wins).reshape(b_, n, 3, self.heads, hd)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)          # (b_, heads, n, hd)
-        attn = q @ k.transpose(-1, -2)
-        # flax: / jnp.sqrt(jnp.asarray(hd, dtype)), a sqrt in the compute
-        # dtype.
-        attn = attn / float(torch.tensor(float(hd), dtype=attn.dtype).sqrt())
-        bias = use(self, "rel_bias")[self.rel_index].reshape(n, n,
-                                                             self.heads)
-        attn = attn + bias.permute(2, 0, 1)[None].to(attn.dtype)
-        if mask is not None:
-            nw = mask.shape[0]
-            attn = attn.reshape(b_ // nw, nw, self.heads, n, n)
-            attn = attn + mask.to(attn.dtype)[None, :, None]
-            attn = attn.reshape(b_, self.heads, n, n)
-        attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-        out = (attn @ v).transpose(1, 2).reshape(b_, n, dim)
+        qkv = self.qkv(wins)
+        WindowAttention.calls += 1
+        WindowAttention.masked += int(mask is not None)
+        with span("swin.attn"):
+            qkv = qkv.reshape(b_, n, 3, self.heads, hd)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)      # (b_, heads, n, hd)
+            attn = q @ k.transpose(-1, -2)
+            # flax: / jnp.sqrt(jnp.asarray(hd, dtype)), a sqrt in the
+            # compute dtype.
+            attn = attn / float(torch.tensor(float(hd),
+                                             dtype=attn.dtype).sqrt())
+            bias = use(self, "rel_bias")[self.rel_index].reshape(
+                n, n, self.heads)
+            attn = attn + bias.permute(2, 0, 1)[None].to(attn.dtype)
+            if mask is not None:
+                nw = mask.shape[0]
+                attn = attn.reshape(b_ // nw, nw, self.heads, n, n)
+                attn = attn + mask.to(attn.dtype)[None, :, None]
+                attn = attn.reshape(b_, self.heads, n, n)
+            attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
+            out = (attn @ v).transpose(1, 2).reshape(b_, n, dim)
         return self.proj(out)
 
 
