@@ -428,6 +428,26 @@ Phases; any failure exits non-zero before the result line:
                 under autocast, the add, ReLU) timed at each, with the
                 bytes bound; the unit row is ms_res's second norm, and the
                 13 launches of a request are summed.
+  23. attn    — (run after norm) the fused window-attention core (B6) at
+                each of Swin-T's four stage shapes at B 1024 (window 7,
+                hd 32), unshifted and shifted under its mask, bf16,
+                against its plain version on the card (largest gap,
+                absolute and relative) and, over all 1,024 anchors and
+                over the first 16 alone, both against a float64 truth:
+                the kernel's mean error at most the plain version's, its
+                largest at most twice it; the float32 body
+                within 1e-5 of the plain version (TF32 off); the kernel,
+                the plain version and ``F.scaled_dot_product_attention``
+                on the partitioned q, k and v (a yardstick) timed at each,
+                with the bytes bound, and the 24 calls of a request summed
+                (``tools/attn_probe.run``); then ``swin_t_dual`` at
+                Swin-T's widths, patch 56, served in requests of 1,024
+                through ``ScenePredictor``: 24 B6 launches a request, 12
+                masked, none bypassed, and the device time
+                ``key_averages()`` gives the ``swin.attn`` spans of a
+                profiled request within 5 % of B6's own CUDA-event time
+                (``tools/attn_probe.serve``); the unit row is the first
+                stage's shifted core.
 Every phase logs its seconds (``phase NAME: S s``), and a ``phase
 seconds`` line sums them up.  Then a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``.  The
@@ -474,14 +494,15 @@ from dmfusion_torch.models.registry import register
 from dmfusion_torch.ops import gather as gather_ops
 from dmfusion_torch.ops import ihs
 from dmfusion_torch.ops import norm as norm_ops
+from dmfusion_torch.ops import attention as attn_ops
 from dmfusion_torch.ops import conv3x3 as conv_ops
 from dmfusion_torch.ops import pool as pool_ops
 from dmfusion_torch.ops import strip_gather as strip_ops
 from dmfusion_torch.ops._build import load_library
 from dmfusion_torch.ops.metrics import aa_oa, confusion_matrix, render_class_map
 from dmfusion_torch.tools import (BF16_FLOP_PER_S, HBM_BYTES_PER_S, card_line,
-                                  conv_kernel_probe, gather_probe,
-                                  norm_probe, ptxas_report,
+                                  attn_probe, conv_kernel_probe,
+                                  gather_probe, norm_probe, ptxas_report,
                                   strip_gather_bench, time_in_turns)
 from dmfusion_torch.parallel.mesh import all_gather_rows
 from dmfusion_torch.parallel.partition import full_state, shard_model
@@ -852,6 +873,12 @@ KERNELS = {
         "counter": norm_ops.group_norm_act_cuda,
         "unit": "ms_res's second norm: (4096, 64, 16, 16) bf16 "
                 "channels-last with residual, ReLU"},
+    "window_attn": {
+        "route": "cuda", "source": "dmfusion_torch/csrc/window_attn.cu",
+        "replaces": "none",
+        "counter": attn_ops.window_attn_cuda,
+        "unit": "Swin-T's first-stage shifted core: (1024, 56, 56, 288) "
+                "bf16 qkv, window 7, 3 heads of 32, masked"},
 }
 
 
@@ -1122,6 +1149,31 @@ def phase_norm() -> dict:
             "library_ms": unit["library_ms"], "bound_ms": unit["bound_ms"],
             "bound_by": f"bytes, {unit['moved_bytes'] / 1e6:.1f} MB",
             "request": probe["request"]}
+
+
+def phase_attn() -> tuple[dict, int]:
+    """B6 at Swin-T's cores, B 1024: checked against the plain version and
+    timed (``tools/attn_probe.run``); a served ``swin_t_dual`` request's
+    launches and the profiler's linkage (``tools/attn_probe.serve``);
+    returns the unit row with a request's sums, and the served launches."""
+    try:
+        probe = attn_probe.run("cuda", 1024)
+        served = attn_probe.serve("cuda", 1024)
+    except RuntimeError as e:
+        check(False, f"attn: {e}")
+    for row in probe["cores"]:
+        log(f"attn: {json.dumps(row)}")
+    log(f"attn: a request's 24 launches (ms): {json.dumps(probe['request'])}"
+        f"; f32 body: {json.dumps(probe['f32'])}")
+    log(f"attn: served swin_t_dual request: {json.dumps(served)}")
+    unit = probe["unit"]
+    return {"max_abs_err": unit["max_abs_err"],
+            "max_rel_err": max(r["max_rel_err"] for r in probe["cores"]),
+            "ms": unit["ms"], "plain_ms": unit["plain_ms"],
+            "library_ms": unit["library_ms"], "bound_ms": unit["bound_ms"],
+            "bound_by": f"bytes, {unit['moved_bytes'] / 1e6:.1f} MB",
+            "request": probe["request"], "served": served}, \
+        served["launches"]
 
 
 def _pool_out(hm: int, wm: int, patch: int) -> tuple[int, int]:
@@ -5442,6 +5494,7 @@ def _main() -> None:
     served = phase("serving", phase_serving, scene, device)
     by_path = {"serving": served["gather_windows"]}
     timings["group_norm_act"] = phase("norm", phase_norm)
+    timings["window_attn"], attn_launches = phase("attn", phase_attn)
     timings["phase_pool"] = phase("pool", phase_pool, scene, device)
     pool_by_path = {"dense": phase("dense", phase_dense, scene,
                                    device)["phase_pool"]}
@@ -5471,7 +5524,8 @@ def _main() -> None:
     by_path["train_ct"] = phase("train_ct", phase_train_ct, device)
     launches = {"gather_windows": sum(by_path.values()),
                 "phase_pool": sum(pool_by_path.values()),
-                "group_norm_act": served["group_norm_act"]}
+                "group_norm_act": served["group_norm_act"],
+                "window_attn": attn_launches}
     launches["strip_gather"], timings["strip_gather"] = phase(
         "strip", phase_strip, scene, device)
     del scene
@@ -5500,7 +5554,9 @@ def _main() -> None:
                         if name == "gather_windows" else {}),
                      **({k: t[k] for k in ("max_ulps", "bit_equal_share",
                                            "request")}
-                        if name == "group_norm_act" else {})})
+                        if name == "group_norm_act" else {}),
+                     **({k: t[k] for k in ("max_rel_err", "request", "served")}
+                        if name == "window_attn" else {})})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dmfusion_torch.ops import records_grad
 from dmfusion_torch.ops.norm import (ACTIVATIONS, GROUPNORM_EPS,
                                      group_norm_act, group_norm_act_cuda)
 from dmfusion_torch.parallel.tensor import sharded_product, unsharded
@@ -140,9 +141,7 @@ def norm_act(norm: GroupNorm, x: torch.Tensor, act: Callable,
     for, or a residual of another dtype, is applied or added after it);
     else the modules' autograd path, which on the card adds one to
     ``group_norm_act_cuda.bypassed``: B5 has no backward."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, residual, norm.weight, norm.bias)):
+    if records_grad(x, residual, norm.weight, norm.bias):
         if x.is_cuda:
             group_norm_act_cuda.bypassed += 1
         y = norm(x)

@@ -23,14 +23,21 @@ On the mesh's model axis every dense layer is column-parallel
 whole before it is split into q, k and v), and ``pos`` and a bias table
 whose heads the rule shards are gathered on use.
 
-The relative index and each shifted block's mask are numpy copies of
-dmfusion's, built once for the block's grid (the grid is fixed by
-``patch_size``) and held as buffers that are not parameters.
+Each shifted block's mask is a numpy copy of dmfusion's, built once for
+the block's grid (the grid is fixed by ``patch_size``) and held as a
+buffer that is not a parameter.
 
-The attention core, from the split of ``qkv`` into q, k and v through
-the product with v, is the span ``swin.attn`` (``dmfusion_torch/trace.py``;
-the projections lie outside it), and every call counts one on
-``WindowAttention.calls`` and, under a shift mask, on
+The projections are per token, so they commute with the shift and the
+partition: ``qkv`` and ``proj`` run on the (B, H, W, C) grid, and between
+them the attention core (``ops/attention.py::window_attn``) takes the grid
+and does the roll, the partition, the core, the reverse and the roll back.
+On the card, where autograd records nothing, that is B6, one kernel with
+the shift and the partition in its addressing and the scores, bias and
+mask in float32 up to the softmax; everywhere else (training, the CPU) its
+plain version, and each such call on the card counts one on
+``window_attn_cuda.bypassed``.  The core is the span ``swin.attn``
+(``dmfusion_torch/trace.py``; the projections lie outside it), and every
+call counts one on ``WindowAttention.calls`` and, under a shift mask, on
 ``WindowAttention.masked``.
 """
 
@@ -47,31 +54,9 @@ from dmfusion_torch.models.common import (LayerNorm, Linear, MLPHead,
                                           PanPyramid, activation_fn, dtypes,
                                           tree_shape)
 from dmfusion_torch.models.registry import register
+from dmfusion_torch.ops.attention import window_attn
 from dmfusion_torch.parallel.tensor import use
 from dmfusion_torch.trace import span
-
-
-def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
-    """(B, H, W, C) -> (B * nH * nW, ws*ws, C)."""
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // ws, ws, w // ws, ws, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws, c)
-
-
-def window_reverse(x: torch.Tensor, ws: int, b: int, h: int,
-                   w: int) -> torch.Tensor:
-    c = x.shape[-1]
-    x = x.reshape(b, h // ws, w // ws, ws, ws, c)
-    return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, c)
-
-
-def _relative_index(ws: int) -> np.ndarray:
-    """(ws*ws, ws*ws) indices into the (2ws-1)^2 relative-bias table."""
-    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws),
-                                  indexing="ij")).reshape(2, -1)
-    rel = coords[:, :, None] - coords[:, None, :]     # (2, N, N)
-    rel = rel + (ws - 1)
-    return rel[0] * (2 * ws - 1) + rel[1]
 
 
 def _shift_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
@@ -91,18 +76,17 @@ def _shift_mask(h: int, w: int, ws: int, shift: int) -> np.ndarray:
 
 
 class WindowAttention(nn.Module):
-    """Multi-head attention within windows + learned relative-position
-    bias, optionally masked for shifted windows."""
+    """Multi-head attention within (shifted) windows of a grid + learned
+    relative-position bias, masked for shifted windows."""
 
     def __init__(self, dim: int, heads: int, window: int):
         super().__init__()
         self.heads = heads
+        self.window = window
         self.qkv = Linear(dim, 3 * dim)
         self.proj = Linear(dim, dim)
         self.rel_bias = nn.Parameter(torch.zeros((2 * window - 1) ** 2,
                                                  heads))
-        self.register_buffer("rel_index", torch.from_numpy(
-            _relative_index(window).reshape(-1)), persistent=False)
 
     def flax_init(self, generator: torch.Generator) -> None:
         """The bias table: normal(0.02), as flax's initializer."""
@@ -114,31 +98,17 @@ class WindowAttention(nn.Module):
     calls = 0
     masked = 0
 
-    def forward(self, wins: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
-        b_, n, dim = wins.shape
-        hd = dim // self.heads
-        qkv = self.qkv(wins)
+    def forward(self, y: torch.Tensor, mask: torch.Tensor | None,
+                shift: int) -> torch.Tensor:
+        """(B, H, W, C) -> (B, H, W, C): ``qkv`` on the grid, the core on
+        windows shifted by ``shift`` (under ``mask``), ``proj`` on the
+        grid."""
+        qkv = self.qkv(y)
         WindowAttention.calls += 1
         WindowAttention.masked += int(mask is not None)
         with span("swin.attn"):
-            qkv = qkv.reshape(b_, n, 3, self.heads, hd)
-            q, k, v = qkv.permute(2, 0, 3, 1, 4)      # (b_, heads, n, hd)
-            attn = q @ k.transpose(-1, -2)
-            # flax: / jnp.sqrt(jnp.asarray(hd, dtype)), a sqrt in the
-            # compute dtype.
-            attn = attn / float(torch.tensor(float(hd),
-                                             dtype=attn.dtype).sqrt())
-            bias = use(self, "rel_bias")[self.rel_index].reshape(
-                n, n, self.heads)
-            attn = attn + bias.permute(2, 0, 1)[None].to(attn.dtype)
-            if mask is not None:
-                nw = mask.shape[0]
-                attn = attn.reshape(b_ // nw, nw, self.heads, n, n)
-                attn = attn + mask.to(attn.dtype)[None, :, None]
-                attn = attn.reshape(b_, self.heads, n, n)
-            attn = torch.softmax(attn.float(), dim=-1).to(v.dtype)
-            out = (attn @ v).transpose(1, 2).reshape(b_, n, dim)
+            out = window_attn(qkv, use(self, "rel_bias"), mask, self.window,
+                              shift, self.heads)
         return self.proj(out)
 
 
@@ -163,16 +133,7 @@ class SwinBlock(nn.Module):
         self.register_buffer("mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, h, w, _ = x.shape
-        s = self.shift
-        y = self.norm1(x)
-        if s:
-            y = torch.roll(y, (-s, -s), dims=(1, 2))
-        y = self.attn(window_partition(y, self.ws), self.mask)
-        y = window_reverse(y, self.ws, b, h, w)
-        if s:
-            y = torch.roll(y, (s, s), dims=(1, 2))
-        x = x + y
+        x = x + self.attn(self.norm1(x), self.mask, self.shift)
         return x + self.fc2(self.act(self.fc1(self.norm2(x))))
 
 

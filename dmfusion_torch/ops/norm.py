@@ -46,6 +46,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from dmfusion_torch.ops import records_grad
 from dmfusion_torch.trace import span
 
 GROUPNORM_EPS = 1e-6
@@ -242,9 +243,7 @@ def group_norm_act_cuda(x: torch.Tensor, groups: int, weight: torch.Tensor,
     rather than return an output that drops the gradient."""
     if not x.is_cuda:
         raise ValueError("group_norm_act_cuda needs a CUDA tensor")
-    tensors = (x, weight, bias, residual)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in tensors):
+    if records_grad(x, weight, bias, residual):
         raise RuntimeError("group_norm_act_cuda has no backward: call it "
                            "under torch.no_grad() or inference_mode")
     _check(x, groups, weight, bias, act, residual)

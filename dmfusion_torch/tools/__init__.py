@@ -6,6 +6,7 @@ with ``chip_smoke.py``.
     python -m dmfusion_torch.tools.pool_probe           # kernel B2
     python -m dmfusion_torch.tools.gather_probe         # kernel B1
     python -m dmfusion_torch.tools.norm_probe           # kernel B5
+    python -m dmfusion_torch.tools.attn_probe           # kernel B6
 
 Each runs on ``cuda:0`` unless given ``--device cpu`` (a small run of the
 plain versions, untimed), and raises when no card is present.

@@ -39,6 +39,7 @@ from dmfusion_torch.models import build_model
 from dmfusion_torch.models.common import init_params
 from dmfusion_torch.models.convert import (_lstm_to_torch, load_flax_params,
                                            params_from_flax, params_to_flax)
+from dmfusion_torch.ops import attention
 from dmfusion_torch.ops import contourlet as ct
 from dmfusion_torch.report.viz import channel_grid
 from dmfusion_torch.solvers import Solver, TwoStageSolver
@@ -135,7 +136,7 @@ def test_autocast_keeps_the_transform_f32():
 
 @pytest.mark.parametrize("ws", [2, 4])
 def test_swin_tables_are_dmfusions(ws):
-    np.testing.assert_array_equal(swin._relative_index(ws),
+    np.testing.assert_array_equal(attention.relative_index(ws),
                                   jswin._relative_index(ws))
     for h in (ws, 2 * ws, 4 * ws):
         for shift in range(1, ws):
